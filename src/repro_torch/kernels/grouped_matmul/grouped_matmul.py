@@ -1,0 +1,90 @@
+"""Grouped (per-expert) matmul for the MoE expert FFN.
+
+Hopper counterpart of ``src/repro/kernels/grouped_matmul/grouped_matmul.py``
+(``grouped_matmul``, Pallas body ``_gmm_kernel``): ``y[e] = x[e] @ w[e]`` with
+f32 accumulation and rows ``>= counts[e]`` written as zero.  The CUDA kernel
+is ``csrc/grouped_matmul.cu``: WMMA bf16 tensor-core tiles (128x128x32) for
+bf16 and plain f32 FMAs (no TF32) for f32, ragged edges masked.  At the MoE
+prefill shapes the product is bound by tensor-core operations, at decode by
+reading the weights; a row tile wholly past ``counts[e]`` skips its K loop and
+only writes zeros.
+
+A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
+the kernel or raises.  ``grouped_matmul.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ... import _build
+from .ref import grouped_matmul_ref
+
+__all__ = ["grouped_matmul"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT_MAX = 2 ** 31 - 1
+
+
+def _fn():
+    fn = _build.load("grouped_matmul").grouped_matmul
+    if fn.argtypes is None:  # 64-bit pointers need declared argtypes
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x [E, C, D] @ w [E, D, F] -> [E, C, F]`` in ``x``'s dtype.
+
+    ``counts [E]`` (int32) gives each expert's valid rows; rows at or past
+    it are zero.  ``None`` means every row is valid.
+    """
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"need x [E, C, D] and w [E, D, F], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    e, c, d = x.shape
+    f = w.shape[-1]
+    if tuple(w.shape) != (e, d, f):
+        raise ValueError(f"w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if counts is not None and tuple(counts.shape) != (e,):
+        raise ValueError(f"counts must be [{e}], got {tuple(counts.shape)}")
+    # checked on every device, so that a CPU run finds what the card refuses
+    if x.device.type not in ("cpu", "cuda") or w.device != x.device:
+        raise ValueError(f"grouped_matmul takes CPU or CUDA tensors on one "
+                         f"device, got {x.device} and {w.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"grouped_matmul takes f32 or bf16 x and w of one "
+                         f"dtype, got {x.dtype} and {w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped_matmul needs contiguous x and w")
+    if max(e, c, d, f) > _INT_MAX:
+        raise ValueError("grouped_matmul dimensions must fit in int32")
+    if counts is not None and (counts.dtype != torch.int32
+                               or counts.device != x.device
+                               or not counts.is_contiguous()):
+        raise ValueError("counts must be contiguous int32 on x's device")
+    if x.device.type == "cpu":
+        return grouped_matmul_ref(x, w, counts)
+    fn = _fn()
+    y = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                   None if counts is None else counts.data_ptr(),
+                   e, c, d, f, _DTYPES[x.dtype],
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped_matmul launch failed: cudaError {rc}")
+    grouped_matmul.launches += 1
+    return y
+
+
+grouped_matmul.launches = 0

@@ -1,0 +1,68 @@
+"""Distribution context: which axes of the local mesh play which role.
+
+Counterpart of ``src/repro/models/dist.py`` over a ``LocalMesh``
+(``launch/mesh.py``).  ``None`` in place of a context means the
+single-device path, the correctness oracle for the distributed one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from ..configs.registry import ModelConfig
+from ..core.topology import Topology
+from ..launch.mesh import LocalMesh
+
+__all__ = ["DistContext", "choose_ep_axes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    mesh: LocalMesh
+    dp_axes: Tuple[str, ...]            # batch-sharded axes (the MoE island)
+    slow_axis: Optional[str]            # inter-pod axis ("pod"), if present
+    ep_axes: Optional[Tuple[str, ...]]  # expert-parallel axes, slow-major
+    # Registry name consumed by comm.all_to_all.resolve_all_to_all.
+    a2a_impl: str = "flash"             # direct | plan | auto (flash: todo)
+    # Physical fabric, when known; a2a_impl="auto" resolves against it.
+    topology: Optional[Topology] = None
+    # Synthesized schedule (core.plan.Plan or simulator.ExecutableSchedule)
+    # backing a2a_impl="plan"; "auto" prefers "plan" whenever this is set.
+    plan: Optional[object] = None
+    # False runs the plain PyTorch versions of the kernels on this path
+    # (pack, unpack, grouped matmul) instead of the CUDA kernels.
+    use_kernel: bool = True
+
+    @property
+    def ep_size(self) -> int:
+        if not self.ep_axes:
+            return 1
+        return self.mesh.axis_size(self.ep_axes)
+
+
+def choose_ep_axes(cfg: ModelConfig, mesh: LocalMesh
+                   ) -> Optional[Tuple[str, ...]]:
+    """Pick EP axes for an arch on a mesh: the largest slow-major prefix of
+    the DP axes whose size divides num_experts.
+
+    Priority (production mesh pod=2, data=16):
+      E % (pod*data) == 0 -> ("pod", "data")   # megatron-moe-32e
+      E % data == 0       -> ("data",)         # dbrx-16e
+      E % pod == 0        -> ("pod",)          # mixtral-8e
+      otherwise           -> None              # experts replicated
+    """
+    if cfg.moe is None:
+        return None
+    shape = dict(zip(mesh.axis_names, mesh.shape))
+    e = cfg.moe.num_experts
+    has_pod = "pod" in shape
+    pod = shape.get("pod", 1)
+    data = shape.get("data", 1)
+    if has_pod and e % (pod * data) == 0:
+        return ("pod", "data")
+    if e % data == 0 and data > 1:
+        return ("data",)
+    if has_pod and e % pod == 0 and pod > 1:
+        return ("pod",)
+    return None

@@ -1,0 +1,330 @@
+"""Foundation layers: norms, RoPE, GQA attention (full / sliding-window /
+chunked online-softmax / decode against a cache), MLPs.
+
+Counterpart of ``src/repro/models/layers.py``.  Parameters live in
+``nn.Module``s whose attribute names are the JAX dict keys (``scale``,
+``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down``), so the
+functions below read ``p.wq`` where the reference reads ``p["wq"]``.
+Attention is plain PyTorch, as the reference computes it outside any
+Pallas kernel.  The decode cache is updated in place (the reference returns
+a new one) to keep one copy of it in device memory.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.registry import ModelConfig
+
+NEG_INF = -1e30
+
+__all__ = [
+    "dense_init", "embed_init", "param", "Norm", "Attention", "MLP",
+    "norm_apply", "rms_head_norm", "apply_rope", "attention_apply",
+    "assemble_kv_cache", "attention_decode", "mlp_apply",
+]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device) -> torch.Tensor:
+    """N(0, 1/d_in) weights drawn in f32, then cast (as the reference)."""
+    scale = 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.to(dtype) * 0.02
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A frozen parameter: the serving path takes no gradients."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    def __init__(self, cfg: ModelConfig, d: int, device):
+        super().__init__()
+        self.scale = param(torch.ones((d,), dtype=torch.float32,
+                                      device=device))
+        if cfg.norm == "layernorm":
+            self.bias = param(torch.zeros((d,), dtype=torch.float32,
+                                          device=device))
+
+
+def norm_apply(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    if cfg.norm == "layernorm":
+        mu = x32.mean(-1, keepdim=True)
+        var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + 1e-6)
+        y = y * p.scale + p.bias
+    else:
+        ms = (x32 ** 2).mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + 1e-6) * p.scale
+    return y.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-head RMS norm over head_dim (Qwen3 qk-norm)."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 ** 2).mean(-1, keepdim=True) + 1e-6)
+    return (y * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, Dh]; positions: [..., S] (broadcastable)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)       # [Dh/2]
+    angles = positions[..., None].float() * freqs          # [..., S, Dh/2]
+    cos = torch.cos(angles)[..., None, :]                  # [..., S, 1, Dh/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype,
+                 device):
+        super().__init__()
+        d, h, k, dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim)
+        self.wq = param(dense_init(gen, d, h * dh, dtype, device))
+        self.wk = param(dense_init(gen, d, k * dh, dtype, device))
+        self.wv = param(dense_init(gen, d, k * dh, dtype, device))
+        self.wo = param(dense_init(gen, h * dh, d, dtype, device))
+        if cfg.qk_norm:
+            self.q_norm = param(torch.ones((dh,), dtype=torch.float32,
+                                           device=device))
+            self.k_norm = param(torch.ones((dh,), dtype=torch.float32,
+                                           device=device))
+
+
+def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                 positions: torch.Tensor, rope: bool = True):
+    b, s, _ = x.shape
+    h, k, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, dh)
+    kk = (x @ p.wk.to(x.dtype)).reshape(b, s, k, dh)
+    v = (x @ p.wv.to(x.dtype)).reshape(b, s, k, dh)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p.q_norm)
+        kk = rms_head_norm(kk, p.k_norm)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kk = apply_rope(kk, positions, cfg.rope_theta)
+    return q, kk, v
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return x
+    b, s, k, dh = x.shape
+    return x[:, :, :, None, :].expand(b, s, k, n_rep, dh).reshape(
+        b, s, k * n_rep, dh)
+
+
+def _band_mask(sq: int, skv: int, q_offset: int, window: Optional[int],
+               causal: bool, device) -> torch.Tensor:
+    """[sq, skv] bool mask. q position = q_offset + i, kv position = j."""
+    qi = q_offset + torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(skv, device=device)[None, :]
+    m = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= kj <= qi
+    if window is not None:
+        m &= kj > qi - window
+    return m
+
+
+def mha_einsum(q, k, v, mask) -> torch.Tensor:
+    """Reference attention: q [B,Sq,H,Dh], k/v [B,Skv,H,Dh], mask [Sq,Skv]."""
+    dh = q.shape[-1]
+    # f32 scores, as the reference's division by a numpy scalar promotes
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dh)
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def mha_chunked(q, k, v, *, q_offset: int, window: Optional[int],
+                causal: bool, use_window: bool = True, q_chunk: int = 1024,
+                kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax chunked attention: O(Sq*chunk) memory."""
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    n_q, n_kv = sq // q_chunk, skv // kv_chunk
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    outs = []
+    for qi in range(n_q):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        lsum = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, q_chunk, h, dh), dtype=torch.float32,
+                          device=dev)
+        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk,
+                                                      device=dev)[:, None]
+        for kj in range(n_kv):
+            kc = k[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            vc = v[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() * scale
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= kpos <= qpos
+            if window is not None and use_window:
+                mask &= kpos > qpos - window
+            s = torch.where(mask[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            pr = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + pr.sum(-1)
+            acc = acc * corr.transpose(1, 2)[..., None]
+            acc = acc + torch.einsum("bhqk,bkhd->bqhd", pr.to(q.dtype),
+                                     vc).float()
+            m = m_new
+        out = acc / torch.clamp(lsum.transpose(1, 2)[..., None], min=1e-30)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
+                    positions: torch.Tensor, causal: bool = True,
+                    window: Optional[int] = None, use_window: bool = True,
+                    chunked_threshold: int = 2048, return_kv: bool = False):
+    """Self-attention over a full sequence (prefill).
+
+    With ``return_kv`` also returns the (pre-GQA-repeat) keys/values."""
+    b, s, _ = x.shape
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    kr = _repeat_kv(k, h // kv)
+    vr = _repeat_kv(v, h // kv)
+    if s > chunked_threshold:
+        out = mha_chunked(q, kr, vr, q_offset=0, window=window,
+                          use_window=use_window, causal=causal)
+    else:
+        eff = window if (window is not None and use_window) else None
+        out = mha_einsum(q, kr, vr, _band_mask(s, s, 0, eff, causal,
+                                               x.device))
+    out = out.reshape(b, s, h * cfg.resolved_head_dim)
+    out = out @ p.wo.to(out.dtype)
+    if not return_kv:
+        return out
+    return out, (k, v)
+
+
+def assemble_kv_cache(k: torch.Tensor, v: torch.Tensor,
+                      window: Optional[int], cache_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Place prefill keys/values [B, S, K, Dh] into a decode cache of
+    physical length min(cache_len, window or cache_len), ring-aligned so
+    position p lives at slot p % phys (matching attention_decode)."""
+    s = k.shape[1]
+    phys = cache_len if window is None else min(cache_len, window)
+
+    def place(x):
+        if s >= phys:
+            xw = x[:, s - phys:]
+            shift = s % phys
+            return torch.roll(xw, shift, dims=1) if shift else xw.clone()
+        return F.pad(x, (0, 0, 0, 0, 0, phys - s))
+
+    return place(k), place(v)
+
+
+def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     *, window: Optional[int] = None):
+    """One-token decode against a (ring-buffered, if windowed) KV cache.
+
+    x [B, 1, d]; caches [B, S_phys, K, Dh], written in place at ``pos``.
+    Returns (out [B, 1, d], cache_k, cache_v)."""
+    b = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    s_phys = cache_k.shape[1]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    slot = pos if window is None else pos % s_phys
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
+    g = h // kv
+    q5 = q.reshape(b, 1, kv, g, dh)
+    scores = torch.einsum("bqkgd,bskd->bqkgs", q5, cache_k).float() \
+        / math.sqrt(dh)
+    valid = torch.arange(s_phys, device=x.device) < min(pos + 1, s_phys)
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bqkgs,bskd->bqkgd", probs, cache_v)
+    out = out.reshape(b, 1, h * dh) @ p.wo.to(x.dtype)
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype,
+                 device, d_ff: Optional[int] = None):
+        super().__init__()
+        d = cfg.d_model
+        f = d_ff or cfg.d_ff
+        if cfg.act == "silu":
+            self.w_gate = param(dense_init(gen, d, f, dtype, device))
+            self.w_up = param(dense_init(gen, d, f, dtype, device))
+            self.w_down = param(dense_init(gen, f, d, dtype, device))
+        else:
+            self.w_up = param(dense_init(gen, d, f, dtype, device))
+            self.b_up = param(torch.zeros((f,), dtype=torch.float32,
+                                          device=device))
+            self.w_down = param(dense_init(gen, f, d, dtype, device))
+            self.b_down = param(torch.zeros((d,), dtype=torch.float32,
+                                            device=device))
+
+
+def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.act == "silu":
+        h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
+        return h @ p.w_down.to(dt)
+    h = F.gelu(x @ p.w_up.to(dt) + p.b_up.to(dt), approximate="tanh")
+    return h @ p.w_down.to(dt) + p.b_down.to(dt)

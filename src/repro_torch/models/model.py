@@ -1,0 +1,50 @@
+"""Unified model API: ``build_model(cfg, device)`` -> init / prefill /
+init_cache / decode_step.
+
+Counterpart of ``src/repro/models/model.py`` for the serving slice: the
+training loss and the encoder-decoder family are not ported yet.  The model
+runs on ``device``, the card unless the caller asks for the CPU; asking for a
+CUDA device without one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..configs.registry import ModelConfig
+from ..launch.mesh import resolve_device
+from . import transformer
+
+__all__ = ["Model", "build_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable[[torch.Generator], Any]  # gen -> LM module
+    prefill: Callable[..., Any]       # (params, batch, dist, cache_len)
+    init_cache: Callable[..., Any]    # (batch, seq_len) -> cache
+    decode_step: Callable[..., Any]   # (params, cache, tokens, pos, dist)
+
+
+def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    if cfg.encdec:
+        raise NotImplementedError(
+            "the encoder-decoder family is not ported to PyTorch yet: "
+            "ROADMAP.md Queue 1, item 4 (dense, ssm and encdec stacks)")
+    transformer.layer_kinds(cfg)  # raises for block kinds not ported yet
+    dev = resolve_device(device)
+    return Model(
+        cfg=cfg,
+        init=lambda gen: transformer.init_lm(gen, cfg, dev),
+        prefill=lambda params, batch, dist=None, cache_len=None:
+            transformer.lm_prefill(cfg, params, batch["tokens"], batch, dist,
+                                   cache_len=cache_len),
+        init_cache=lambda batch, seq_len: transformer.init_decode_cache(
+            cfg, batch, seq_len, dev),
+        decode_step=lambda params, cache, tokens, pos, dist=None:
+            transformer.lm_decode_step(cfg, params, cache, tokens, pos, dist),
+    )
