@@ -7,30 +7,34 @@ Run from the root of a checkout, with no arguments:
 
 Phases (each raises on failure; none is caught):
 
-1. build: compile every CUDA source of ``src/repro_torch/csrc`` with nvcc;
-2. kernels: run ``a2a_pack``, ``a2a_unpack`` and ``grouped_matmul`` at the
-   serving path's prefill and decode shapes and at ragged ones, hold each
-   against its plain PyTorch version (pack and unpack bit for bit;
-   grouped_matmul within a relative error of 1e-5 in f32 and 2e-2 in bf16)
-   and time each, its plain version and one PyTorch library call with CUDA
-   events (median of 20);
+1. build: compile every CUDA source of ``src/repro_torch/csrc`` with nvcc, all
+   at once;
+2. kernels: run ``a2a_pack``, ``a2a_unpack``, ``grouped_matmul`` and
+   ``flash_attention`` at the serving paths' prefill and decode shapes and at
+   ragged ones, hold each against its plain PyTorch version (pack and unpack
+   bit for bit; grouped_matmul within a relative error of 1e-5 in f32 and
+   2e-2 in bf16; flash_attention within an absolute error of 2e-5 in f32 and
+   2e-2 in bf16, the reference's kernel tolerances) and time each, its plain
+   version and one PyTorch library call with CUDA events (median of 20);
    then a small f32 MoE layer on a (2, 2, 1) mesh against its one-rank path;
-3. serve: megatron-moe-32e at its published widths (4 of 24 layers, random
-   weights from a seed) on a local (pod 2, data 16, model 1) mesh, expert
-   dispatch through the FAST plan: prefill of 32 prompts of 128 tokens, then
-   15 decode steps (16 generated tokens per request), counting each kernel's
-   launches;
-4. the same serving run with ``a2a_impl="direct"``: prefill logits
-   bit-identical to the plan run, greedy tokens equal;
-5. the same prefill with the plain versions (``use_kernel=False``).  In
-   bf16 the kernel and the plain product round differently, and from the
-   second layer on a near-tie in a router's top-k can flip, moving that
-   sequence's logits by O(1); the logit difference and every routing
-   decision that differs are printed.  The gates: routing of the first
-   layer (identical inputs) is equal; the first MoE layer on identical
-   inputs agrees within 2e-2; and the same full-width prefill in f32 routes
-   every token alike and agrees within a relative logit difference of 1e-4
-   (the f32 serving tests' limit).
+3. megatron-moe-32e at its published widths (4 of 24 layers, random weights
+   from a seed) on a local (pod 2, data 16, model 1) mesh, expert dispatch
+   through the FAST plan: prefill of 32 prompts of 128 tokens, then 15
+   decode steps, counting each kernel's launches; the same with ``direct``
+   and a prefill with the config's ``flash`` (logits bit-identical to the
+   plan's); then the plain versions (``use_kernel=False``): routing
+   decisions that differ are counted, and the gates are the first attention
+   layer and the first MoE layer on identical bf16 inputs (within 2e-2,
+   routing equal) and the prefill in f32 (within a relative logit
+   difference of 1e-4, no routing decision that differs);
+4. mixtral-8x7b at its published widths (4 of 32 layers) on the same mesh,
+   its 8 experts over ``pod`` alone: (a) 32 prompts of 1024 tokens and 15
+   decode steps through ``plan``, then through the config's ``flash`` (the
+   rotation schedule), bit-identical; (b) int8 dispatch through ``plan``,
+   its first MoE layer within (0, 0.05) of exact on identical inputs, the
+   prefill's logits and routing differences reported; (c) one prompt of
+   8192 tokens through the 4096-token window and 15 decode steps on the
+   4096-slot ring cache; the gates of phase 3 at mixtral's shapes.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 results, and ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
@@ -40,6 +44,7 @@ no result, without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -55,11 +60,14 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, no TF32
 ARCH, N_LAYERS = "megatron-moe-32e", 4
+MIX_ARCH, MIX_LAYERS = "mixtral-8x7b", 4
 MESH = (2, 16, 1)
 BATCH, PROMPT, GEN = 32, 128, 16
+MIX_PROMPT, LONG_PROMPT, F32_PROMPT = 1024, 8192, 128
 SEED = 0
 TIMED_RUNS = 20
 DEVICE = "cuda"
+KERNELS = ("a2a_pack", "a2a_unpack", "grouped_matmul", "flash_attention")
 
 
 def serve_config():
@@ -67,6 +75,13 @@ def serve_config():
     from repro_torch.configs import get_config
 
     return get_config(ARCH, n_layers=N_LAYERS)
+
+
+def mixtral_config(**over):
+    """mixtral-8x7b at its published widths, depth cut to MIX_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return get_config(MIX_ARCH, n_layers=MIX_LAYERS, **over)
 
 
 def log(*a):
@@ -97,6 +112,11 @@ def rel_err(torch, y, ref) -> float:
 
 def max_abs(torch, y, ref) -> float:
     return (y.float() - ref.float()).abs().max().item()
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check_pack(torch, k, x, idx, block_rows) -> float:
@@ -131,6 +151,7 @@ def check_unpack(torch, k, y, idx, block_rows, n_out, trash=None) -> float:
     if not torch.equal(got, ref[named]):
         raise AssertionError(f"a2a_unpack != plain: {tuple(y.shape)} r={r}")
     err = max_abs(torch, got, ref[named])
+    del out, got
     extra = 3
     big = torch.full(((n_tot + extra) * r, d), 7, dtype=y.dtype,
                      device=y.device)
@@ -145,14 +166,82 @@ def check_unpack(torch, k, y, idx, block_rows, n_out, trash=None) -> float:
     return err
 
 
-def phase_kernels(torch):
-    """Kernels against their plain versions, then timings at the serving
-    path's shapes.  Returns the kernel result rows."""
+def gmm_bound(x, w):
+    """(bound ms, what bounds it) of ``x [E, C, D] @ w [E, D, F]`` in bf16."""
+    ee, c, dd = x.shape
+    ff = w.shape[2]
+    t_ops = 2 * ee * c * dd * ff / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    t_bytes = (x.numel() + w.numel() + ee * c * ff) * 2 \
+        / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def band_pairs(s, causal, window) -> int:
+    """Visible (query, key) pairs of one head of S tokens."""
+    q = np.arange(s, dtype=np.int64)
+    hi = q if causal else np.full(s, s - 1, np.int64)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attn_bound(b, h, kv, s, d, causal, window, dtype_name, elem):
+    """(bound ms, what bounds it) of one flash_attention call: 4 * D
+    operations per visible pair and head; q, k, v read and o written once."""
+    t_ops = 4 * b * h * d * band_pairs(s, causal, window) \
+        / PEAK_OPS_PER_S[dtype_name] * 1e3
+    t_bytes = (2 * b * h + 2 * b * kv) * s * d * elem / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def exchange_rows(torch, mesh_shape, plan):
+    """Global pack / unpack index rows of the plan exchange on
+    ``mesh_shape`` (``plan_all_to_all``'s), and the unpack side's trash
+    blocks."""
     from repro_torch.comm.plan_exec import _global_rows, lower_plan
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device(DEVICE)
+    p, i = mesh_shape[0], mesh_shape[1]
+    n_ranks = p * i
+    sched = lower_plan(plan, n_pods=p)
+    pods = tuple(q for q in range(p) for _ in range(i))
+    island = make_mesh(mesh_shape[:2], ("pod", "data"), dev)
+    dst_idx = _global_rows(island, sched, pods, p, "dst_of", None, dev)
+    src_idx = _global_rows(island, sched, pods, p + 1, "src_of", p, dev)
+    n_out = n_ranks * (p + 1)
+    trash = torch.zeros(max(n_out, src_idx.shape[0]), dtype=torch.bool,
+                        device=dev)
+    trash[torch.arange(n_ranks, device=dev) * (p + 1) + p] = True
+    return sched, dst_idx, src_idx, n_out, trash
+
+
+def copy_times(torch, k, x, idx, block, d, n_out, unpack):
+    """(kernel, plain, library) ms of one pack or unpack."""
+    dev = x.device
+    n_blocks = idx.shape[0]
+    il = idx.long()
+    if unpack:
+        out = torch.zeros((n_out * block, d), dtype=x.dtype, device=dev)
+        xv, ov = x.view(n_blocks, block, d), out.view(n_out, block, d)
+        return (cuda_ms(torch, lambda: k.a2a_unpack(
+                    x, idx, n_out_blocks=n_out, block_rows=block)),
+                cuda_ms(torch, lambda: k.a2a_unpack_ref(
+                    x, idx, n_out_blocks=n_out, block_rows=block)),
+                cuda_ms(torch, lambda: ov.index_copy_(0, il, xv)))
+    xv = x.view(-1, block, d)
+    return (cuda_ms(torch, lambda: k.a2a_pack(x, idx, block_rows=block)),
+            cuda_ms(torch, lambda: k.a2a_pack_ref(x, idx, block_rows=block)),
+            cuda_ms(torch, lambda: torch.index_select(xv, 0, il)))
+
+
+def phase_kernels(torch):
+    """a2a_pack, a2a_unpack and grouped_matmul against their plain versions
+    on ragged shapes, then at megatron's and mixtral's exchange and expert
+    products, with timings.  Returns the kernel result rows by name; each
+    row's ``shapes`` lists every serving shape timed."""
     from repro_torch.kernels import a2a_pack as k
     from repro_torch.kernels.grouped_matmul import (
         grouped_matmul, grouped_matmul_ref)
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import flash_plan
     from repro_torch.models.moe import _capacity
 
@@ -161,7 +250,7 @@ def phase_kernels(torch):
 
     # ragged shapes, every dtype the exchange may carry
     for dt in (torch.float32, torch.bfloat16, torch.int8):
-        for d in (5, 64, 130, 2048):
+        for d in (1, 5, 64, 130, 2048):
             for r in (1, 3, 8, 24):
                 x = (torch.randn((6 * r, d), generator=gen, device=dev)
                      * 50).to(dt)
@@ -193,149 +282,256 @@ def phase_kernels(torch):
     log("kernels: grouped_matmul within 1e-5 (f32) / 2e-2 (bf16) on ragged "
         "shapes, with and without counts")
 
-    # the serving path's shapes
-    cfg = serve_config()
+    bf16 = torch.bfloat16
     p, i = MESH[0], MESH[1]
     n_ranks = p * i
-    e_loc = cfg.moe.num_experts // n_ranks
-    d = cfg.d_model
-    sched = lower_plan(flash_plan(p, i, SEED), n_pods=p)
-    s = sched.n_stages
-    pods = tuple(q for q in range(p) for _ in range(i))
-    bf16 = torch.bfloat16
-    rows = []
-
-    island = make_mesh(MESH[:2], ("pod", "data"), dev)
-    dst_idx = _global_rows(island, sched, pods, p, "dst_of", None, dev)
-    src_idx = _global_rows(island, sched, pods, p + 1, "src_of", p, dev)
-    n_out = n_ranks * (p + 1)
-    trash = torch.zeros(max(n_out, src_idx.shape[0]), dtype=torch.bool,
-                        device=dev)
-    trash[torch.arange(n_ranks, device=dev) * (p + 1) + p] = True
-
-    def exchange(cap, what):
-        """Fresh send rows and received stages of one exchange at capacity
-        ``cap``, each kernel checked against its plain version on them."""
-        block = i * e_loc * cap
-        x2 = torch.randn((n_ranks * p * block, d), generator=gen,
-                         device=dev).to(bf16)
-        stack2 = torch.randn((n_ranks * (s + 1) * block, d), generator=gen,
-                             device=dev).to(bf16)
-        errs = (check_pack(torch, k, x2, dst_idx, block),
-                check_unpack(torch, k, stack2, src_idx, block, n_out, trash))
-        torch.cuda.synchronize()
-        log(f"kernels: pack/unpack bit-exact at the {what} exchange: "
-            f"{n_ranks} ranks x {s + 1} slots x {block} rows x {d} bf16")
-        return block, x2, stack2, errs
-
-    def copy_times(x, idx, block, unpack):
-        """(kernel, plain, library) ms of one pack or unpack."""
-        n_blocks = idx.shape[0]
-        il = idx.long()
-        if unpack:
-            out = torch.zeros((n_out * block, d), dtype=x.dtype, device=dev)
-            xv, ov = x.view(n_blocks, block, d), out.view(n_out, block, d)
-            return (cuda_ms(torch, lambda: k.a2a_unpack(
-                        x, idx, n_out_blocks=n_out, block_rows=block)),
-                    cuda_ms(torch, lambda: k.a2a_unpack_ref(
-                        x, idx, n_out_blocks=n_out, block_rows=block)),
-                    cuda_ms(torch, lambda: ov.index_copy_(0, il, xv)))
-        xv = x.view(-1, block, d)
-        return (cuda_ms(torch, lambda: k.a2a_pack(x, idx, block_rows=block)),
-                cuda_ms(torch, lambda: k.a2a_pack_ref(
-                    x, idx, block_rows=block)),
-                cuda_ms(torch, lambda: torch.index_select(xv, 0, il)))
-
-    cap = _capacity(cfg, BATCH // n_ranks * PROMPT, cfg.moe.num_experts)
-    cap_dec = _capacity(cfg, BATCH // n_ranks, cfg.moe.num_experts)
-    block, x2, stack2, errs = exchange(cap, "prefill")
-    block_dec, x2_dec, stack2_dec, errs_dec = exchange(cap_dec, "decode")
-    for j, (name, x, idx, unpack) in enumerate((
-            ("a2a_pack", x2, dst_idx, False),
-            ("a2a_unpack", stack2, src_idx, True))):
-        n_blocks = idx.shape[0]
-        ms, plain, lib = copy_times(x, idx, block, unpack)
-        rows.append({"name": name, "route": "cuda",
+    plan = flash_plan(p, i, SEED)
+    rows = {
+        "a2a_pack": {"name": "a2a_pack", "route": "cuda",
                      "source": "src/repro_torch/csrc/a2a_block_copy.cu",
                      "replaces": "src/repro/kernels/a2a_pack/a2a_pack.py:73",
-                     "shape": f"{n_blocks} blocks x {block} x {d} bf16",
-                     "max_abs_err": max(errs[j], errs_dec[j]),
-                     "max_err": max(errs[j], errs_dec[j]), "ms": ms,
-                     "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": 2 * n_blocks * block * d * x.element_size()
-                     / HBM_BYTES_PER_S * 1e3,
-                     "bound_by": "bytes"})
-    for name, x, idx, unpack in (("a2a_pack", x2_dec, dst_idx, False),
-                                 ("a2a_unpack", stack2_dec, src_idx, True)):
-        ms, plain, lib = copy_times(x, idx, block_dec, unpack)
-        nbytes = 2 * idx.shape[0] * block_dec * d * x.element_size()
-        log(f"timing: {name} decode shape {idx.shape[0]} blocks x "
-            f"{block_dec} x {d} bf16: {ms:.4f} ms (plain {plain:.4f} ms, "
-            f"library {lib:.4f} ms, bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
-    del x2, stack2, x2_dec, stack2_dec
+                     "max_abs_err": 0.0, "shapes": []},
+        "a2a_unpack": {"name": "a2a_unpack", "route": "cuda",
+                       "source": "src/repro_torch/csrc/a2a_block_copy.cu",
+                       "replaces":
+                       "src/repro/kernels/a2a_pack/a2a_pack.py:73",
+                       "max_abs_err": 0.0, "shapes": []},
+        "grouped_matmul": {
+            "name": "grouped_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_matmul.cu",
+            "replaces":
+            "src/repro/kernels/grouped_matmul/grouped_matmul.py:76",
+            "max_abs_err": 0.0, "max_err": 0.0, "shapes": []},
+    }
 
-    # grouped matmul at the island's products: prefill and decode, gate/up
-    # [E, C, d] @ [E, d, f] and down [E, C, f] @ [E, f, d], counts=None
-    f = cfg.d_ff
-    w_up = (torch.randn((cfg.moe.num_experts, d, f), generator=gen,
-                        device=dev) / d ** 0.5).to(bf16)
-    w_dn = (torch.randn((cfg.moe.num_experts, f, d), generator=gen,
-                        device=dev) / f ** 0.5).to(bf16)
-    e = n_ranks * e_loc
-    worst_rel = worst_abs = 0.0
-    acts = {}
-    for what, c in (("prefill", n_ranks * cap), ("decode", n_ranks * cap_dec)):
-        tok = torch.randn((e, c, d), generator=gen, device=dev).to(bf16)
-        h = torch.randn((e, c, f), generator=gen, device=dev).to(bf16)
-        acts[what] = (tok, h)
-        for x, w in ((tok, w_up), (h, w_dn)):
-            y, ref = grouped_matmul(x, w), grouped_matmul_ref(x, w)
-            err = rel_err(torch, y, ref)
-            if not err < 2e-2:
-                raise AssertionError(
-                    f"grouped_matmul bf16 at the {what} shape "
-                    f"{tuple(x.shape)} @ {tuple(w.shape)}: rel err {err}")
-            worst_rel = max(worst_rel, err)
-            worst_abs = max(worst_abs, max_abs(torch, y, ref))
-            del y, ref
-    log(f"kernels: grouped_matmul bf16 within 2e-2 at the prefill and decode "
-        f"products (gate/up and down): worst rel err {worst_rel:.3e}")
+    # The exchanges: megatron's EP over (pod, data) (one slot per stage of
+    # i * E_loc * C rows), mixtral's over pod alone (E_loc * C rows a slot),
+    # each at the prefill and the decode capacity.  Mixtral's int8 dispatch
+    # exchanges int8 rows and f32 scale rows of width 1 as well.
+    sched, dst_idx, src_idx, n_out, trash = exchange_rows(torch, MESH, plan)
+    s = sched.n_stages
+    for arch, cfg, fast in ((ARCH, serve_config(), True),
+                            (MIX_ARCH, mixtral_config(), False)):
+        e = cfg.moe.num_experts
+        e_loc = e // (n_ranks if fast else p)
+        prompt = PROMPT if arch == ARCH else MIX_PROMPT
+        dtypes = ((bf16, cfg.d_model),) if fast else (
+            (bf16, cfg.d_model), (torch.int8, cfg.d_model),
+            (torch.float32, 1))
+        for what, t in (("prefill", BATCH // n_ranks * prompt),
+                        ("decode", BATCH // n_ranks)):
+            cap = _capacity(cfg, t, e)
+            block = (i if fast else 1) * e_loc * cap
+            for dt, d in dtypes:
+                x2 = (torch.randn((n_ranks * p * block, d), generator=gen,
+                                  device=dev) * 50).to(dt)
+                stack2 = (torch.randn((n_ranks * (s + 1) * block, d),
+                                      generator=gen, device=dev) * 50).to(dt)
+                errs = (check_pack(torch, k, x2, dst_idx, block),
+                        check_unpack(torch, k, stack2, src_idx, block, n_out,
+                                     trash))
+                for kname, err in zip(("a2a_pack", "a2a_unpack"), errs):
+                    rows[kname]["max_abs_err"] = max(
+                        rows[kname]["max_abs_err"], err)
+                torch.cuda.synchronize()
+                name = str(dt).replace("torch.", "")
+                log(f"kernels: pack/unpack bit-exact at the {arch} {what} "
+                    f"exchange: {n_ranks} ranks x {s + 1} slots x {block} "
+                    f"rows x {d} {name}")
+                if dt is bf16:
+                    for kname, x, idx, unpack in (
+                            ("a2a_pack", x2, dst_idx, False),
+                            ("a2a_unpack", stack2, src_idx, True)):
+                        ms, plain, lib = copy_times(torch, k, x, idx, block,
+                                                    d, n_out, unpack)
+                        nbytes = idx.shape[0] * block * d * x.element_size()
+                        entry = {
+                            "path": f"{arch} {what}",
+                            "shape": f"{idx.shape[0]} blocks x {block} x "
+                                     f"{d} bf16",
+                            "ms": ms, "plain_ms": plain, "library_ms": lib,
+                            "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+                            "bound_by": "bytes"}
+                        rows[kname]["shapes"].append(entry)
+                        log("timing:", kname, json.dumps(entry))
+                del x2, stack2
+    free(torch)
 
-    def gmm_bound(x, w):
-        ee, c, dd = x.shape
-        ff = w.shape[2]
-        t_ops = 2 * ee * c * dd * ff / PEAK_OPS_PER_S["bfloat16"] * 1e3
-        t_bytes = (x.numel() + w.numel() + ee * c * ff) * 2 \
-            / HBM_BYTES_PER_S * 1e3
-        return max(t_ops, t_bytes), \
-            "operations" if t_ops >= t_bytes else "bytes"
-
-    tok, _ = acts["prefill"]
-    bound, by = gmm_bound(tok, w_up)
-    rows.append({
-        "name": "grouped_matmul", "route": "cuda",
-        "source": "src/repro_torch/csrc/grouped_matmul.cu",
-        "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:76",
-        "shape": f"[{e}, {tok.shape[1]}, {d}] @ [{e}, {d}, {f}] bf16",
-        "max_abs_err": worst_abs, "max_err": worst_rel,
-        "ms": cuda_ms(torch, lambda: grouped_matmul(tok, w_up)),
-        "plain_ms": cuda_ms(torch, lambda: grouped_matmul_ref(tok, w_up)),
-        "library_ms": cuda_ms(torch, lambda: torch.bmm(tok, w_up)),
-        "bound_ms": bound, "bound_by": by})
-    for what, (x, w) in (("prefill down", (acts["prefill"][1], w_dn)),
-                         ("decode gate/up", (acts["decode"][0], w_up)),
-                         ("decode down", (acts["decode"][1], w_dn))):
-        bound, by = gmm_bound(x, w)
-        log(f"timing: grouped_matmul {what} {tuple(x.shape)} @ "
-            f"{tuple(w.shape)}: "
-            f"{cuda_ms(torch, lambda: grouped_matmul(x, w)):.4f} ms (plain "
-            f"{cuda_ms(torch, lambda: grouped_matmul_ref(x, w)):.4f} ms, bmm "
-            f"{cuda_ms(torch, lambda: torch.bmm(x, w)):.4f} ms, bound "
-            f"{bound:.4f} ms by {by})")
-    for row in rows:
-        log("timing:", json.dumps(row))
+    # grouped matmul at the expert products: gate/up [E, C, d] @ [E, d, f]
+    # and down [E, C, f] @ [E, f, d], prefill and decode, counts=None (the
+    # island's and the split island's groups hold many ranks' chunks)
+    for arch, cfg in ((ARCH, serve_config()), (MIX_ARCH, mixtral_config())):
+        e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+        prompt = PROMPT if arch == ARCH else MIX_PROMPT
+        w_up = (torch.randn((e, d, f), generator=gen, device=dev)
+                / d ** 0.5).to(bf16)
+        w_dn = (torch.randn((e, f, d), generator=gen, device=dev)
+                / f ** 0.5).to(bf16)
+        for what, t in (("prefill", BATCH // n_ranks * prompt),
+                        ("decode", BATCH // n_ranks)):
+            # a group holds one expert's C rows from every rank
+            c = n_ranks * _capacity(cfg, t, e)
+            for kind, (x, w) in (
+                    ("gate/up", (torch.randn((e, c, d), generator=gen,
+                                             device=dev).to(bf16), w_up)),
+                    ("down", (torch.randn((e, c, f), generator=gen,
+                                          device=dev).to(bf16), w_dn))):
+                y, ref = grouped_matmul(x, w), grouped_matmul_ref(x, w)
+                err = rel_err(torch, y, ref)
+                if not err < 2e-2:
+                    raise AssertionError(
+                        f"grouped_matmul bf16 at the {arch} {what} {kind} "
+                        f"shape {tuple(x.shape)} @ {tuple(w.shape)}: rel err "
+                        f"{err}")
+                row = rows["grouped_matmul"]
+                row["max_err"] = max(row["max_err"], err)
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         max_abs(torch, y, ref))
+                del y, ref
+                bound, by = gmm_bound(x, w)
+                entry = {
+                    "path": f"{arch} {what} {kind}",
+                    "shape": f"{list(x.shape)} @ {list(w.shape)} bf16",
+                    "ms": cuda_ms(torch, lambda: grouped_matmul(x, w)),
+                    "plain_ms": cuda_ms(
+                        torch, lambda: grouped_matmul_ref(x, w),
+                        runs=TIMED_RUNS if arch == ARCH else 5, warmup=1),
+                    "library_ms": cuda_ms(torch, lambda: torch.bmm(x, w)),
+                    "bound_ms": bound, "bound_by": by}
+                row["shapes"].append(entry)
+                log("timing: grouped_matmul", json.dumps(entry))
+                del x
+                free(torch)
+        log(f"kernels: grouped_matmul bf16 within 2e-2 at the {arch} "
+            f"prefill and decode products (gate/up and down)")
+        del w_up, w_dn
+        free(torch)
+    log(f"kernels: grouped_matmul worst rel err "
+        f"{rows['grouped_matmul']['max_err']:.3e}")
     return rows
+
+
+def phase_flash_attention(torch):
+    """flash_attention against its plain version on ragged shapes and at
+    the serving paths' prefill shapes (f32 within 2e-5, bf16 within 2e-2,
+    absolute), then timings in bf16 beside the plain version and
+    ``scaled_dot_product_attention``.  Returns the kernel's result row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention)
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+    def inputs(b, h, kv, s, d, dt):
+        return [torch.randn(shape, generator=gen, device=dev).to(dt)
+                for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
+
+    def check(b, h, kv, s, d, causal, window, dt) -> float:
+        q, k, v = inputs(b, h, kv, s, d, dt)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal=causal, window=window)
+        err = max_abs(torch, out, ref)
+        if not (err <= tols[dt] and bool(torch.isfinite(out.float()).all())):
+            raise AssertionError(
+                f"flash_attention {dt} b{b} h{h} k{kv} s{s} d{d} causal="
+                f"{causal} window={window}: max abs err {err} > {tols[dt]}")
+        return err
+
+    worst = {dt: 0.0 for dt in tols}
+    n = 0
+    for dt in tols:
+        for s in (1, 37, 130, 1000):
+            for d in (8, 12, 16, 40, 64, 128):
+                for group in (1, 4):
+                    for causal in (True, False):
+                        for window in (None, 5, 100):
+                            worst[dt] = max(worst[dt], check(
+                                1, 2 * group, 2, s, d, causal, window, dt))
+                            n += 1
+    torch.cuda.synchronize()
+    log(f"kernels: flash_attention within 2e-5 (f32) / 2e-2 (bf16) on {n} "
+        f"ragged shapes (S 1 to 1000, head dims 8 to 128, groups 1 and 4, "
+        f"causal and not, windows none, 5, 100): worst "
+        f"{worst[torch.float32]:.3e} / {worst[torch.bfloat16]:.3e}")
+
+    meg, mix = serve_config(), mixtral_config()
+    shapes = [(f"{arch} {what}", batch, cfg.n_heads, cfg.n_kv_heads, s,
+               cfg.resolved_head_dim, cfg.swa_window)
+              for arch, cfg, what, batch, s in (
+                  (ARCH, meg, "prefill", BATCH, PROMPT),
+                  (MIX_ARCH, mix, "prefill", BATCH, MIX_PROMPT),
+                  (MIX_ARCH, mix, "long prefill", 1, LONG_PROMPT))]
+    entries = []
+    for path, b, h, kv, s, d, w in shapes:
+        for dt in tols:
+            err = check(b, h, kv, s, d, True, w, dt)
+            worst[dt] = max(worst[dt], err)
+            log(f"kernels: flash_attention at the {path} shape "
+                f"[{b}, {h}, {s}, {d}] kv {kv} window {w} {dt}: max abs err "
+                f"{err:.3e}")
+            free(torch)
+        q, k, v = inputs(b, h, kv, s, d, torch.bfloat16)
+        if w is not None and w < s:
+            qi = torch.arange(s, device=dev)
+            band = (qi[None, :] <= qi[:, None]) & (qi[None, :] > qi[:, None]
+                                                   - w)
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True))
+            del band
+        else:
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        bound, by = attn_bound(b, h, kv, s, d, True, w, "bfloat16", 2)
+        entry = {
+            "path": path, "shape": f"q [{b}, {h}, {s}, {d}], kv heads {kv}, "
+                                   f"causal, window {w}, bf16",
+            "ms": cuda_ms(torch, lambda: flash_attention(
+                q, k, v, causal=True, window=w)),
+            "plain_ms": cuda_ms(torch, lambda: attention_ref(
+                q, k, v, causal=True, window=w), runs=5, warmup=1),
+            "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        entries.append(entry)
+        log("timing: flash_attention", json.dumps(entry))
+        if s == LONG_PROMPT:
+            full = cuda_ms(torch, lambda: flash_attention(q, k, v,
+                                                          causal=True))
+            log(f"timing: flash_attention {path} without the window "
+                f"(causal only): {full:.4f} ms against {entry['ms']:.4f} ms "
+                f"with it; visible pairs {band_pairs(s, True, None)} against "
+                f"{band_pairs(s, True, w)} (tiles outside the window are "
+                f"skipped)")
+        if s == MIX_PROMPT:
+            # attention_apply's layout moves: q, k, v [B, S, H, D] to
+            # [B, H, S, D] before the kernel, and the output back
+            qs = q.transpose(1, 2).contiguous()
+            ks = k.transpose(1, 2).contiguous()
+            o = flash_attention(q, k, v, causal=True, window=w)
+
+            def moves():
+                qs.transpose(1, 2).contiguous()
+                ks.transpose(1, 2).contiguous()
+                ks.transpose(1, 2).contiguous()
+                o.transpose(1, 2).reshape(b, s, h * d)
+            log(f"timing: attention_apply's transposes around the kernel at "
+                f"the {path} shape: {cuda_ms(torch, moves):.4f} ms")
+            del qs, ks, o
+        del q, k, v
+        free(torch)
+    main = entries[1]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces":
+            "src/repro/kernels/flash_attention/flash_attention.py:122",
+            "shape": main["shape"],
+            "max_abs_err": max(worst.values()),
+            "max_abs_err_f32": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "shapes": entries}
 
 
 def phase_small_reference(torch):
@@ -368,7 +564,7 @@ def phase_small_reference(torch):
 
 class RouteRecorder:
     """Records every MoE routing decision (the expert ids of each token's
-    top-k) while active."""
+    top-k, ``[G, T, k]`` sorted) while active."""
 
     def __init__(self):
         from repro_torch.models import moe
@@ -386,17 +582,21 @@ class RouteRecorder:
         self.moe._route = self.real
 
 
-def route_flips(torch, rec_a, rec_b, n_layers):
-    """Routing decisions of the timed prefills (the second ``n_layers``
-    recorded) that differ between two recorders: (count, total, per
-    layer)."""
-    pairs = list(zip(rec_a.eids[n_layers:], rec_b.eids[n_layers:]))
-    if len(pairs) != n_layers:
-        raise AssertionError(f"recorded {len(pairs)} routings, expected "
-                             f"{n_layers}")
-    per_layer = [int((a != b).any(-1).sum()) for a, b in pairs]
-    return sum(per_layer), sum(a.shape[0] * a.shape[1] for a, _ in pairs), \
-        per_layer
+def route_flips(torch, routes_a, routes_b, batch):
+    """Routing decisions of two prefills that differ: (count, total, per
+    layer, per sequence [B] bool).  Tokens are rank-major, which is
+    sequence-major, so flat token ``j`` belongs to sequence ``j // S``."""
+    if len(routes_a) != len(routes_b):
+        raise AssertionError(f"recorded {len(routes_a)} and "
+                             f"{len(routes_b)} routings")
+    per_layer, per_seq = [], None
+    for a, b in zip(routes_a, routes_b):
+        tok = (a != b).any(-1).reshape(batch, -1)
+        per_layer.append(int(tok.sum()))
+        seq = tok.any(-1)
+        per_seq = seq if per_seq is None else per_seq | seq
+    total = sum(a.shape[0] * a.shape[1] for a in routes_a)
+    return sum(per_layer), total, per_layer, per_seq
 
 
 def reset_launches(kernels):
@@ -409,25 +609,35 @@ def read_launches(kernels):
 
 
 def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
-          use_kernel=True, decode=True):
-    """Prefill (warm-up, then timed) and greedy decode through the serving
-    step builders.  Returns logits, tokens, timings and launch counts."""
+          use_kernel=True, decode=True, warmup=True, record=False):
+    """Prefill (a warm-up, then timed) and greedy decode of GEN tokens
+    through the serving step builders.  Returns logits, tokens, timings,
+    launch counts (counts set to 0 just before the timed prefill and before
+    decode) and, with ``record``, the timed prefill's routing decisions."""
     from repro_torch.launch.serve import make_prefill_step, make_serve_step
 
-    total = PROMPT + GEN
+    prompt = prompts.shape[1]
+    total = prompt + GEN
     prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total,
                                 use_kernel=use_kernel)
     step = make_serve_step(cfg, mesh, impl, plan, use_kernel=use_kernel)
     batch = {"tokens": prompts}
-    prefill(params, batch)                                  # warm-up
+    if warmup:
+        prefill(params, batch)
     torch.cuda.synchronize()
     reset_launches(kernels)
+    rec = RouteRecorder()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, batch)
+    if record:
+        with rec:
+            logits, cache = prefill(params, batch)
+    else:
+        logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    res = {"logits": logits, "prefill_s": t_prefill,
-           "prefill_launches": read_launches(kernels)}
+    res = {"logits": logits, "prefill_s": t_prefill, "routes": rec.eids,
+           "prefill_launches": read_launches(kernels),
+           "cache_slots": cache[0]["k"].shape[1]}
     if not decode:
         return res
     toks = logits.argmax(-1)
@@ -435,7 +645,7 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     reset_launches(kernels)
     events = []
     t0 = time.perf_counter()
-    for t in range(PROMPT, total - 1):
+    for t in range(prompt, total - 1):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -454,6 +664,314 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     return res
 
 
+def check_run(torch, run, cfg, batch, label, required):
+    """Shape and finiteness of a run's logits; every kernel of ``required``
+    launched in its prefill and decode, ``flash_attention`` once per layer
+    per prefill and never in decode."""
+    for t in (run["logits"], run["last_logits"]):
+        if tuple(t.shape) != (batch, cfg.vocab) or \
+                not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"{label}: bad logits {tuple(t.shape)}")
+    pre, dec = run["prefill_launches"], run["decode_launches"]
+    for name in required:
+        if pre[name] <= 0:
+            raise AssertionError(f"{label}: {name} never launched in the "
+                                 f"prefill")
+        if name != "flash_attention" and dec[name] <= 0:
+            raise AssertionError(f"{label}: {name} never launched in decode")
+    if pre["flash_attention"] != cfg.n_layers or dec["flash_attention"]:
+        raise AssertionError(
+            f"{label}: flash_attention launched {pre['flash_attention']} "
+            f"times in the prefill and {dec['flash_attention']} in decode; "
+            f"expected {cfg.n_layers} and 0")
+
+
+def log_run(run, label, batch):
+    n_tok = batch * GEN
+    tok_s = n_tok / (run["prefill_s"] + run["decode_s"])
+    log(f"{label}: prefill {run['prefill_s'] * 1e3:.3f} ms; decode "
+        f"{run['decode_s'] / run['decode_steps'] * 1e3:.3f} ms/step over "
+        f"{run['decode_steps']} steps (median {run['step_ms_median']:.3f} "
+        f"ms, max {run['step_ms_max']:.3f} ms on the device clock); "
+        f"{tok_s:.1f} tokens/s ({n_tok} tokens); launches prefill "
+        f"{run['prefill_launches']}, decode {run['decode_launches']}")
+
+
+def plain_gates(torch, cfg, params, mesh, plan, prompts, run, kernels,
+                label):
+    """The plain versions against the kernels.  The full bf16 prefill is
+    reported, not gated: the two round differently, so routers' near-ties
+    flip from the first layer on (attention feeds it).  Gated: the first
+    attention layer and the first MoE layer on identical bf16 inputs
+    (within 2e-2, the MoE layer's routing equal)."""
+    from repro_torch.launch.serve import make_dist_context
+    from repro_torch.models.layers import attention_apply, norm_apply
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.transformer import _embed_tokens, _window_args
+
+    plain = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
+                  use_kernel=False, decode=False, warmup=False, record=True)
+    if any(plain["prefill_launches"].values()):
+        raise AssertionError(f"{label}: use_kernel=False launched a kernel: "
+                             f"{plain['prefill_launches']}")
+    n_flip, n_dec, per_layer, per_seq = route_flips(
+        torch, run["routes"], plain["routes"], prompts.shape[0])
+    log(f"{label}[plain]: prefill {plain['prefill_s'] * 1e3:.3f} ms (no "
+        f"warm-up); max rel logit diff kernels vs plain "
+        f"{rel_err(torch, run['logits'], plain['logits']):.3e}; routing "
+        f"differs in {n_flip} of {n_dec} (token, layer) decisions (per layer "
+        f"{per_layer}), in {int(per_seq.sum())} of {prompts.shape[0]} "
+        f"sequences")
+    del plain
+
+    blk = params.blocks[0]
+    b, s = prompts.shape
+    with torch.no_grad():
+        x0 = _embed_tokens(cfg, params, prompts, None)
+        h = norm_apply(cfg, blk.norm1, x0)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x0.device).expand(b, s)
+        window, use_window = _window_args(cfg, False)
+        outs = [attention_apply(cfg, blk.attn, h, positions=positions,
+                                window=window, use_window=use_window,
+                                use_kernel=uk) for uk in (True, False)]
+        attn_err = rel_err(torch, outs[0], outs[1])
+        del outs, h
+        h2 = norm_apply(cfg, blk.norm2, x0)
+        dist = make_dist_context(cfg, mesh, "plan", plan)
+        with RouteRecorder() as rec:
+            ys = [moe_apply(cfg, blk.moe, h2, dist, use_kernel=uk)[0]
+                  for uk in (True, False)]
+    moe_err = rel_err(torch, ys[0], ys[1])
+    same = torch.equal(rec.eids[0], rec.eids[1])
+    log(f"{label}[plain]: first layer on identical bf16 inputs, kernels vs "
+        f"plain: attention (window {window}) max rel diff {attn_err:.3e}; "
+        f"MoE max rel diff {moe_err:.3e}, routing equal {same}")
+    if not (attn_err < 2e-2 and moe_err < 2e-2 and same):
+        raise AssertionError(f"{label}: first layer kernels vs plain: "
+                             f"attention {attn_err}, MoE {moe_err}, routing "
+                             f"equal {same}")
+    del ys, h2, x0
+
+
+def f32_gate(torch, cfg, mesh, plan, prompts, kernels, label):
+    """The same prefill in f32 with fresh f32 weights from the seed: kernels
+    against plain within a relative logit difference of 1e-4 (the f32
+    serving tests' limit), no routing decision that differs."""
+    from repro_torch.models import build_model
+
+    dev = torch.device(DEVICE)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params32 = build_model(cfg32, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    k32 = serve(torch, cfg32, params32, mesh, "plan", plan, prompts, kernels,
+                decode=False, record=True)
+    p32 = serve(torch, cfg32, params32, mesh, "plan", plan, prompts, kernels,
+                use_kernel=False, decode=False, warmup=False, record=True)
+    n_flip, n_dec, per_layer, _ = route_flips(torch, k32["routes"],
+                                              p32["routes"], prompts.shape[0])
+    diff32 = rel_err(torch, k32["logits"], p32["logits"])
+    log(f"{label}[f32]: prompt {prompts.shape[1]}: prefill kernels "
+        f"{k32['prefill_s'] * 1e3:.3f} ms, plain {p32['prefill_s'] * 1e3:.3f} "
+        f"ms (no warm-up); max rel logit diff {diff32:.3e}; routing differs in "
+        f"{n_flip} of {n_dec} decisions (per layer {per_layer})")
+    if n_flip or not diff32 < 1e-4:
+        raise AssertionError(f"{label}: f32 kernel vs plain prefill: logits "
+                             f"{diff32}, {n_flip} routing decisions differ")
+    del params32, k32, p32
+    free(torch)
+
+
+def phase_megatron(torch, kernels):
+    """megatron-moe-32e through the plan, direct and flash, then the gates
+    against the plain versions.  Returns the plan run's launch counts."""
+    from repro_torch.comm.plan_exec import lower_plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import flash_plan
+    from repro_torch.models import build_model
+
+    cfg = serve_config()
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(MESH, ("pod", "data", "model"), dev)
+    plan = flash_plan(MESH[0], MESH[1], SEED)
+    sched = lower_plan(plan, n_pods=MESH[0])
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)).to(dev)
+    log(f"serve: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} experts="
+        f"{cfg.moe.num_experts} top{cfg.moe.top_k} layers={cfg.n_layers}/24 "
+        f"mesh={MESH} batch={BATCH} prompt={PROMPT} gen={GEN}; plan "
+        f"{sched.algorithm} n_plan_stages={sched.n_plan_stages} "
+        f"n_fallback_stages={sched.n_fallback_stages}; params "
+        f"{sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9:.2f} GB")
+
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
+                record=True)
+    check_run(torch, run, cfg, BATCH, "serve[plan]", KERNELS)
+    log_run(run, "serve[plan]", BATCH)
+    log(f"serve[plan]: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the exchange is pure data movement: direct and flash are bit-identical
+    direct = serve(torch, cfg, params, mesh, "direct", None, prompts,
+                   kernels)
+    if not torch.equal(direct["logits"], run["logits"]):
+        raise AssertionError("direct prefill logits differ from plan's")
+    if not torch.equal(direct["tokens"], run["tokens"]):
+        raise AssertionError("direct greedy tokens differ from plan's")
+    log(f"serve[direct]: prefill logits bit-identical to plan, greedy "
+        f"tokens equal; prefill {direct['prefill_s'] * 1e3:.3f} ms; decode "
+        f"{direct['decode_s'] / direct['decode_steps'] * 1e3:.3f} ms/step "
+        f"(median {direct['step_ms_median']:.3f} ms on the device clock)")
+    del direct
+    flash = serve(torch, cfg, params, mesh, "flash", None, prompts, kernels,
+                  decode=False)
+    if not torch.equal(flash["logits"], run["logits"]):
+        raise AssertionError("flash prefill logits differ from plan's")
+    log(f"serve[flash]: prefill logits bit-identical to plan; prefill "
+        f"{flash['prefill_s'] * 1e3:.3f} ms")
+    again = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels)
+    log(f"serve[plan, again]: prefill {again['prefill_s'] * 1e3:.3f} ms; "
+        f"decode {again['decode_s'] / again['decode_steps'] * 1e3:.3f} "
+        f"ms/step (median {again['step_ms_median']:.3f} ms)")
+    del flash, again
+
+    plain_gates(torch, cfg, params, mesh, plan, prompts, run, kernels,
+                "serve")
+    launches = {"prefill": run["prefill_launches"],
+                "decode": run["decode_launches"]}
+    del params, run
+    free(torch)
+    f32_gate(torch, cfg, mesh, plan, prompts, kernels, "serve")
+    return launches
+
+
+def phase_mixtral(torch, kernels):
+    """mixtral-8x7b: (a) plan and flash, (b) int8 dispatch, (c) the long
+    prompt, then the gates.  Returns the launch counts of (a)'s plan run
+    and of (c)."""
+    from repro_torch.comm.all_to_all import rotation_all_to_all
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import flash_plan, make_dist_context
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import norm_apply
+    from repro_torch.models.moe import _pod_ep_exchange, moe_apply
+    from repro_torch.models.transformer import _embed_tokens
+
+    cfg = mixtral_config()
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(MESH, ("pod", "data", "model"), dev)
+    plan = flash_plan(MESH[0], MESH[1], SEED)
+    dist = make_dist_context(cfg, mesh)
+    a2a = _pod_ep_exchange(cfg, dist, mesh.sub(dist.dp_axes), "pod", True)
+    if dist.ep_axes != ("pod",) or a2a.func is not rotation_all_to_all:
+        raise AssertionError(f"mixtral on {MESH}: EP axes {dist.ep_axes}, "
+                             f"{cfg.a2a_impl!r} exchange {a2a}")
+    t0 = time.perf_counter()
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (BATCH, MIX_PROMPT)).astype(np.int64)).to(dev)
+    log(f"mixtral: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} experts={cfg.moe.num_experts} top"
+        f"{cfg.moe.top_k} window={cfg.swa_window} layers={cfg.n_layers}/32 "
+        f"mesh={MESH} EP axes {dist.ep_axes} ({cfg.a2a_impl!r} resolves to "
+        f"the rotation); params "
+        f"{sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9:.2f} GB, "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+
+    # (a) the plan, then the config's flash (the rotation schedule)
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
+                record=True)
+    check_run(torch, run, cfg, BATCH, "mixtral[plan]", KERNELS)
+    log_run(run, f"mixtral[plan] batch {BATCH} x prompt {MIX_PROMPT}", BATCH)
+    log(f"mixtral[plan]: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rot = serve(torch, cfg, params, mesh, "flash", None, prompts, kernels)
+    check_run(torch, rot, cfg, BATCH, "mixtral[flash]",
+              ("grouped_matmul", "flash_attention"))
+    if not torch.equal(rot["logits"], run["logits"]):
+        raise AssertionError("mixtral: flash (rotation) prefill logits "
+                             "differ from plan's")
+    if not torch.equal(rot["tokens"], run["tokens"]):
+        raise AssertionError("mixtral: flash greedy tokens differ from "
+                             "plan's")
+    log_run(rot, "mixtral[flash]: prefill logits bit-identical to plan, "
+            "greedy tokens equal", BATCH)
+    del rot
+
+    # (b) int8 dispatch through the plan.  Gated where the reference's
+    # test gates it, on one MoE layer (identical inputs); the prefill's
+    # logits are reported: from the second layer on, routers' near-ties
+    # flip under the int8 rounding, in every sequence of 1024 tokens.
+    cfg_q = dataclasses.replace(cfg, quantized_dispatch=True)
+    quant = serve(torch, cfg_q, params, mesh, "plan", plan, prompts, kernels,
+                  decode=False, record=True)
+    n_flip, n_dec, per_layer, per_seq = route_flips(
+        torch, run["routes"], quant["routes"], BATCH)
+    q_err = rel_err(torch, quant["logits"], run["logits"])
+    blk = params.blocks[0]
+    with torch.no_grad():
+        h2 = norm_apply(cfg, blk.norm2, _embed_tokens(cfg, params, prompts,
+                                                      None))
+        ys = [moe_apply(c, blk.moe, h2, make_dist_context(c, mesh, "plan",
+                                                          plan))[0]
+              for c in (cfg, cfg_q)]
+    layer_err = rel_err(torch, ys[1], ys[0])
+    del ys, h2
+    log(f"mixtral[int8 dispatch]: prefill {quant['prefill_s'] * 1e3:.3f} ms, "
+        f"launches {quant['prefill_launches']}; first MoE layer on identical "
+        f"inputs: max rel diff to exact {layer_err:.3e}; prefill logits: max "
+        f"rel diff {q_err:.3e}; routing differs in {n_flip} of {n_dec} "
+        f"decisions (per layer {per_layer}), in {int(per_seq.sum())} of "
+        f"{BATCH} sequences")
+    if not (0 < layer_err < 0.05 and q_err > 0):
+        raise AssertionError(f"int8 dispatch: first MoE layer {layer_err}, "
+                             f"prefill logits {q_err}")
+    del quant
+
+    plain_gates(torch, cfg, params, mesh, plan, prompts, run, kernels,
+                "mixtral")
+    launches = {"mixtral-8x7b plan": {"prefill": run["prefill_launches"],
+                                      "decode": run["decode_launches"]}}
+    del run
+    free(torch)
+
+    # (c) one long prompt: B = 1 does not divide the 32 ranks, so the MoE
+    # runs the local path; the prefill's window skips tiles and decode runs
+    # on the ring cache
+    prompt_long = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, LONG_PROMPT)).astype(np.int64)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    long = serve(torch, cfg, params, mesh, "plan", plan, prompt_long,
+                 kernels)
+    check_run(torch, long, cfg, 1, "mixtral[long]",
+              ("grouped_matmul", "flash_attention"))
+    if long["cache_slots"] != cfg.swa_window:
+        raise AssertionError(f"mixtral[long]: decode cache of "
+                             f"{long['cache_slots']} slots, expected the "
+                             f"{cfg.swa_window}-slot ring")
+    log_run(long, f"mixtral[long] 1 x prompt {LONG_PROMPT}, window "
+            f"{cfg.swa_window}, ring cache of {long['cache_slots']} slots", 1)
+    log(f"mixtral[long]: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    launches["mixtral-8x7b long"] = {"prefill": long["prefill_launches"],
+                                     "decode": long["decode_launches"]}
+    del long, params
+    free(torch)
+
+    f32_gate(torch, cfg, mesh, plan, prompts[:, :F32_PROMPT], kernels,
+             "mixtral")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -470,13 +988,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import _build
-    from repro_torch.comm.plan_exec import lower_plan
     from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grouped_matmul import grouped_matmul
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.serve import flash_plan
-    from repro_torch.models import build_model
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -490,140 +1006,45 @@ def main() -> int:
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
 
     # 2. kernels against their plain versions; a small reference
+    t0 = time.perf_counter()
     rows = phase_kernels(torch)
+    rows["flash_attention"] = phase_flash_attention(torch)
     phase_small_reference(torch)
+    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
-    # 3. serve megatron-moe-32e through the plan
+    # 3. megatron-moe-32e; 4. mixtral-8x7b
     kernels = {"a2a_pack": a2a_pack, "a2a_unpack": a2a_unpack,
-               "grouped_matmul": grouped_matmul}
-    cfg = serve_config()
-    dev = torch.device(DEVICE)
-    mesh = make_mesh(MESH, ("pod", "data", "model"), dev)
-    plan = flash_plan(MESH[0], MESH[1], SEED)
-    sched = lower_plan(plan, n_pods=MESH[0])
-    model = build_model(cfg, dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)).to(dev)
-    log(f"serve: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
-        f"{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} experts="
-        f"{cfg.moe.num_experts} top{cfg.moe.top_k} layers={cfg.n_layers}/24 "
-        f"mesh={MESH} batch={BATCH} prompt={PROMPT} gen={GEN}; plan "
-        f"{sched.algorithm} n_plan_stages={sched.n_plan_stages} "
-        f"n_fallback_stages={sched.n_fallback_stages}; params "
-        f"{sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9:.2f} GB")
+               "grouped_matmul": grouped_matmul,
+               "flash_attention": flash_attention}
+    t0 = time.perf_counter()
+    launches = {"megatron-moe-32e plan": phase_megatron(torch, kernels)}
+    log(f"phase megatron: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(phase_mixtral(torch, kernels))
+    log(f"phase mixtral: {time.perf_counter() - t0:.1f} s")
 
-    run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels)
-    n_tok = BATCH * GEN
-    tok_s = n_tok / (run["prefill_s"] + run["decode_s"])
-    for name, n in run["prefill_launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched in the prefill")
-    for name, n in run["decode_launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched in decode")
-    for t in (run["logits"], run["last_logits"]):
-        if tuple(t.shape) != (BATCH, cfg.vocab) or \
-                not bool(torch.isfinite(t.float()).all()):
-            raise AssertionError(f"bad logits {tuple(t.shape)}")
-    log(f"serve[plan]: prefill {run['prefill_s'] * 1e3:.3f} ms; decode "
-        f"{run['decode_s'] / run['decode_steps'] * 1e3:.3f} ms/step over "
-        f"{run['decode_steps']} steps (median {run['step_ms_median']:.3f} "
-        f"ms, max {run['step_ms_max']:.3f} ms on the device clock); "
-        f"{tok_s:.1f} tokens/s "
-        f"({n_tok} tokens); launches prefill {run['prefill_launches']}, "
-        f"decode {run['decode_launches']}")
-    log(f"serve[plan]: peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-
-    # 4. the same with direct: the exchange is pure data movement
-    direct = serve(torch, cfg, params, mesh, "direct", None, prompts,
-                   kernels)
-    if not torch.equal(direct["logits"], run["logits"]):
-        raise AssertionError("direct prefill logits differ from plan's")
-    if not torch.equal(direct["tokens"], run["tokens"]):
-        raise AssertionError("direct greedy tokens differ from plan's")
-    log(f"serve[direct]: prefill logits bit-identical to plan, greedy "
-        f"tokens equal; prefill {direct['prefill_s'] * 1e3:.3f} ms; decode "
-        f"{direct['decode_s'] / direct['decode_steps'] * 1e3:.3f} ms/step "
-        f"(median {direct['step_ms_median']:.3f} ms on the device clock)")
-    again = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels)
-    log(f"serve[plan, again]: prefill {again['prefill_s'] * 1e3:.3f} ms; "
-        f"decode {again['decode_s'] / again['decode_steps'] * 1e3:.3f} "
-        f"ms/step (median {again['step_ms_median']:.3f} ms)")
-
-    # 5. the same prefill with the plain versions.  In bf16 the kernel and
-    # the plain product round differently, and from the second layer on a
-    # near-tie in a router's top-k can flip, sending a token to another
-    # expert and moving its sequence's logits by O(1): the logit difference
-    # is reported with every routing decision that differs, and the gates
-    # are (b) the first MoE layer on identical inputs, where routing cannot
-    # differ, and (c) the same prefill in f32, where the kernel's sums
-    # match the plain product's closely enough that no route flips.
-    with RouteRecorder() as rk:
-        kern = serve(torch, cfg, params, mesh, "plan", plan, prompts,
-                     kernels, decode=False)
-    with RouteRecorder() as rp:
-        plain = serve(torch, cfg, params, mesh, "plan", plan, prompts,
-                      kernels, use_kernel=False, decode=False)
-    if any(plain["prefill_launches"].values()):
-        raise AssertionError("use_kernel=False launched a kernel")
-    if not torch.equal(kern["logits"], run["logits"]):
-        raise AssertionError("kernel prefill is not deterministic")
-    n_flip, n_dec, flipped = route_flips(torch, rk, rp, cfg.n_layers)
-    log(f"serve[plain]: prefill {plain['prefill_s'] * 1e3:.3f} ms; max rel "
-        f"logit diff kernels vs plain {rel_err(torch, run['logits'], plain['logits']):.3e}; "
-        f"routing differs in {n_flip} of {n_dec} (token, layer) decisions "
-        f"(per layer {flipped}), first layer {flipped[0]}")
-    if flipped[0]:
-        raise AssertionError("routing differs in the first layer, whose "
-                             "inputs are identical")
-
-    from repro_torch.launch.serve import make_dist_context
-    from repro_torch.models.layers import norm_apply
-    from repro_torch.models.moe import moe_apply
-    from repro_torch.models.transformer import _embed_tokens
-
-    blk = params.blocks[0]
-    with torch.no_grad():
-        h = norm_apply(cfg, blk.norm2, _embed_tokens(cfg, params, prompts,
-                                                     None))
-        ys = [moe_apply(cfg, blk.moe, h, make_dist_context(
-            cfg, mesh, "plan", plan, use_kernel=uk))[0] for uk in (1, 0)]
-    layer_err = rel_err(torch, ys[0], ys[1])
-    log(f"serve[plain]: first MoE layer, identical bf16 inputs, kernels vs "
-        f"plain: max rel diff {layer_err:.3e}")
-    if not layer_err < 2e-2:
-        raise AssertionError(f"MoE layer kernels vs plain: {layer_err}")
-    del ys, h
-
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    params32 = build_model(cfg32, dev).init(
-        torch.Generator(device=dev).manual_seed(SEED))
-    with RouteRecorder() as rk:
-        k32 = serve(torch, cfg32, params32, mesh, "plan", plan, prompts,
-                    kernels, decode=False)
-    with RouteRecorder() as rp:
-        p32 = serve(torch, cfg32, params32, mesh, "plan", plan, prompts,
-                    kernels, use_kernel=False, decode=False)
-    n_flip32, _, _ = route_flips(torch, rk, rp, cfg.n_layers)
-    diff32 = rel_err(torch, k32["logits"], p32["logits"])
-    log(f"serve[f32]: prefill kernels {k32['prefill_s'] * 1e3:.3f} ms, plain "
-        f"{p32['prefill_s'] * 1e3:.3f} ms; max rel logit diff {diff32:.3e}; "
-        f"routing differs in {n_flip32} decisions")
-    if n_flip32 or not diff32 < 1e-4:
-        raise AssertionError(f"f32 kernel vs plain prefill: logits {diff32}, "
-                             f"{n_flip32} routing decisions differ")
-    del params32, k32, p32
-
-    launches = {name: run["prefill_launches"][name]
-                + run["decode_launches"][name] for name in kernels}
+    # The main path of this slice is mixtral's plan run: its launches are
+    # each row's count; every path's counts are listed beside them.
+    main_path = launches["mixtral-8x7b plan"]
     result = []
-    for row in rows:
-        row = dict(row, launches=launches[row["name"]],
-                   launches_prefill=run["prefill_launches"][row["name"]],
-                   launches_decode=run["decode_launches"][row["name"]])
+    for name in KERNELS:
+        row = rows[name]
+        if "ms" not in row:  # the first timed shape: megatron's prefill
+            first = row["shapes"][0]
+            row.update(shape=first["shape"], ms=first["ms"],
+                       plain_ms=first["plain_ms"],
+                       library_ms=first["library_ms"],
+                       bound_ms=first["bound_ms"],
+                       bound_by=first["bound_by"])
+        row = dict(row, launches=main_path["prefill"][name]
+                   + main_path["decode"][name],
+                   launches_prefill=main_path["prefill"][name],
+                   launches_decode=main_path["decode"][name],
+                   launches_by_path={p: {"prefill": c["prefill"][name],
+                                         "decode": c["decode"][name]}
+                                     for p, c in launches.items()})
         result.append(row)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": result}))
     log(json.dumps({"ok": True, "device": {

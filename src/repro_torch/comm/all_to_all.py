@@ -10,10 +10,14 @@ per rank, exactly
 with the combined shard index ordered slow-axis-major, so all impls are
 bit-identical to ``direct_all_to_all`` and interchangeable by name.
 
-Ported: ``direct``, ``intra`` (the fast-axes exchange) and ``plan``
-(``comm/plan_exec.py``).  ``flash``, ``hierarchical`` and ``rotation`` are
-not ported yet; asking for one raises ``NotImplementedError`` and never
-substitutes another impl.
+Registered: ``direct`` (one flat all-to-all), ``flash`` (the FAST two-tier
+schedule: an intra-pod all-to-all aligns each block with its rail, then one
+``ppermute`` per Birkhoff rotation over the slow axis), ``hierarchical`` (the
+same rotations with the intra-pod redistribution after the slow hop) and
+``plan`` (``comm/plan_exec.py``).  ``rotation_all_to_all`` is the schedule for
+EP over the slow axis alone; ``fast_only_all_to_all`` the degenerate case with
+no slow traffic.  On one card every ``ppermute`` and all-to-all is a
+device-side copy, so the schedules differ only in the order of the copies.
 """
 
 from __future__ import annotations
@@ -21,17 +25,21 @@ from __future__ import annotations
 from functools import partial
 from typing import Callable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from ..launch.mesh import LocalMesh, all_to_all
+from ..launch.mesh import LocalMesh, all_to_all, ppermute
 
 __all__ = [
     "ALL_TO_ALL_IMPLS",
-    "NOT_PORTED",
     "register_all_to_all_impl",
     "available_all_to_all_impls",
     "all_to_all_by_name",
     "direct_all_to_all",
+    "flash_all_to_all",
+    "hierarchical_all_to_all",
+    "fast_only_all_to_all",
+    "rotation_all_to_all",
     "intra_all_to_all",
     "resolve_all_to_all",
 ]
@@ -40,11 +48,6 @@ AxisNames = Union[str, Tuple[str, ...]]
 
 # name -> fn(x, slow_axis, fast_axes, *, mesh)
 ALL_TO_ALL_IMPLS: dict = {}
-
-# Registry names of the reference that have no port yet, with the
-# ROADMAP.md item that ports them.
-_TODO = "ROADMAP.md Queue 1, item 1 (flash, hierarchical, rotation impls)"
-NOT_PORTED = {"flash": _TODO, "hierarchical": _TODO, "rotation": _TODO}
 
 
 def register_all_to_all_impl(name: str):
@@ -77,10 +80,6 @@ def all_to_all_by_name(name: str):
     _ensure_extra_impls()
     if name in ALL_TO_ALL_IMPLS:
         return ALL_TO_ALL_IMPLS[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"all_to_all impl {name!r} is not ported to PyTorch yet: "
-            f"{NOT_PORTED[name]}")
     raise ValueError(f"unknown all_to_all impl {name!r}; pick from "
                      f"{sorted(ALL_TO_ALL_IMPLS)}")
 
@@ -99,6 +98,96 @@ def intra_all_to_all(x: torch.Tensor, fast_axes: AxisNames, *,
     return all_to_all(mesh, x, _as_tuple(fast_axes))
 
 
+def _ranks(mesh: LocalMesh, device) -> torch.Tensor:
+    return mesh.cached_index(("ranks",), device, lambda: np.arange(mesh.size))
+
+
+def _shifted(mesh: LocalMesh, axis: str, shift: int, device) -> torch.Tensor:
+    """``[R]``: each rank's coordinate along ``axis`` plus ``shift``, modulo
+    the axis size (the reference's ``lax.rem(my + shift, p)``)."""
+    a = mesh.axis_names.index(axis)
+    return mesh.cached_index(
+        ("shifted", axis, shift), device,
+        lambda: (mesh.coords()[:, a] + shift) % mesh.shape[a])
+
+
+def _rotations(x: torch.Tensor, axis: str, mesh: LocalMesh,
+               before=None, after=None) -> torch.Tensor:
+    """The balanced Birkhoff rotation schedule over ``axis`` on stacked
+    ``x [R, p, ...]``: stage ``shift`` sends each rank's block for
+    coordinate ``my + shift`` to that peer with one ``ppermute`` (stage 0
+    stays local) and stores what arrives at the sender's coordinate
+    ``my - shift``.  ``before`` / ``after`` transform each block before and
+    after its hop (the intra-pod exchange of ``flash`` / ``hierarchical``).
+    """
+    p = mesh.axis_size(axis)
+    if x.shape[1] != p:
+        raise ValueError(f"leading dim {x.shape[1]} != axis size {p}")
+    ranks = _ranks(mesh, x.device)
+    out = torch.zeros_like(x)
+    for shift in range(p):
+        blk = x[ranks, _shifted(mesh, axis, shift, x.device)]
+        if before is not None:
+            blk = before(blk)
+        if shift:
+            blk = ppermute(mesh, blk, axis,
+                           [(q, (q + shift) % p) for q in range(p)])
+        if after is not None:
+            blk = after(blk)
+        out[ranks, _shifted(mesh, axis, -shift, x.device)] = blk
+    return out
+
+
+def _two_tier(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
+              mesh: LocalMesh, intra_first: bool) -> torch.Tensor:
+    fast = _as_tuple(fast_axes)
+    p = mesh.axis_size(slow_axis)
+    i = mesh.axis_size(fast)
+    r, n, rest = x.shape[0], x.shape[1], tuple(x.shape[2:])
+    if n != p * i:
+        raise ValueError(f"leading dim {n} != slow*fast = {p}*{i}")
+    intra = partial(intra_all_to_all, fast_axes=fast, mesh=mesh)
+    out = _rotations(x.reshape(r, p, i, *rest), slow_axis, mesh,
+                     before=intra if intra_first else None,
+                     after=None if intra_first else intra)
+    return out.reshape(x.shape)
+
+
+@register_all_to_all_impl("flash")
+def flash_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
+                     *, mesh: LocalMesh) -> torch.Tensor:
+    """FLASH two-tier All-to-All: per rotation, load balance first (the
+    intra-pod all-to-all hands local rank ``i`` every block bound for fast
+    index ``i`` of the destination pod), then one contiguous transfer to the
+    rail peer over the slow axis; the redistribution is then a no-op."""
+    return _two_tier(x, slow_axis, fast_axes, mesh, intra_first=True)
+
+
+@register_all_to_all_impl("hierarchical")
+def hierarchical_all_to_all(x: torch.Tensor, slow_axis: str,
+                            fast_axes: AxisNames, *,
+                            mesh: LocalMesh) -> torch.Tensor:
+    """MSCCL-style baseline: the same rotations, each rank shipping its own
+    block over the slow axis first and the receiving pod redistributing it
+    over the fast axes after."""
+    return _two_tier(x, slow_axis, fast_axes, mesh, intra_first=False)
+
+
+def fast_only_all_to_all(x: torch.Tensor, slow_axis: str,
+                         fast_axes: AxisNames, *,
+                         mesh: LocalMesh) -> torch.Tensor:
+    """Degenerate case: EP axis entirely inside one pod (no slow traffic)."""
+    del slow_axis
+    return intra_all_to_all(x, fast_axes, mesh=mesh)
+
+
+def rotation_all_to_all(x: torch.Tensor, axis: str, *,
+                        mesh: LocalMesh) -> torch.Tensor:
+    """All-to-all over one axis as ``p - 1`` ppermute rotations: the FLASH
+    form of a slow-axis-only exchange (mixtral: EP over ``pod``)."""
+    return _rotations(x, axis, mesh)
+
+
 def resolve_all_to_all(
     dist=None,
     *,
@@ -114,11 +203,14 @@ def resolve_all_to_all(
     rules (``src/repro/comm/all_to_all.py::resolve_all_to_all``).
 
     Pass a ``DistContext`` (the exchange runs on its mesh of the DP axes)
-    or the keyword form with ``mesh``.  ``impl="auto"`` picks ``plan`` when a
-    plan is supplied, else ``flash`` on a heterogeneous fabric and
-    ``direct`` otherwise.  ``use_kernel`` reaches ``plan``'s pack and
-    unpack.  Returns a unary ``buf -> buf`` callable on stacked buffers, or
-    None when there are no EP axes.
+    or the keyword form with ``mesh``.  EP over the slow axis and fast axes
+    runs the registered impl ``impl``; EP over the slow axis alone runs the
+    rotation schedule (the plan's stages under ``impl="plan"``); EP over
+    fast axes alone runs the intra-pod all-to-all.  ``impl="auto"`` picks
+    ``plan`` when a plan is supplied, else ``flash`` on a heterogeneous
+    fabric and ``direct`` otherwise.  ``use_kernel`` reaches ``plan``'s pack
+    and unpack.  Returns a unary ``buf -> buf`` callable on stacked buffers,
+    or None when there are no EP axes.
     """
     if dist is not None:
         mesh = dist.mesh.sub(dist.dp_axes)
@@ -134,7 +226,8 @@ def resolve_all_to_all(
         else:
             hetero = topology is not None and not topology.is_homogeneous
             impl = "flash" if hetero else "direct"
-    # Fail fast on unknown or unported impl names on every path.
+    # Fail fast on unknown impl names on every path, including the
+    # rotation and intra-pod ones that do not dispatch through the registry.
     two_tier = all_to_all_by_name(impl)
     if impl == "plan":
         if plan is None:
@@ -153,7 +246,8 @@ def resolve_all_to_all(
                        mesh=mesh)
     if ep == (slow_axis,):
         if impl == "plan":
+            # slow-axis-only EP still follows the plan's stage order
             return partial(two_tier, slow_axis=slow_axis, fast_axes=(),
                            mesh=mesh)
-        all_to_all_by_name("rotation")  # raises NotImplementedError
+        return partial(rotation_all_to_all, axis=slow_axis, mesh=mesh)
     return partial(intra_all_to_all, fast_axes=ep, mesh=mesh)

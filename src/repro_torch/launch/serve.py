@@ -7,6 +7,9 @@ mesh.  Run directly for a batched-serving demo on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch megatron-moe-32e --n-layers 4 --mesh 2,16 --a2a plan
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mixtral-8x7b --n-layers 4 --mesh 2,16 --a2a plan \\
+        --batch 32 --prompt-len 1024 --gen-len 16
 
 ``--mesh POD,DATA`` is the one-card counterpart of the JAX ``mesh``
 argument; ``--device cpu`` runs on the CPU.
@@ -35,14 +38,14 @@ def make_dist_context(cfg: ModelConfig, mesh: LocalMesh,
                       use_kernel: bool = True) -> DistContext:
     """Build the DistContext; ``a2a_impl`` overrides the config's choice.
 
-    The name is validated against the comm-layer registry, so a typo (or an
-    impl not ported yet) fails here and not inside the model.
+    The name is validated against the comm-layer registry, so a typo fails
+    here and not inside the model.
     """
     from ..comm.all_to_all import all_to_all_by_name
 
     impl = a2a_impl or cfg.a2a_impl
     if impl != "auto":
-        all_to_all_by_name(impl)  # raises on unknown or unported impls
+        all_to_all_by_name(impl)  # raises on unknown impls
     if impl == "plan" and plan is None:
         raise ValueError('a2a_impl="plan" needs a synthesized plan; pass '
                          "plan=")
@@ -68,9 +71,11 @@ def make_serve_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
                     use_kernel: bool = True, device=None):
     """(params, cache, tokens [B], pos) -> (logits [B, V], cache).
 
-    ``a2a_impl`` selects the MoE dispatch schedule (direct | plan), ``plan``
-    is the synthesized Plan/ExecutableSchedule behind ``"plan"``.  The cache
-    is updated in place.  ``device`` defaults to the mesh's, else the card.
+    ``a2a_impl`` selects the MoE dispatch schedule (a registry name or
+    ``"auto"``), ``plan`` is the synthesized Plan/ExecutableSchedule behind
+    ``"plan"``.  ``use_kernel=False`` runs the plain versions of the kernels,
+    with or without a mesh.  The cache is updated in place.  ``device``
+    defaults to the mesh's, else the card.
     """
     model = build_model(cfg, _device(mesh, device))
     dist = make_dist_context(cfg, mesh, a2a_impl, plan, use_kernel) \
@@ -78,7 +83,8 @@ def make_serve_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos, dist)
+        return model.decode_step(params, cache, tokens, pos, dist,
+                                 use_kernel=use_kernel)
 
     return serve_step
 
@@ -90,14 +96,16 @@ def make_prefill_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
     """(params, batch) -> (last-position logits [B, V], cache).
 
     ``cache_len`` sizes the decode cache (prompt plus generation budget;
-    default: the prompt length, as the reference's ``prefill``)."""
+    default: the prompt length, as the reference's ``prefill``); the other
+    arguments are ``make_serve_step``'s."""
     model = build_model(cfg, _device(mesh, device))
     dist = make_dist_context(cfg, mesh, a2a_impl, plan, use_kernel) \
         if mesh is not None else None
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch, dist, cache_len=cache_len)
+        return model.prefill(params, batch, dist, cache_len=cache_len,
+                             use_kernel=use_kernel)
 
     return prefill_step
 
@@ -149,7 +157,7 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv=None):
-    from ..comm.all_to_all import NOT_PORTED, available_all_to_all_impls
+    from ..comm.all_to_all import available_all_to_all_impls
     from ..comm.plan_exec import lower_plan
 
     ap = argparse.ArgumentParser()
@@ -159,8 +167,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--a2a", default=None,
-                    choices=available_all_to_all_impls() + sorted(NOT_PORTED)
-                    + ["auto"],
+                    choices=available_all_to_all_impls() + ["auto"],
                     help="MoE All-to-All schedule (registry name, or "
                          "'auto'); defaults to the arch config's a2a_impl")
     ap.add_argument("--plan-server", action="store_true",

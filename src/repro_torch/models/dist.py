@@ -24,13 +24,13 @@ class DistContext:
     slow_axis: Optional[str]            # inter-pod axis ("pod"), if present
     ep_axes: Optional[Tuple[str, ...]]  # expert-parallel axes, slow-major
     # Registry name consumed by comm.all_to_all.resolve_all_to_all.
-    a2a_impl: str = "flash"             # direct | plan | auto (flash: todo)
+    a2a_impl: str = "flash"             # a registry name, or "auto"
     # Physical fabric, when known; a2a_impl="auto" resolves against it.
     topology: Optional[Topology] = None
     # Synthesized schedule (core.plan.Plan or simulator.ExecutableSchedule)
     # backing a2a_impl="plan"; "auto" prefers "plan" whenever this is set.
     plan: Optional[object] = None
-    # False runs the plain PyTorch versions of the kernels on this path
+    # False runs the plain PyTorch versions of the kernels on the MoE path
     # (pack, unpack, grouped matmul) instead of the CUDA kernels.
     use_kernel: bool = True
 

@@ -5,9 +5,13 @@ Counterpart of ``src/repro/models/layers.py``.  Parameters live in
 ``nn.Module``s whose attribute names are the JAX dict keys (``scale``,
 ``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down``), so the
 functions below read ``p.wq`` where the reference reads ``p["wq"]``.
-Attention is plain PyTorch, as the reference computes it outside any
-Pallas kernel.  The decode cache is updated in place (the reference returns
-a new one) to keep one copy of it in device memory.
+The prefill attention runs on the ``flash_attention`` kernel
+(``use_kernel=True``), held against the reference's ``mha_einsum`` /
+``mha_chunked`` math, which ``use_kernel=False`` runs; the reference computes
+it outside any Pallas kernel and calls its chunked form "mathematically
+identical to the Pallas flash_attention kernel".  Decode attention is plain
+PyTorch, as the reference's.  The decode cache is updated in place (the
+reference returns a new one) to keep one copy of it in device memory.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.registry import ModelConfig
+from ..kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -229,22 +234,31 @@ def mha_chunked(q, k, v, *, q_offset: int, window: Optional[int],
 def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None, use_window: bool = True,
-                    chunked_threshold: int = 2048, return_kv: bool = False):
+                    chunked_threshold: int = 2048, return_kv: bool = False,
+                    use_kernel: bool = True):
     """Self-attention over a full sequence (prefill).
 
-    With ``return_kv`` also returns the (pre-GQA-repeat) keys/values."""
+    ``use_kernel`` runs it on the ``flash_attention`` kernel over the
+    un-repeated keys and values (heads moved in front of the sequence and
+    back); False runs the reference's plain math.  ``use_window=False``
+    drops the window.  With ``return_kv`` also returns the (pre-GQA-repeat)
+    keys/values."""
     b, s, _ = x.shape
     h, kv = cfg.n_heads, cfg.n_kv_heads
     q, k, v = _project_qkv(cfg, p, x, positions)
-    kr = _repeat_kv(k, h // kv)
-    vr = _repeat_kv(v, h // kv)
-    if s > chunked_threshold:
-        out = mha_chunked(q, kr, vr, q_offset=0, window=window,
-                          use_window=use_window, causal=causal)
+    eff = window if (window is not None and use_window) else None
+    if use_kernel:
+        out = flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=causal, window=eff)
+        out = out.transpose(1, 2)
+    elif s > chunked_threshold:
+        out = mha_chunked(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
+                          q_offset=0, window=window, use_window=use_window,
+                          causal=causal)
     else:
-        eff = window if (window is not None and use_window) else None
-        out = mha_einsum(q, kr, vr, _band_mask(s, s, 0, eff, causal,
-                                               x.device))
+        out = mha_einsum(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
+                         _band_mask(s, s, 0, eff, causal, x.device))
     out = out.reshape(b, s, h * cfg.resolved_head_dim)
     out = out @ p.wo.to(out.dtype)
     if not return_kv:

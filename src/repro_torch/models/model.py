@@ -4,7 +4,9 @@ init_cache / decode_step.
 Counterpart of ``src/repro/models/model.py`` for the serving slice: the
 training loss and the encoder-decoder family are not ported yet.  The model
 runs on ``device``, the card unless the caller asks for the CPU; asking for a
-CUDA device without one raises.
+CUDA device without one raises.  ``prefill`` and ``decode_step`` take
+``use_kernel`` (default True); False runs the plain versions of the kernels,
+with or without a ``dist``.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ __all__ = ["Model", "build_model"]
 class Model:
     cfg: ModelConfig
     init: Callable[[torch.Generator], Any]  # gen -> LM module
-    prefill: Callable[..., Any]       # (params, batch, dist, cache_len)
+    # (params, batch, dist, cache_len, use_kernel)
+    prefill: Callable[..., Any]
     init_cache: Callable[..., Any]    # (batch, seq_len) -> cache
-    decode_step: Callable[..., Any]   # (params, cache, tokens, pos, dist)
+    # (params, cache, tokens, pos, dist, use_kernel)
+    decode_step: Callable[..., Any]
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
@@ -40,11 +44,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen: transformer.init_lm(gen, cfg, dev),
-        prefill=lambda params, batch, dist=None, cache_len=None:
-            transformer.lm_prefill(cfg, params, batch["tokens"], batch, dist,
-                                   cache_len=cache_len),
+        prefill=lambda params, batch, dist=None, cache_len=None,
+        use_kernel=True: transformer.lm_prefill(
+            cfg, params, batch["tokens"], batch, dist, cache_len=cache_len,
+            use_kernel=use_kernel),
         init_cache=lambda batch, seq_len: transformer.init_decode_cache(
             cfg, batch, seq_len, dev),
-        decode_step=lambda params, cache, tokens, pos, dist=None:
-            transformer.lm_decode_step(cfg, params, cache, tokens, pos, dist),
+        decode_step=lambda params, cache, tokens, pos, dist=None,
+        use_kernel=True: transformer.lm_decode_step(
+            cfg, params, cache, tokens, pos, dist, use_kernel=use_kernel),
     )

@@ -13,13 +13,21 @@ dispatch run batched over the rank axis, and dispatch and combine go through
 here, so rank ``r``'s local expert ``e`` is global expert ``r*E_loc + e`` and
 one kernel launch per product serves every rank.
 
+EP over one mesh axis or none (``_moe_pod_ep``: mixtral's 8 experts over
+``pod``, dbrx's over ``data``, or experts replicated) runs the reference's
+split-island form: routing, dispatch and the exchange per rank, then one
+grouped FFN over all ranks' tokens, then the return exchange and the combine.
+Over the slow axis the exchange may be int8 with a per-row f32 scale
+(``cfg.quantized_dispatch``).
+
 ``dist=None`` runs the same math with one rank and no exchange; it is the
-correctness oracle for the island.  ``_moe_pod_ep`` (EP over one axis or none)
-and quantized dispatch are not ported yet.
+correctness oracle for the island.  ``use_kernel=False`` runs the plain
+versions of the kernels on every path.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -29,7 +37,7 @@ from torch import nn
 from ..comm.all_to_all import resolve_all_to_all
 from ..configs.registry import ModelConfig
 from ..kernels.grouped_matmul import grouped_matmul, grouped_matmul_ref
-from ..launch.mesh import pmean
+from ..launch.mesh import LocalMesh, pmean
 from .dist import DistContext
 from .layers import dense_init, param
 
@@ -183,24 +191,105 @@ def _moe_island(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     return out.reshape(r, b, s, d), aux
 
 
+def _quantized(a2a):
+    """``a2a`` of a buffer as per-row int8 with an f32 scale, exchanged as
+    two tensors (the reference's ``_exchange``): the scale is computed in
+    the buffer's dtype, and the result is dequantized in it."""
+    def exchange(buf: torch.Tensor) -> torch.Tensor:
+        scale = torch.clamp(buf.abs().amax(-1, keepdim=True), min=1e-6) \
+            / 127.0
+        q = torch.clamp(torch.round(buf / scale), -127, 127).to(torch.int8)
+        return a2a(q).to(buf.dtype) * a2a(scale.float()).to(buf.dtype)
+    return exchange
+
+
+def _pod_ep_exchange(cfg: ModelConfig, dist: DistContext, mesh: LocalMesh,
+                     ep_axis: str, slow: bool):
+    """The exchange over the one EP axis: the rotation schedule (or the
+    plan's stages) over the slow axis, a flat all-to-all over a fast one;
+    int8 over the slow axis under ``cfg.quantized_dispatch``."""
+    a2a = resolve_all_to_all(
+        mesh=mesh, slow_axis=ep_axis if slow else None, ep_axes=(ep_axis,),
+        impl=dist.a2a_impl, plan=dist.plan if slow else None,
+        use_kernel=dist.use_kernel)
+    return _quantized(a2a) if cfg.quantized_dispatch and slow else a2a
+
+
+def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
+                p: MoE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split-island MoE with EP over one DP axis (``p_pods`` = its size) or
+    none (``p_pods = 1``: experts replicated), every rank at once.
+
+    Per rank (x split over the DP axes, slow-axis major): route, dispatch
+    into ``[p_pods, E_loc * C, d]`` and exchange over the EP axis.  Rank
+    ``r`` then holds, for each of its ``E_loc`` experts, the tokens of the
+    ``p_pods`` ranks that share its other coordinates.  Its EP coordinate
+    ``c`` names its experts ``c * E_loc + e``, so the ranks' tokens are laid
+    out as ``[E, R * C, d]`` (group ``e`` = global expert ``e``) and one
+    grouped-FFN launch per product serves them all.  The return trip runs
+    the inverse.  x: [B, S, d] with B divisible by the DP size.
+    """
+    mesh = dist.mesh.sub(dist.dp_axes)
+    ep_axis = dist.ep_axes[0] if dist.ep_axes else None
+    p_pods = mesh.axis_size(ep_axis) if ep_axis else 1
+    r = mesh.size
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    e_loc = e // p_pods
+    b, s, d = x.shape
+    t = b * s // r
+    cap = _capacity(cfg, t, e)
+    x_flat = x.reshape(r, t, d)
+    gates, eids, aux = _route(cfg, p.router, x_flat)
+    buf, slot, keep = _dispatch(x_flat, eids, cap, e)
+    exchange = None
+    if p_pods > 1:
+        exchange = _pod_ep_exchange(cfg, dist, mesh, ep_axis,
+                                    ep_axis == dist.slow_axis)
+    recv = buf.reshape(r, p_pods, e_loc * cap, d)
+    if exchange is not None:
+        recv = exchange(recv)
+
+    # [*dp dims, p_pods, E_loc, C, d] -> [ep dim, E_loc, other dp dims,
+    # p_pods, C, d] -> [E, R * C, d]
+    n = len(mesh.shape)
+    lead = [mesh.axis_names.index(ep_axis)] if ep_axis else []
+    perm = lead + [n + 1] + [i for i in range(n) if i not in lead] \
+        + [n, n + 2, n + 3]
+    grid = recv.reshape(*mesh.shape, p_pods, e_loc, cap, d).permute(perm)
+    tokens = grid.reshape(e, r * cap, d).contiguous()
+    y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down, tokens,
+                    use_kernel=dist.use_kernel)
+    inv = [perm.index(i) for i in range(len(perm))]
+    y = y.reshape(grid.shape).permute(inv).reshape(r, p_pods, e_loc * cap, d)
+    if exchange is not None:
+        y = exchange(y)                               # return trip
+    out = _combine(y.reshape(r, e * cap, d), slot, keep, gates, t, k)
+    aux = pmean(mesh, aux, dist.dp_axes)[0]
+    return out.reshape(b, s, d), aux
+
+
 def _dp_size(dist: DistContext) -> int:
     return dist.mesh.axis_size(dist.dp_axes)
 
 
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
-              dist: Optional[DistContext] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [B,S,d], aux_loss scalar)."""
-    if dist is not None and x.shape[0] % _dp_size(dist) != 0:
-        # batch does not divide the DP shards: run the local path
-        dist = None
+              dist: Optional[DistContext] = None, *,
+              use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y [B,S,d], aux_loss scalar).
+
+    The kernels run unless ``use_kernel`` or ``dist.use_kernel`` is
+    False."""
+    if dist is not None:
+        if not use_kernel and dist.use_kernel:
+            dist = dataclasses.replace(dist, use_kernel=False)
+        use_kernel = dist.use_kernel
+        if x.shape[0] % _dp_size(dist) != 0:
+            # batch does not divide the DP shards: run the local path
+            dist = None
     if dist is not None and (
             dist.ep_axes is None or len(dist.ep_axes) == 1):
-        raise NotImplementedError(
-            "MoE with expert parallelism over one mesh axis or none "
-            "(_moe_pod_ep, quantized dispatch) is not ported to PyTorch "
-            "yet: ROADMAP.md Queue 1, item 2")
-    use_kernel = True if dist is None else dist.use_kernel
+        # single-axis EP (mixtral: pod; dbrx: data) or no EP
+        return _moe_pod_ep(cfg, dist, x, p)
     if dist is None or dist.ep_size == 1:
         b, s, d = x.shape
         e = cfg.moe.num_experts

@@ -8,6 +8,9 @@ Blocks are always a list: a stacked (``scan_layers``) reference layout
 converts to it (``convert.py``), and the per-layer math is the same, including
 the scan branch's window rules for mixed full/window stacks.  The decode cache
 is a list of per-layer ``{"k", "v"}`` dicts, updated in place.
+``use_kernel=False`` runs the plain PyTorch versions of every kernel on the
+path (prefill attention, the expert FFN and the exchange's pack and unpack),
+with or without a mesh.
 
 The recurrent and hybrid block kinds (``"m"``, ``"s"``, ``"hybrid"``), the
 encoder-decoder stack and the training forward (``lm_forward``,
@@ -103,20 +106,20 @@ def _full_flag(cfg: ModelConfig, i: int) -> bool:
 
 def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
                    positions, dist, kind: str, full_flag: bool,
-                   cache_len: int):
+                   cache_len: int, use_kernel: bool):
     """Returns (x, aux, cache_entry)."""
     window, use_window = _window_args(cfg, full_flag)
     h = norm_apply(cfg, p.norm1, x)
     attn_out, (k_raw, v_raw) = attention_apply(
         cfg, p.attn, h, positions=positions, window=window,
-        use_window=use_window, return_kv=True)
+        use_window=use_window, return_kv=True, use_kernel=use_kernel)
     cache_window = None if (cfg.swa_window is None or full_flag) \
         else cfg.swa_window
     k_c, v_c = assemble_kv_cache(k_raw, v_raw, cache_window, cache_len)
     x = x + attn_out
     h2 = norm_apply(cfg, p.norm2, x)
     if kind == "moe":
-        y, aux = moe_apply(cfg, p.moe, h2, dist)
+        y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
         x = x + y
     else:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -173,7 +176,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
-                  kind: str, full_flag: bool, dist) -> torch.Tensor:
+                  kind: str, full_flag: bool, dist,
+                  use_kernel: bool) -> torch.Tensor:
     window = None
     if cfg.swa_window is not None:
         phys = cache["k"].shape[1]
@@ -186,25 +190,27 @@ def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
     x = x + attn
     h2 = norm_apply(cfg, p.norm2, x)
     if kind == "moe":
-        y, _ = moe_apply(cfg, p.moe, h2, dist)
+        y, _ = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
         return x + y
     return x + mlp_apply(cfg, p.mlp, h2)
 
 
 def lm_decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor,
-                   pos: int, dist: Optional[DistContext] = None):
+                   pos: int, dist: Optional[DistContext] = None,
+                   use_kernel: bool = True):
     """tokens [B] int, pos int -> (logits [B, V], cache updated in place)."""
     x = _embed_tokens(cfg, params, tokens[:, None], None)
     kinds = layer_kinds(cfg)
     for i, (p_l, cache_l) in enumerate(zip(params.blocks, cache)):
         x = _block_decode(cfg, p_l, cache_l, x, int(pos), kind=kinds[i],
-                          full_flag=_full_flag(cfg, i), dist=dist)
+                          full_flag=_full_flag(cfg, i), dist=dist,
+                          use_kernel=use_kernel)
     return _lm_logits(cfg, params, x)[:, 0], cache
 
 
 def lm_prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
                extras: Any = None, dist: Optional[DistContext] = None,
-               cache_len: Optional[int] = None):
+               cache_len: Optional[int] = None, use_kernel: bool = True):
     """Forward over the full prompt, emitting a decode-ready cache.
 
     Returns (last-position logits [B, V], cache); decode continues at
@@ -228,7 +234,8 @@ def lm_prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     for i, p_l in enumerate(params.blocks):
         x, _, cache_l = _block_prefill(
             eff_cfg, p_l, x, positions=positions, dist=dist, kind=kinds[i],
-            full_flag=_full_flag(cfg, i), cache_len=cache_len)
+            full_flag=_full_flag(cfg, i), cache_len=cache_len,
+            use_kernel=use_kernel)
         cache.append(cache_l)
     logits = _lm_logits(cfg, params, x[:, -1:])
     return logits[:, 0], cache

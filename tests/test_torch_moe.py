@@ -187,14 +187,37 @@ def test_dispatch_and_combine_match_reference(capacity):
 
 
 def test_single_axis_ep_is_not_ported():
-    """EP over one mesh axis (the reference's _moe_pod_ep) raises; it does
-    not fall back to another path."""
+    """EP over one mesh axis is not ported as a fallback to another path:
+    it runs the reference's split island (``_moe_pod_ep``), never the full
+    island or the one-rank path, and agrees with the one-rank path when no
+    token is dropped (tests/test_torch_moe_pod_ep.py holds it against the
+    reference)."""
     cfg = dataclasses.replace(
-        _cfg(), moe=MoESpec(num_experts=2, top_k=2))
+        _cfg(), moe=MoESpec(num_experts=2, top_k=2, capacity_factor=4.0))
     layer = moe.MoE(cfg, torch.Generator().manual_seed(0), torch.float32,
                     "cpu")
     mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu")
-    dist = DistContext(mesh=mesh, dp_axes=("pod", "data"), slow_axis="pod",
-                       ep_axes=("pod",), a2a_impl="direct")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_apply(cfg, layer, torch.zeros(4, 2, cfg.d_model), dist)
+    x = torch.randn(4, 2, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    calls = []
+    real = moe._moe_pod_ep
+
+    def spy(*args):
+        calls.append(args[1].ep_axes)
+        return real(*args)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(moe, "_moe_pod_ep", spy)
+    mp.setattr(moe, "_moe_island", None)   # the full island must not run
+    try:
+        with torch.no_grad():
+            local = moe.moe_apply(cfg, layer, x)[0]
+            for ep in (("pod",), ("data",), None):
+                dist = DistContext(mesh=mesh, dp_axes=("pod", "data"),
+                                   slow_axis="pod", ep_axes=ep,
+                                   a2a_impl="direct")
+                y, _ = moe.moe_apply(cfg, layer, x, dist)
+                assert float((y - local).abs().max()) < 1e-6, ep
+    finally:
+        mp.undo()
+    assert calls == [("pod",), ("data",), None]

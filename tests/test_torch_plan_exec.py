@@ -8,6 +8,9 @@ reference's (``repro.comm.plan_exec``).
   ``shard_map`` on fake devices bit for bit (the cases of
   tests/test_comm.py plus slow-axis-only EP), with and without the kernel
   path, and equals the port's ``direct``.
+* ``flash``, ``hierarchical`` and the slow-axis ``rotation`` on (2, 2) and
+  (2, 3) meshes equal the reference's under ``shard_map`` and the port's
+  ``direct`` bit for bit.
 """
 
 import dataclasses
@@ -105,6 +108,8 @@ def _rand_matrix(n_servers, m_gpus, seed):
     return mat
 
 
+A2A_MESHES = {"2x2": (2, 2), "2x3": (2, 3)}
+
 CASES = [
     (2, 4, "moe", 0, "flash"),
     (2, 4, "skewed", 1, "flash"),
@@ -116,7 +121,8 @@ _JAX_SIDE = """
 import numpy as np, jax, jax.numpy as jnp
 from functools import partial
 from jax.sharding import PartitionSpec as P
-from repro.comm import direct_all_to_all, plan_all_to_all, rotation_all_to_all
+from repro.comm import direct_all_to_all, flash_all_to_all, \
+    hierarchical_all_to_all, plan_all_to_all, rotation_all_to_all
 from repro.core.schedulers import get_scheduler
 from repro.core.traffic import ClusterSpec, Workload, moe_workload, \\
     skewed_workload
@@ -166,6 +172,25 @@ out["plan_slow"] = np.asarray(jax.jit(f)(jnp.asarray(x)))
 f = jax.shard_map(partial(rotation_all_to_all, axis="pod"), mesh=mesh,
                   in_specs=P("pod"), out_specs=P("pod"), check_vma=False)
 out["rot_slow"] = np.asarray(jax.jit(f)(jnp.asarray(x)))
+
+rng = np.random.default_rng(7)
+for name, shape in A2A_MESHES.items():
+    mesh = make_mesh(shape, ("pod", "data"))
+    n = shape[0] * shape[1]
+    spec = P(("pod", "data"))
+    x = rng.normal(size=(n * n, 3, 4)).astype(np.float32)
+    out[f"x_{name}"] = x
+    for impl, fn in (("flash", flash_all_to_all),
+                     ("hierarchical", hierarchical_all_to_all)):
+        f = jax.shard_map(partial(fn, slow_axis="pod", fast_axes=("data",)),
+                          mesh=mesh, in_specs=spec, out_specs=spec,
+                          check_vma=False)
+        out[f"{impl}_{name}"] = np.asarray(jax.jit(f)(jnp.asarray(x)))
+    xr = rng.normal(size=(n * shape[0], 5)).astype(np.float32)
+    out[f"xr_{name}"] = xr
+    f = jax.shard_map(partial(rotation_all_to_all, axis="pod"), mesh=mesh,
+                      in_specs=spec, out_specs=spec, check_vma=False)
+    out[f"rotation_{name}"] = np.asarray(jax.jit(f)(jnp.asarray(xr)))
 np.savez(OUT, **out)
 print("JAX_SIDE_OK")
 """
@@ -175,7 +200,8 @@ print("JAX_SIDE_OK")
 def jax_side(tmp_path_factory):
     """The reference's exchanges on 8 fake devices, in one subprocess."""
     path = os.path.join(tmp_path_factory.mktemp("plan_exec"), "ref.npz")
-    out = run_subprocess(f"CASES = {CASES!r}\nOUT = {path!r}\n" + _JAX_SIDE)
+    out = run_subprocess(f"CASES = {CASES!r}\nA2A_MESHES = {A2A_MESHES!r}\n"
+                         f"OUT = {path!r}\n" + _JAX_SIDE)
     assert "JAX_SIDE_OK" in out
     return dict(np.load(path))
 
@@ -223,8 +249,44 @@ def test_plan_all_to_all_slow_only_vs_reference(jax_side):
     assert np.array_equal(got, jax_side["rot_slow"])
 
 
+@pytest.mark.parametrize("impl", ["flash", "hierarchical"])
+@pytest.mark.parametrize("mname", sorted(A2A_MESHES))
+def test_two_tier_impl_bit_exact_vs_reference(jax_side, impl, mname):
+    shape = A2A_MESHES[mname]
+    n = shape[0] * shape[1]
+    mesh = make_mesh(shape, ("pod", "data"), device="cpu")
+    x = torch.from_numpy(jax_side[f"x_{mname}"]).reshape(n, n, 3, 4)
+    got = pt_a2a.all_to_all_by_name(impl)(x, "pod", ("data",), mesh=mesh)
+    assert np.array_equal(got.reshape(n * n, 3, 4).numpy(),
+                          jax_side[f"{impl}_{mname}"])
+    assert torch.equal(got, pt_a2a.direct_all_to_all(x, "pod", ("data",),
+                                                     mesh=mesh))
+
+
+@pytest.mark.parametrize("mname", sorted(A2A_MESHES))
+def test_rotation_bit_exact_vs_reference(jax_side, mname):
+    """EP over the slow axis alone: the rotation schedule, as
+    ``resolve_all_to_all`` selects it for every impl but ``plan``."""
+    shape = A2A_MESHES[mname]
+    n, p = shape[0] * shape[1], shape[0]
+    mesh = make_mesh(shape, ("pod", "data"), device="cpu")
+    x = torch.from_numpy(jax_side[f"xr_{mname}"]).reshape(n, p, 5)
+    a2a = pt_a2a.resolve_all_to_all(mesh=mesh, slow_axis="pod",
+                                    ep_axes=("pod",), impl="flash")
+    assert a2a.func is pt_a2a.rotation_all_to_all
+    got = a2a(x)
+    assert np.array_equal(got.reshape(n * p, 5).numpy(),
+                          jax_side[f"rotation_{mname}"])
+    assert torch.equal(got, pt_a2a.direct_all_to_all(x, "pod", (),
+                                                     mesh=mesh))
+    y = torch.arange(n * shape[1] * 2.0).reshape(n, shape[1], 2)
+    assert torch.equal(
+        pt_a2a.fast_only_all_to_all(y, "pod", "data", mesh=mesh),
+        pt_a2a.intra_all_to_all(y, "data", mesh=mesh))
+
+
 def test_resolve_all_to_all_rules():
-    """The reference's selection rules; impls not ported raise and are
+    """The reference's selection rules; an unknown impl raises and is
     never replaced by another."""
     mesh = make_mesh((2, 2), ("pod", "data"), device="cpu")
     plan = get_scheduler("flash").synthesize(
@@ -236,13 +298,19 @@ def test_resolve_all_to_all_rules():
         is pt_a2a.direct_all_to_all
     hetero = Topology.from_cluster(ClusterSpec(2, 2)).degrade_nic(
         0, 0, 0.5, "both")
-    for impl, extra in (("flash", {}), ("hierarchical", {}),
-                        ("auto", {"topology": hetero})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_a2a.resolve_all_to_all(**kw, impl=impl, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for impl, extra, fn in (
+            ("flash", {}, pt_a2a.flash_all_to_all),
+            ("hierarchical", {}, pt_a2a.hierarchical_all_to_all),
+            ("auto", {"topology": hetero}, pt_a2a.flash_all_to_all)):
+        assert pt_a2a.resolve_all_to_all(**kw, impl=impl, **extra).func \
+            is fn
+    for impl in ("direct", "flash", "hierarchical", "auto"):
+        assert pt_a2a.resolve_all_to_all(
+            mesh=mesh, slow_axis="pod", ep_axes=("pod",), impl=impl).func \
+            is pt_a2a.rotation_all_to_all
+    with pytest.raises(ValueError):
         pt_a2a.resolve_all_to_all(mesh=mesh, slow_axis="pod",
-                                  ep_axes=("pod",), impl="direct")
+                                  ep_axes=("pod",), impl="rotation")
     with pytest.raises(ValueError):
         pt_a2a.resolve_all_to_all(**kw, impl="nope")
     with pytest.raises(ValueError):
@@ -252,7 +320,8 @@ def test_resolve_all_to_all_rules():
     intra = pt_a2a.resolve_all_to_all(mesh=mesh, slow_axis="pod",
                                       ep_axes=("data",), impl="direct")
     assert intra.func is pt_a2a.intra_all_to_all
-    assert pt_a2a.available_all_to_all_impls() == ["direct", "plan"]
+    assert pt_a2a.available_all_to_all_impls() == \
+        ["direct", "flash", "hierarchical", "plan"]
 
 
 def test_local_mesh_collectives_per_rank():

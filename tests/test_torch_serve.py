@@ -7,8 +7,16 @@ greedy decode steps of megatron-moe-32e (f32).
 * On a local (2, 2, 1) mesh with ``plan``, the port against its own run
   with no mesh, within 1e-4, with no token dropped on either side; the same
   mesh run with ``direct`` is bit-identical to ``plan``.
+* mixtral-8x7b (smoke, f32) on a local (2, 3, 1) mesh, its experts over
+  ``pod`` alone, through the rotation (``flash``), ``plan`` and ``direct``:
+  within 1e-4 of its run with no mesh, equal greedy tokens, the three
+  bit-identical.
+* ``use_kernel=False`` reaches no kernel wrapper, with or without a mesh;
+  with the kernels, prefill attention launches once per layer and decode
+  never.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -22,6 +30,7 @@ from repro.models import build_model as ref_build_model
 from repro.models import layers as ref_layers
 from repro.models.transformer import init_lm as ref_init_lm
 from repro.models.transformer import lm_prefill as ref_lm_prefill
+from repro_torch.comm import plan_exec
 from repro_torch.configs import smoke_config
 from repro_torch.convert import from_jax_params
 from repro_torch.launch import serve
@@ -58,6 +67,7 @@ def _ref_run(cfg, params, prompts, extras=None):
 
 def _port_run(cfg, params, prompts, mesh=None, impl=None, plan=None,
               extras=None):
+    """The port: prefill, then STEPS greedy decode steps."""
     prefill = serve.make_prefill_step(cfg, mesh, impl, plan,
                                       cache_len=S + STEPS, device="cpu")
     step = serve.make_serve_step(cfg, mesh, impl, plan, device="cpu")
@@ -216,12 +226,113 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
 
 
 def test_unported_impl_raises_at_the_entry_point():
+    """A name the port's registry does not hold (``rotation`` is a
+    schedule, not a registry impl) raises at the entry point and is never
+    replaced by another; every registered impl and the config's own
+    ``flash`` build; ``plan`` without a plan raises."""
     cfg = smoke_config(ARCH)
     mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.make_prefill_step(cfg, mesh)     # the config's "flash"
+    for impl in (None, "flash", "hierarchical", "direct", "auto"):
+        serve.make_prefill_step(cfg, mesh, impl)
+    with pytest.raises(ValueError, match="unknown"):
+        serve.make_prefill_step(cfg, mesh, "rotation")
     with pytest.raises(ValueError, match="plan"):
         serve.make_prefill_step(cfg, mesh, "plan")
+
+
+MIX = "mixtral-8x7b"
+MIX_MESH = (2, 3, 1)
+
+
+@pytest.fixture(scope="module")
+def mixtral_runs():
+    """Smoke mixtral (f32) with no mesh and on (2, 3, 1) through flash,
+    plan and direct, recording every dispatch's keep flags.  The batch of
+    6 divides the 6 ranks, so the mesh runs take the split island."""
+    cfg = dataclasses.replace(smoke_config(MIX), compute_dtype="float32")
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(6))
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab, (6, S))
+    mesh = make_mesh(MIX_MESH, ("pod", "data", "model"), device="cpu")
+    keeps = []
+    real = moe._dispatch
+
+    def spy(*args):
+        out = real(*args)
+        keeps.append(bool(out[2].all()))
+        return out
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(moe, "_dispatch", spy)
+    try:
+        runs = {"local": _port_run(cfg, params, prompts)}
+        for impl, plan in (("flash", None),
+                           ("plan", serve.flash_plan(2, 3, seed=0)),
+                           ("direct", None)):
+            runs[impl] = _port_run(cfg, params, prompts, mesh, impl, plan)
+    finally:
+        mp.undo()
+    return runs, keeps
+
+
+@pytest.mark.parametrize("impl", ["flash", "plan"])
+def test_mixtral_mesh_matches_no_mesh(mixtral_runs, impl):
+    runs, keeps = mixtral_runs
+    assert keeps and all(keeps), "a token was dropped"
+    for step, (got, ref) in enumerate(zip(runs[impl], runs["local"])):
+        assert _rel(got.numpy(), ref.numpy()) < 1e-4, step
+        assert torch.equal(got.argmax(-1), ref.argmax(-1)), step
+
+
+def test_mixtral_mesh_impls_bit_identical(mixtral_runs):
+    runs, _ = mixtral_runs
+    for other in ("plan", "direct"):
+        for a, b in zip(runs["flash"], runs[other]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [
+    (ARCH, None), (ARCH, (2, 2, 1)), (MIX, None), (MIX, MIX_MESH)])
+def test_use_kernel_false_reaches_no_kernel(arch, mesh_shape, monkeypatch):
+    """Spies on every kernel wrapper the serving path calls: with
+    use_kernel=False none is called, with or without a mesh; with the
+    kernels each of the path's wrappers is, and flash_attention once per
+    layer in the prefill and never in decode."""
+    calls = collections.Counter()
+    for mod, name in ((layers, "flash_attention"), (moe, "grouped_matmul"),
+                      (plan_exec, "a2a_pack"), (plan_exec, "a2a_unpack")):
+        def counted(*a, _real=getattr(mod, name), _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32")
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    mesh = plan = None
+    batch = 4
+    if mesh_shape is not None:
+        mesh = make_mesh(mesh_shape, ("pod", "data", "model"), device="cpu")
+        plan = serve.flash_plan(mesh_shape[0], mesh_shape[1], seed=0)
+        batch = mesh_shape[0] * mesh_shape[1]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, 8)))
+    for use_kernel in (False, True):
+        calls.clear()
+        prefill = serve.make_prefill_step(
+            cfg, mesh, "plan" if mesh else None, plan, cache_len=10,
+            use_kernel=use_kernel, device="cpu")
+        step = serve.make_serve_step(cfg, mesh, "plan" if mesh else None,
+                                     plan, use_kernel=use_kernel,
+                                     device="cpu")
+        logits, cache = prefill(params, {"tokens": tokens})
+        n_attn = calls["flash_attention"]
+        step(params, cache, logits.argmax(-1), 8)
+        if not use_kernel:
+            assert not calls, calls
+            continue
+        want = {"flash_attention", "grouped_matmul"}
+        if mesh is not None:
+            want |= {"a2a_pack", "a2a_unpack"}
+        assert set(calls) == want, calls
+        assert n_attn == calls["flash_attention"] == cfg.n_layers
 
 
 def test_serve_cli_on_cpu(capsys):
