@@ -13,10 +13,14 @@ Phases (each raises on failure; none is caught):
    ``flash_attention`` at the serving paths' prefill and decode shapes and at
    ragged ones, hold each against its plain PyTorch version (pack and unpack
    bit for bit; grouped_matmul within a relative error of 1e-5 in f32 and
-   2e-2 in bf16; flash_attention within an absolute error of 2e-5 in f32 and
-   2e-2 in bf16, the reference's kernel tolerances) and time each, its plain
-   version and one PyTorch library call with CUDA events (median of 20);
-   then a small f32 MoE layer on a (2, 2, 1) mesh against its one-rank path;
+   2e-2 in bf16, on both of its bf16 instances, TMA + wgmma and WMMA;
+   flash_attention within an absolute error of 2e-5 in f32 and 2e-2 in
+   bf16, the reference's kernel tolerances, on contiguous tensors and on
+   ``[B, S, H, D]`` views) and time each, its plain version and one PyTorch
+   library call with CUDA events (median of 20), printing the kernel to
+   library ratio and each kernel's registers, shared memory and spills from
+   ``ptxas -v``; then a small f32 MoE layer on a (2, 2, 1) mesh against its
+   one-rank path;
 3. megatron-moe-32e at its published widths (4 of 24 layers, random weights
    from a seed) on a local (pod 2, data 16, model 1) mesh, expert dispatch
    through the FAST plan: prefill of 32 prompts of 128 tokens, then 15
@@ -34,7 +38,12 @@ Phases (each raises on failure; none is caught):
    its first MoE layer within (0, 0.05) of exact on identical inputs, the
    prefill's logits and routing differences reported; (c) one prompt of
    8192 tokens through the 4096-token window and 15 decode steps on the
-   4096-slot ring cache; the gates of phase 3 at mixtral's shapes.
+   4096-slot ring cache; the gates of phase 3 at mixtral's shapes; and a
+   ``torch.profiler`` window over one (a) prefill and three decode steps:
+   device time by kernel name and the device's idle share.
+
+Every bf16 serving run must launch grouped_matmul on its TMA + wgmma
+instance alone (``grouped_matmul.launches_by_variant``).
 
 The last lines are the card's name and power limit, one JSON line of kernel
 results, and ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
@@ -117,6 +126,35 @@ def max_abs(torch, y, ref) -> float:
 def free(torch):
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def ptxas_lines(_build):
+    """One line per kernel of every source: registers, shared memory,
+    spills, from the ``ptxas -v`` report of its build."""
+    import re
+
+    lines = []
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        src = path.stem
+        kernels = re.findall(
+            r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+            path.read_text())
+        name = None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:  # the source's name of the mangled kernel, and its width
+                name = max((k for k in kernels if k in m.group(1)), key=len,
+                           default=m.group(1))
+                targ = re.search(r"ILi(\d+)E", m.group(1))
+                name += f"<{targ.group(1)}>" if targ else ""
+                spill = ""
+            elif name and "spill" in line:
+                spill = line.strip()
+            elif name and "Used" in line:
+                lines.append(f"ptxas: {src}.cu {name}: "
+                             f"{line.split(':', 1)[1].strip()}; {spill}")
+                name = None
+    return lines
 
 
 def check_pack(torch, k, x, idx, block_rows) -> float:
@@ -264,9 +302,11 @@ def phase_kernels(torch):
     log("kernels: a2a_pack / a2a_unpack bit-exact on ragged shapes "
         "(f32, bf16, int8)")
 
+    by_variant = dict(grouped_matmul.launches_by_variant)
     for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for e, c, d, f in ((3, 37, 70, 45), (2, 100, 256, 513),
-                           (4, 256, 1024, 512)):
+                           (4, 256, 1024, 512), (3, 37, 72, 200),
+                           (2, 300, 136, 264)):
             x = torch.randn((e, c, d), generator=gen, device=dev).to(dt)
             w = torch.randn((e, d, f), generator=gen, device=dev).to(dt)
             cnt = torch.randint(0, c + 1, (e,), generator=gen, device=dev,
@@ -279,8 +319,13 @@ def phase_kernels(torch):
                         f"grouped_matmul {dt} {(e, c, d, f)} counts="
                         f"{counts is not None}: rel err {err} >= {tol}")
     torch.cuda.synchronize()
-    log("kernels: grouped_matmul within 1e-5 (f32) / 2e-2 (bf16) on ragged "
-        "shapes, with and without counts")
+    ragged = {k: n - by_variant[k]
+              for k, n in grouped_matmul.launches_by_variant.items()}
+    if not (ragged["wmma"] and ragged["tma"] and ragged["simt"]):
+        raise AssertionError(f"grouped_matmul's ragged checks missed an "
+                             f"instance: {ragged}")
+    log(f"kernels: grouped_matmul within 1e-5 (f32) / 2e-2 (bf16) on ragged "
+        f"shapes, with and without counts; launches by instance {ragged}")
 
     bf16 = torch.bfloat16
     p, i = MESH[0], MESH[1]
@@ -376,7 +421,12 @@ def phase_kernels(torch):
                                              device=dev).to(bf16), w_up)),
                     ("down", (torch.randn((e, c, f), generator=gen,
                                           device=dev).to(bf16), w_dn))):
+                n_tma = grouped_matmul.launches_by_variant["tma"]
                 y, ref = grouped_matmul(x, w), grouped_matmul_ref(x, w)
+                if grouped_matmul.launches_by_variant["tma"] != n_tma + 1:
+                    raise AssertionError(
+                        f"grouped_matmul at the {arch} {what} {kind} shape "
+                        f"did not take the TMA + wgmma instance")
                 err = rel_err(torch, y, ref)
                 if not err < 2e-2:
                     raise AssertionError(
@@ -397,7 +447,9 @@ def phase_kernels(torch):
                         torch, lambda: grouped_matmul_ref(x, w),
                         runs=TIMED_RUNS if arch == ARCH else 5, warmup=1),
                     "library_ms": cuda_ms(torch, lambda: torch.bmm(x, w)),
-                    "bound_ms": bound, "bound_by": by}
+                    "bound_ms": bound, "bound_by": by, "instance": "tma"}
+                entry["ratio_to_library"] = entry["ms"] / entry["library_ms"]
+                entry["ratio_to_bound"] = entry["ms"] / bound
                 row["shapes"].append(entry)
                 log("timing: grouped_matmul", json.dumps(entry))
                 del x
@@ -414,7 +466,9 @@ def phase_kernels(torch):
 def phase_flash_attention(torch):
     """flash_attention against its plain version on ragged shapes and at
     the serving paths' prefill shapes (f32 within 2e-5, bf16 within 2e-2,
-    absolute), then timings in bf16 beside the plain version and
+    absolute), each on contiguous ``[B, H, S, D]`` tensors and on
+    ``[B, S, H, D]`` memory seen as ``[B, H, S, D]`` (what attention_apply
+    passes), then timings in bf16 beside the plain version and
     ``scaled_dot_product_attention``.  Returns the kernel's result row."""
     import torch.nn.functional as F
 
@@ -425,37 +479,47 @@ def phase_flash_attention(torch):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
-    def inputs(b, h, kv, s, d, dt):
+    def inputs(b, h, kv, s, d, dt, views=False):
+        """q, k, v as [B, H, S, D]; with ``views``, [B, S, H, D] memory
+        seen as [B, H, S, D], as attention_apply hands them over."""
+        if views:
+            return [torch.randn((b, s, n, d), generator=gen,
+                                device=dev).to(dt).transpose(1, 2)
+                    for n in (h, kv, kv)]
         return [torch.randn(shape, generator=gen, device=dev).to(dt)
                 for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
 
-    def check(b, h, kv, s, d, causal, window, dt) -> float:
-        q, k, v = inputs(b, h, kv, s, d, dt)
+    def check(b, h, kv, s, d, causal, window, dt, views=False) -> float:
+        q, k, v = inputs(b, h, kv, s, d, dt, views)
         out = flash_attention(q, k, v, causal=causal, window=window)
         ref = attention_ref(q, k, v, causal=causal, window=window)
         err = max_abs(torch, out, ref)
         if not (err <= tols[dt] and bool(torch.isfinite(out.float()).all())):
             raise AssertionError(
                 f"flash_attention {dt} b{b} h{h} k{kv} s{s} d{d} causal="
-                f"{causal} window={window}: max abs err {err} > {tols[dt]}")
+                f"{causal} window={window} views={views}: max abs err {err} "
+                f"> {tols[dt]}")
         return err
 
     worst = {dt: 0.0 for dt in tols}
     n = 0
     for dt in tols:
         for s in (1, 37, 130, 1000):
-            for d in (8, 12, 16, 40, 64, 128):
+            for d in (8, 12, 16, 24, 40, 64, 128):
                 for group in (1, 4):
                     for causal in (True, False):
                         for window in (None, 5, 100):
-                            worst[dt] = max(worst[dt], check(
-                                1, 2 * group, 2, s, d, causal, window, dt))
-                            n += 1
+                            for views in (False, True):
+                                worst[dt] = max(worst[dt], check(
+                                    1, 2 * group, 2, s, d, causal, window,
+                                    dt, views))
+                                n += 1
     torch.cuda.synchronize()
     log(f"kernels: flash_attention within 2e-5 (f32) / 2e-2 (bf16) on {n} "
-        f"ragged shapes (S 1 to 1000, head dims 8 to 128, groups 1 and 4, "
-        f"causal and not, windows none, 5, 100): worst "
-        f"{worst[torch.float32]:.3e} / {worst[torch.bfloat16]:.3e}")
+        f"ragged cases (S 1 to 1000, head dims 8 to 128, groups 1 and 4, "
+        f"causal and not, windows none, 5, 100, contiguous and [B, S, H, D] "
+        f"views): worst {worst[torch.float32]:.3e} / "
+        f"{worst[torch.bfloat16]:.3e}")
 
     meg, mix = serve_config(), mixtral_config()
     shapes = [(f"{arch} {what}", batch, cfg.n_heads, cfg.n_kv_heads, s,
@@ -466,11 +530,13 @@ def phase_flash_attention(torch):
                   (MIX_ARCH, mix, "long prefill", 1, LONG_PROMPT))]
     entries = []
     for path, b, h, kv, s, d, w in shapes:
-        for dt in tols:
-            err = check(b, h, kv, s, d, True, w, dt)
+        for dt, views in ((torch.float32, False), (torch.bfloat16, False),
+                          (torch.bfloat16, True)):
+            err = check(b, h, kv, s, d, True, w, dt, views)
             worst[dt] = max(worst[dt], err)
             log(f"kernels: flash_attention at the {path} shape "
-                f"[{b}, {h}, {s}, {d}] kv {kv} window {w} {dt}: max abs err "
+                f"[{b}, {h}, {s}, {d}] kv {kv} window {w} {dt}"
+                f"{' on [B, S, H, D] views' if views else ''}: max abs err "
                 f"{err:.3e}")
             free(torch)
         q, k, v = inputs(b, h, kv, s, d, torch.bfloat16)
@@ -493,6 +559,12 @@ def phase_flash_attention(torch):
             "plain_ms": cuda_ms(torch, lambda: attention_ref(
                 q, k, v, causal=True, window=w), runs=5, warmup=1),
             "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        entry["ratio_to_library"] = entry["ms"] / lib
+        entry["ratio_to_bound"] = entry["ms"] / bound
+        qv, kv_, vv = inputs(b, h, kv, s, d, torch.bfloat16, views=True)
+        entry["ms_on_views"] = cuda_ms(torch, lambda: flash_attention(
+            qv, kv_, vv, causal=True, window=w))
+        del qv, kv_, vv
         entries.append(entry)
         log("timing: flash_attention", json.dumps(entry))
         if s == LONG_PROMPT:
@@ -503,21 +575,6 @@ def phase_flash_attention(torch):
                 f"with it; visible pairs {band_pairs(s, True, None)} against "
                 f"{band_pairs(s, True, w)} (tiles outside the window are "
                 f"skipped)")
-        if s == MIX_PROMPT:
-            # attention_apply's layout moves: q, k, v [B, S, H, D] to
-            # [B, H, S, D] before the kernel, and the output back
-            qs = q.transpose(1, 2).contiguous()
-            ks = k.transpose(1, 2).contiguous()
-            o = flash_attention(q, k, v, causal=True, window=w)
-
-            def moves():
-                qs.transpose(1, 2).contiguous()
-                ks.transpose(1, 2).contiguous()
-                ks.transpose(1, 2).contiguous()
-                o.transpose(1, 2).reshape(b, s, h * d)
-            log(f"timing: attention_apply's transposes around the kernel at "
-                f"the {path} shape: {cuda_ms(torch, moves):.4f} ms")
-            del qs, ks, o
         del q, k, v
         free(torch)
     main = entries[1]
@@ -602,10 +659,39 @@ def route_flips(torch, routes_a, routes_b, batch):
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
+    gmm = kernels["grouped_matmul"]
+    gmm.launches_by_variant = dict.fromkeys(gmm.launches_by_variant, 0)
 
 
 def read_launches(kernels):
     return {name: fn.launches for name, fn in kernels.items()}
+
+
+def read_variants(kernels):
+    """grouped_matmul's launches by instance since the last reset."""
+    return dict(kernels["grouped_matmul"].launches_by_variant)
+
+
+def run_counts(run):
+    """A run's launch counts by kernel and grouped_matmul's by instance."""
+    return {"prefill": run["prefill_launches"],
+            "decode": run["decode_launches"],
+            "prefill_variants": run["prefill_variants"],
+            "decode_variants": run["decode_variants"]}
+
+
+def check_variants(run, label, want="tma"):
+    """Every grouped_matmul launch of the run's prefill (and decode) went
+    through instance ``want``."""
+    for part in ("prefill", "decode"):
+        if f"{part}_variants" not in run:
+            continue
+        by, total = run[f"{part}_variants"], \
+            run[f"{part}_launches"]["grouped_matmul"]
+        if not (total > 0 and by[want] == total):
+            raise AssertionError(f"{label}: grouped_matmul's {part} launches "
+                                 f"by instance {by}; expected all {total} "
+                                 f"on {want!r}")
 
 
 def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
@@ -637,6 +723,7 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     t_prefill = time.perf_counter() - t0
     res = {"logits": logits, "prefill_s": t_prefill, "routes": rec.eids,
            "prefill_launches": read_launches(kernels),
+           "prefill_variants": read_variants(kernels),
            "cache_slots": cache[0]["k"].shape[1]}
     if not decode:
         return res
@@ -659,6 +746,7 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     step_ms = [a.elapsed_time(b) for a, b in events]
     res.update(tokens=torch.stack(out, dim=1), decode_s=t_decode,
                decode_steps=GEN - 1, decode_launches=read_launches(kernels),
+               decode_variants=read_variants(kernels),
                last_logits=lg, step_ms_median=statistics.median(step_ms),
                step_ms_max=max(step_ms))
     return res
@@ -666,8 +754,9 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
 
 def check_run(torch, run, cfg, batch, label, required):
     """Shape and finiteness of a run's logits; every kernel of ``required``
-    launched in its prefill and decode, ``flash_attention`` once per layer
-    per prefill and never in decode."""
+    launched in its prefill and decode, grouped_matmul on its TMA + wgmma
+    instance alone, ``flash_attention`` once per layer per prefill and never
+    in decode."""
     for t in (run["logits"], run["last_logits"]):
         if tuple(t.shape) != (batch, cfg.vocab) or \
                 not bool(torch.isfinite(t.float()).all()):
@@ -679,6 +768,7 @@ def check_run(torch, run, cfg, batch, label, required):
                                  f"prefill")
         if name != "flash_attention" and dec[name] <= 0:
             raise AssertionError(f"{label}: {name} never launched in decode")
+    check_variants(run, label)
     if pre["flash_attention"] != cfg.n_layers or dec["flash_attention"]:
         raise AssertionError(
             f"{label}: flash_attention launched {pre['flash_attention']} "
@@ -694,7 +784,9 @@ def log_run(run, label, batch):
         f"{run['decode_steps']} steps (median {run['step_ms_median']:.3f} "
         f"ms, max {run['step_ms_max']:.3f} ms on the device clock); "
         f"{tok_s:.1f} tokens/s ({n_tok} tokens); launches prefill "
-        f"{run['prefill_launches']}, decode {run['decode_launches']}")
+        f"{run['prefill_launches']}, decode {run['decode_launches']}; "
+        f"grouped_matmul by instance: prefill {run['prefill_variants']}, "
+        f"decode {run['decode_variants']}")
 
 
 def plain_gates(torch, cfg, params, mesh, plan, prompts, run, kernels,
@@ -768,6 +860,7 @@ def f32_gate(torch, cfg, mesh, plan, prompts, kernels, label):
                 decode=False, record=True)
     p32 = serve(torch, cfg32, params32, mesh, "plan", plan, prompts, kernels,
                 use_kernel=False, decode=False, warmup=False, record=True)
+    check_variants(k32, f"{label}[f32]", want="simt")
     n_flip, n_dec, per_layer, _ = route_flips(torch, k32["routes"],
                                               p32["routes"], prompts.shape[0])
     diff32 = rel_err(torch, k32["logits"], p32["logits"])
@@ -780,6 +873,71 @@ def f32_gate(torch, cfg, mesh, plan, prompts, kernels, label):
                              f"{diff32}, {n_flip} routing decisions differ")
     del params32, k32, p32
     free(torch)
+
+
+def busy_us(intervals):
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_window(torch, cfg, params, mesh, plan, prompts, steps=3):
+    """One plan prefill and ``steps`` decode steps under torch.profiler:
+    device time by kernel name (top 10) and the device's idle share over the
+    window from the first device event's start to the last one's end.
+    Prints "not measured" where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+
+    prompt = prompts.shape[1]
+    prefill = make_prefill_step(cfg, mesh, "plan", plan,
+                                cache_len=prompt + GEN)
+    step = make_serve_step(cfg, mesh, "plan", plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, cache = prefill(params, {"tokens": prompts})
+        toks = logits.argmax(-1)
+        for t in range(prompt, prompt + steps):
+            lg, cache = step(params, cache, toks, t)
+            toks = lg.argmax(-1)
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    label = f"profile[mixtral plan, prefill + {steps} decode steps]"
+    if not dev:
+        log(f"{label}: device time by kernel: not measured (the trace holds "
+            f"no device event); idle share: not measured; host window "
+            f"{host_ms:.3f} ms")
+        return None
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    busy = busy_us(spans)
+    by_name = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    total = sum(t for _, t in by_name.values())
+    log(f"{label}: host window {host_ms:.3f} ms; device window "
+        f"{window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
+        f"{1 - busy / window:.4f}; {len(dev)} device events, "
+        f"{total / 1e3:.3f} ms summed")
+    for name, (n, t) in top:
+        log(f"{label}: {t / 1e3:10.3f} ms {100 * t / total:6.2f}% {n:5d}x "
+            f"{name[:110]}")
+    return {"idle_share": 1 - busy / window, "window_ms": window / 1e3,
+            "top": [(name, n, t / 1e3) for name, (n, t) in top]}
 
 
 def phase_megatron(torch, kernels):
@@ -818,6 +976,7 @@ def phase_megatron(torch, kernels):
     # the exchange is pure data movement: direct and flash are bit-identical
     direct = serve(torch, cfg, params, mesh, "direct", None, prompts,
                    kernels)
+    check_variants(direct, "serve[direct]")
     if not torch.equal(direct["logits"], run["logits"]):
         raise AssertionError("direct prefill logits differ from plan's")
     if not torch.equal(direct["tokens"], run["tokens"]):
@@ -829,11 +988,13 @@ def phase_megatron(torch, kernels):
     del direct
     flash = serve(torch, cfg, params, mesh, "flash", None, prompts, kernels,
                   decode=False)
+    check_variants(flash, "serve[flash]")
     if not torch.equal(flash["logits"], run["logits"]):
         raise AssertionError("flash prefill logits differ from plan's")
     log(f"serve[flash]: prefill logits bit-identical to plan; prefill "
         f"{flash['prefill_s'] * 1e3:.3f} ms")
     again = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels)
+    check_variants(again, "serve[plan, again]")
     log(f"serve[plan, again]: prefill {again['prefill_s'] * 1e3:.3f} ms; "
         f"decode {again['decode_s'] / again['decode_steps'] * 1e3:.3f} "
         f"ms/step (median {again['step_ms_median']:.3f} ms)")
@@ -841,8 +1002,7 @@ def phase_megatron(torch, kernels):
 
     plain_gates(torch, cfg, params, mesh, plan, prompts, run, kernels,
                 "serve")
-    launches = {"prefill": run["prefill_launches"],
-                "decode": run["decode_launches"]}
+    launches = run_counts(run)
     del params, run
     free(torch)
     f32_gate(torch, cfg, mesh, plan, prompts, kernels, "serve")
@@ -906,6 +1066,9 @@ def phase_mixtral(torch, kernels):
     log_run(rot, "mixtral[flash]: prefill logits bit-identical to plan, "
             "greedy tokens equal", BATCH)
     del rot
+    free(torch)
+    profile_window(torch, cfg, params, mesh, plan, prompts)
+    free(torch)
 
     # (b) int8 dispatch through the plan.  Gated where the reference's
     # test gates it, on one MoE layer (identical inputs); the prefill's
@@ -914,6 +1077,7 @@ def phase_mixtral(torch, kernels):
     cfg_q = dataclasses.replace(cfg, quantized_dispatch=True)
     quant = serve(torch, cfg_q, params, mesh, "plan", plan, prompts, kernels,
                   decode=False, record=True)
+    check_variants(quant, "mixtral[int8 dispatch]")
     n_flip, n_dec, per_layer, per_seq = route_flips(
         torch, run["routes"], quant["routes"], BATCH)
     q_err = rel_err(torch, quant["logits"], run["logits"])
@@ -939,8 +1103,7 @@ def phase_mixtral(torch, kernels):
 
     plain_gates(torch, cfg, params, mesh, plan, prompts, run, kernels,
                 "mixtral")
-    launches = {"mixtral-8x7b plan": {"prefill": run["prefill_launches"],
-                                      "decode": run["decode_launches"]}}
+    launches = {"mixtral-8x7b plan": run_counts(run)}
     del run
     free(torch)
 
@@ -962,14 +1125,38 @@ def phase_mixtral(torch, kernels):
             f"{cfg.swa_window}, ring cache of {long['cache_slots']} slots", 1)
     log(f"mixtral[long]: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    launches["mixtral-8x7b long"] = {"prefill": long["prefill_launches"],
-                                     "decode": long["decode_launches"]}
+    launches["mixtral-8x7b long"] = run_counts(long)
     del long, params
     free(torch)
 
     f32_gate(torch, cfg, mesh, plan, prompts[:, :F32_PROMPT], kernels,
              "mixtral")
     return launches
+
+
+# Ratios of the redesigned kernels to their library calls that the bf16
+# serving shapes should stay under (reported, not gated: a card below its
+# power limit moves them).
+RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
+                "flash_attention mixtral-8x7b prefill": 3.5,
+                "flash_attention mixtral-8x7b long prefill": 1.5,
+                "flash_attention megatron-moe-32e prefill": 2.7}
+
+
+def log_ratios(rows):
+    """Each redesigned kernel's time over its library call's at every
+    serving shape, beside the limit it should stay under."""
+    for name in ("grouped_matmul", "flash_attention"):
+        for e in rows[name]["shapes"]:
+            key = (f"{name} {e['path'].split()[-2]}" if name ==
+                   "grouped_matmul" else f"{name} {e['path']}")
+            limit = RATIO_LIMITS.get(key)
+            verdict = "" if limit is None else (
+                f" (limit {limit}: {'within' if e['ratio_to_library'] <= limit else 'OVER'})")
+            log(f"ratio: {name} {e['path']}: {e['ms']:.4f} ms / library "
+                f"{e['library_ms']:.4f} ms = {e['ratio_to_library']:.3f}"
+                f"{verdict}; {e['ratio_to_bound']:.3f}x its bound "
+                f"{e['bound_ms']:.4f} ms")
 
 
 def main() -> int:
@@ -1004,11 +1191,14 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_lines(_build):
+        log(line)
 
     # 2. kernels against their plain versions; a small reference
     t0 = time.perf_counter()
     rows = phase_kernels(torch)
     rows["flash_attention"] = phase_flash_attention(torch)
+    log_ratios(rows)
     phase_small_reference(torch)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
@@ -1036,6 +1226,10 @@ def main() -> int:
                        library_ms=first["library_ms"],
                        bound_ms=first["bound_ms"],
                        bound_by=first["bound_by"])
+        if name == "grouped_matmul":
+            row["launches_by_variant"] = {
+                part: launches["mixtral-8x7b plan"][f"{part}_variants"]
+                for part in ("prefill", "decode")}
         row = dict(row, launches=main_path["prefill"][name]
                    + main_path["decode"][name],
                    launches_prefill=main_path["prefill"][name],

@@ -5,8 +5,9 @@ into its own shared library under ``build/`` (beside this file) at first
 use, then loaded with ``ctypes``.  The library's file name carries a hash of
 the source and the flags, so an edited source rebuilds and an unchanged one
 is reused.  ``build_all`` starts one ``nvcc`` per source at once and waits
-for all of them.  Nothing is downloaded: the sources in the package are the
-only input.
+for all of them.  ``ptxas -v`` reports each kernel's registers, shared memory
+and spills; the report is kept beside the library (``ptxas_report``).
+Nothing is downloaded: the sources in the package are the only input.
 """
 
 from __future__ import annotations
@@ -22,12 +23,13 @@ from typing import Dict
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
+           "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -84,10 +86,21 @@ def build_all() -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {n}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent builder never sees half
     if failed:
         raise RuntimeError("\n".join(failed))
     return targets
+
+
+def ptxas_report(name: str) -> str:
+    """What nvcc printed when it built ``csrc/<name>.cu`` (ptxas's lines on
+    registers, shared memory and spills of each kernel), building it first
+    if needed."""
+    out = _target(name)
+    if not out.exists():
+        build_all()
+    return out.with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,12 +5,20 @@ Hopper counterpart of ``src/repro/kernels/flash_attention/flash_attention.py``
 softmax attention on ``q [B, H, S, D]`` and ``k``/``v [B, K, S, D]``, the kv
 head of query head ``h`` being ``h // (H / K)``, masked with the finite
 ``-1e30``, output ``acc / max(l, 1e-30)`` in q's dtype.  The CUDA kernel is
-``csrc/flash_attention.cu``: one block per (batch * head, 64-row q tile)
-loops over exactly the kv tiles that meet the causal band and the window, on
-the tensor cores (WMMA) in bf16 and with plain f32 FMAs (no TF32) in f32.
-It takes any ``S >= 1`` (the TPU kernel needs ``S`` to divide its blocks)
-and any head dim up to 128.  It is bound by the operations, 4 * D per
-visible (q, k) pair and head.
+``csrc/flash_attention.cu``: one block per (q tile, batch * head) loops
+over exactly the kv tiles that meet the causal band and the window.  In
+bf16 (128-row q tiles) it keeps S, P and O in registers (``mma.sync``
+m16n8k16, P as hi + lo bf16 terms) and streams k and v through double
+``cp.async`` buffers; in f32 (64-row q tiles) it runs plain f32 FMAs (no
+TF32).  It takes any ``S >= 1`` (the TPU kernel
+needs ``S`` to divide its blocks) and any head dim up to 128.  It is bound
+by the operations, 4 * D per visible (q, k) pair and head.
+
+The kernel reads q, k and v through their strides, so ``[B, S, H, D]``
+projections pass as ``.transpose(1, 2)`` views without a copy; it writes
+``[B, S, H, D]`` memory, and the result is its ``[B, H, S, D]`` view (the
+plain version's result is laid out the same way), so ``.transpose(1, 2)``
+of it is contiguous.
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  ``flash_attention.launches`` counts kernel launches.
@@ -36,10 +44,17 @@ _INT_MAX = 2 ** 31 - 1
 def _fn():
     fn = _build.load("flash_attention").flash_attention
     if fn.argtypes is None:  # 64-bit pointers need declared argtypes
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bshd_output(q: torch.Tensor) -> torch.Tensor:
+    """An empty ``[B, H, S, D]`` view of ``[B, S, H, D]`` memory."""
+    b, h, s, d = q.shape
+    return torch.empty((b, s, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,7 +64,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``causal`` keeps keys at or before each query; ``window`` (None or
     >= 1) keeps the ``window`` keys ending at the query's position.
-    Returns ``[B, H, S, D]`` in q's dtype.
+    Any strides are taken as long as the head dim's is 1.  Returns
+    ``[B, H, S, D]`` in q's dtype, a view of ``[B, S, H, D]`` memory.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"need q [B, H, S, D] and k, v [B, K, S, D], got "
@@ -74,20 +90,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 1 <= d <= _MAX_HEAD_DIM:
         raise ValueError(f"flash_attention takes head dims 1 to "
                          f"{_MAX_HEAD_DIM}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention needs contiguous q, k and v")
+    if any(t.stride(-1) != 1 and d > 1 for t in (q, k, v)):
+        raise ValueError(f"flash_attention needs a unit stride in the head "
+                         f"dim, got {q.stride()}, {k.stride()}, "
+                         f"{v.stride()}")
     if window is not None and not 1 <= window <= _INT_MAX:
         raise ValueError(f"window must be None or in [1, 2**31), got "
                          f"{window}")
     if max(b * h * s, s * d) > _INT_MAX:
         raise ValueError("flash_attention dimensions must fit in int32")
+    o = _bshd_output(q)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return o.copy_(attention_ref(q, k, v, causal=causal, window=window))
     fn = _fn()
-    o = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*(
+        st for t in (q, k, v, o) for st in t.stride()[:3]))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                b, h, kv, s, d, int(causal),
+                strides, b, h, kv, s, d, int(causal),
                 -1 if window is None else int(window), 1.0 / d ** 0.5,
                 _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)

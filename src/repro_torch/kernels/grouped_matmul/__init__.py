@@ -1,4 +1,4 @@
-from .grouped_matmul import grouped_matmul
+from .grouped_matmul import grouped_matmul, variant
 from .ref import grouped_matmul_ref
 
-__all__ = ["grouped_matmul", "grouped_matmul_ref"]
+__all__ = ["grouped_matmul", "grouped_matmul_ref", "variant"]

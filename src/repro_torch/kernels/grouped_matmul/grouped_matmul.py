@@ -2,15 +2,23 @@
 
 Hopper counterpart of ``src/repro/kernels/grouped_matmul/grouped_matmul.py``
 (``grouped_matmul``, Pallas body ``_gmm_kernel``): ``y[e] = x[e] @ w[e]`` with
-f32 accumulation and rows ``>= counts[e]`` written as zero.  The CUDA kernel
-is ``csrc/grouped_matmul.cu``: WMMA bf16 tensor-core tiles (128x128x32) for
-bf16 and plain f32 FMAs (no TF32) for f32, ragged edges masked.  At the MoE
+f32 accumulation and rows ``>= counts[e]`` written as zero.  At the MoE
 prefill shapes the product is bound by tensor-core operations, at decode by
-reading the weights; a row tile wholly past ``counts[e]`` skips its K loop and
-only writes zeros.
+reading the weights once.  ``csrc/grouped_matmul.cu`` holds three instances,
+and ``variant`` picks one by dtype and shape alone:
 
+* ``tma`` (bf16, ``D`` and ``F`` multiples of 8, 16-byte aligned bases): a
+  persistent TMA + ``wgmma`` kernel, one producer warp feeding a 5-stage
+  ring to two consumer warpgroups, tiles walked so that the row tiles of a
+  weight tile run together.  Every serving shape takes it.
+* ``wmma`` (bf16, any other shape; TMA needs 16-byte row strides): WMMA
+  tiles with synchronous loads.
+* ``simt`` (f32): plain f32 FMAs, no TF32.
+
+Every instance skips the K loop of a row tile wholly past ``counts[e]``.
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  ``grouped_matmul.launches`` counts kernel launches.
+the kernel or raises.  ``grouped_matmul.launches`` counts kernel launches,
+``grouped_matmul.launches_by_variant`` the same by instance.
 """
 
 from __future__ import annotations
@@ -23,10 +31,23 @@ import torch
 from ... import _build
 from .ref import grouped_matmul_ref
 
-__all__ = ["grouped_matmul"]
+__all__ = ["grouped_matmul", "variant"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_VARIANTS = {"simt": 0, "wmma": 1, "tma": 2}
 _INT_MAX = 2 ** 31 - 1
+
+
+def variant(dtype: torch.dtype, d: int, f: int, aligned: bool = True) -> str:
+    """The kernel instance for ``x [E, C, d] @ w [E, d, f]``: ``"simt"`` for
+    f32; for bf16 ``"tma"`` when TMA can address the rows (``d`` and ``f``
+    multiples of 8, so that row strides are multiples of 16 bytes, ``d > 0``,
+    and ``aligned``: the bases of x, w and y on 16 bytes), else ``"wmma"``."""
+    if dtype == torch.float32:
+        return "simt"
+    if d > 0 and d % 8 == 0 and f % 8 == 0 and aligned:
+        return "tma"
+    return "wmma"
 
 
 def _fn():
@@ -76,15 +97,20 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
         return grouped_matmul_ref(x, w, counts)
     fn = _fn()
     y = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    name = variant(x.dtype, d, f, all(t.data_ptr() % 16 == 0
+                                      for t in (x, w, y)))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                   None if counts is None else counts.data_ptr(),
-                   e, c, d, f, _DTYPES[x.dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream)
+                None if counts is None else counts.data_ptr(),
+                e, c, d, f, _VARIANTS[name],
+                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"grouped_matmul launch failed: cudaError {rc}")
+        raise RuntimeError(f"grouped_matmul ({name}) launch failed: "
+                           f"cudaError {rc}")
     grouped_matmul.launches += 1
+    grouped_matmul.launches_by_variant[name] += 1
     return y
 
 
 grouped_matmul.launches = 0
+grouped_matmul.launches_by_variant = dict.fromkeys(_VARIANTS, 0)

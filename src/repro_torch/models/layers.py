@@ -239,8 +239,9 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     """Self-attention over a full sequence (prefill).
 
     ``use_kernel`` runs it on the ``flash_attention`` kernel over the
-    un-repeated keys and values (heads moved in front of the sequence and
-    back); False runs the reference's plain math.  ``use_window=False``
+    un-repeated keys and values, handed as ``[B, H, S, D]`` views of the
+    projections (no copy; the kernel reads through the strides and writes
+    ``[B, S, H, D]``); False runs the reference's plain math.  ``use_window=False``
     drops the window.  With ``return_kv`` also returns the (pre-GQA-repeat)
     keys/values."""
     b, s, _ = x.shape
@@ -248,10 +249,9 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     q, k, v = _project_qkv(cfg, p, x, positions)
     eff = window if (window is not None and use_window) else None
     if use_kernel:
-        out = flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=causal, window=eff)
-        out = out.transpose(1, 2)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=eff).transpose(1, 2)
     elif s > chunked_threshold:
         out = mha_chunked(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
                           q_offset=0, window=window, use_window=use_window,

@@ -8,8 +8,11 @@
 * ``attention_apply`` with ``use_kernel`` True (the kernel's path) and False
   (the plain math) against the reference's ``attention_apply``, f32, < 1e-5,
   with GQA, a sliding window and the chunked branch.
-* The wrapper: what it refuses on every device, and that a CPU tensor never
-  reaches the build.
+* The wrapper: what it refuses on every device, that a CPU tensor never
+  reaches the build, that ``[B, S, H, D]`` memory seen as ``[B, H, S, D]``
+  gives what contiguous copies give, bit for bit, and that the result is a
+  view of ``[B, S, H, D]`` memory; and that ``attention_apply`` hands the
+  kernel views of its projections, not copies.
 """
 
 import dataclasses
@@ -160,8 +163,8 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
     kw = {}
     if bad == "head_dim":
         q, k, v = (torch.zeros(t.shape[:3] + (192,)) for t in (q, k, v))
-    elif bad == "noncontig":
-        q = torch.zeros(1, 8, 4, 16).transpose(1, 2)
+    elif bad == "noncontig":  # the head dim must have unit stride
+        q = torch.zeros(1, 4, 8, 32)[..., ::2]
     elif bad == "dtype":
         k = k.to(torch.bfloat16)
     elif bad == "window":
@@ -172,3 +175,62 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
         q, k, v = q.to("meta"), k.to("meta"), v.to("meta")
     with pytest.raises(ValueError):
         flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4])
+def test_strided_views_match_contiguous_copies(group, causal, window):
+    """q, k, v as [B, S, H, D] memory seen as [B, H, S, D] (what
+    attention_apply passes) give the contiguous copies' result bit for bit,
+    and the result is a [B, H, S, D] view of [B, S, H, D] memory."""
+    rng = np.random.default_rng(group * 10 + causal)
+    b, kv, s, d = 2, 2, 37, 16
+    h = kv * group
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+        np.float32)).transpose(1, 2) for n in (h, kv, kv))
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window)
+    assert torch.equal(got, want)
+    assert got.shape == (b, h, s, d)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+def test_attention_apply_hands_the_kernel_views(monkeypatch):
+    """use_kernel=True passes the projections' own storage to
+    flash_attention (transposed views, no .contiguous() copy) and reshapes
+    the kernel's [B, S, H, D] result without a copy either."""
+    cfg = dataclasses.replace(smoke_config("mixtral-8x7b"),
+                              compute_dtype="float32", n_heads=4,
+                              n_kv_heads=2)
+    attn = layers.Attention(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, "cpu")
+    seen = {}
+    real_project, real_flash = layers._project_qkv, layers.flash_attention
+
+    def project(*args, **kw):
+        seen["proj"] = real_project(*args, **kw)
+        return seen["proj"]
+
+    def flash(q, k, v, **kw):
+        seen["args"] = (q, k, v)
+        seen["out"] = real_flash(q, k, v, **kw)
+        return seen["out"]
+
+    monkeypatch.setattr(layers, "_project_qkv", project)
+    monkeypatch.setattr(layers, "flash_attention", flash)
+    x = torch.randn(2, 20, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    pos = torch.arange(20, dtype=torch.int32).expand(2, 20)
+    with torch.no_grad():
+        layers.attention_apply(cfg, attn, x, positions=pos, use_kernel=True)
+    for proj, arg in zip(seen["proj"], seen["args"]):
+        assert arg.untyped_storage().data_ptr() == \
+            proj.untyped_storage().data_ptr()
+        assert arg.shape == proj.transpose(1, 2).shape
+        assert arg.stride() == proj.transpose(1, 2).stride()
+    out = seen["out"].transpose(1, 2)
+    assert out.is_contiguous()
+    assert out.reshape(2, 20, -1).data_ptr() == out.data_ptr()

@@ -3,7 +3,9 @@ against the reference's Pallas kernels run in interpret mode.
 
 Pack and unpack must agree bit for bit (unpack on the blocks its index
 names); grouped_matmul within the reference's own tolerances: relative error
-< 1e-5 in f32 and < 2e-2 in bf16 (tests/test_kernels.py).
+< 1e-5 in f32 and < 2e-2 in bf16 (tests/test_kernels.py).  The rule that
+picks grouped_matmul's kernel instance sends every served model's expert
+products to the TMA + wgmma one, and shapes TMA cannot address to WMMA.
 """
 
 import jax.numpy as jnp
@@ -17,7 +19,8 @@ from repro_torch import _build
 from repro_torch.convert import to_torch
 from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
 from repro_torch.kernels.a2a_pack.a2a_pack import _block_copy
-from repro_torch.kernels.grouped_matmul import grouped_matmul
+from repro_torch.configs import get_config
+from repro_torch.kernels.grouped_matmul import grouped_matmul, variant
 
 DTYPES = {"float32": np.float32, "bfloat16": jnp.bfloat16, "int8": np.int8}
 
@@ -148,3 +151,31 @@ def test_wrappers_reject_what_the_kernel_cannot_take(bad):
     if bad != "idx_dtype":
         with pytest.raises(ValueError):
             grouped_matmul(x.reshape(2, 4, 4), w)
+
+
+@pytest.mark.parametrize("arch", ["megatron-moe-32e", "mixtral-8x7b"])
+def test_variant_rule_sends_serving_shapes_to_tma(arch):
+    """Every bf16 expert product of the served models (gate/up [d, f] and
+    down [f, d], prefill and decode alike: the rule reads only D and F) runs
+    on the TMA + wgmma instance; shapes TMA cannot address take WMMA, f32
+    takes the SIMT instance."""
+    cfg = get_config(arch)
+    d, f = cfg.d_model, cfg.d_ff
+    for dd, ff in ((d, f), (f, d)):
+        assert variant(torch.bfloat16, dd, ff) == "tma"
+        assert variant(torch.float32, dd, ff) == "simt"
+        assert variant(torch.bfloat16, dd, ff, aligned=False) == "wmma"
+    assert variant(torch.bfloat16, 70, 45) == "wmma"       # (3, 37, 70, 45)
+    assert variant(torch.bfloat16, 256, 513) == "wmma"
+    assert variant(torch.bfloat16, 0, 64) == "wmma"
+    assert variant(torch.bfloat16, 72, 200) == "tma"
+
+
+def test_cpu_calls_count_no_variant(monkeypatch):
+    """The per-instance counts move only with launches, never on the CPU."""
+    monkeypatch.setattr(_build, "load", lambda name: None)
+    before = dict(grouped_matmul.launches_by_variant)
+    assert set(before) == {"simt", "wmma", "tma"}
+    grouped_matmul(torch.ones(2, 3, 8, dtype=torch.bfloat16),
+                   torch.ones(2, 8, 16, dtype=torch.bfloat16))
+    assert grouped_matmul.launches_by_variant == before
