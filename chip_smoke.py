@@ -12,15 +12,19 @@ Phases (each raises on failure; none is caught):
 2. kernels: run ``a2a_pack``, ``a2a_unpack``, ``grouped_matmul`` and
    ``flash_attention`` at the serving paths' prefill and decode shapes and at
    ragged ones, hold each against its plain PyTorch version (pack and unpack
-   bit for bit; grouped_matmul within a relative error of 1e-5 in f32 and
-   2e-2 in bf16, on both of its bf16 instances, TMA + wgmma and WMMA;
-   flash_attention within an absolute error of 2e-5 in f32 and 2e-2 in
-   bf16, the reference's kernel tolerances, on contiguous tensors and on
+   bit for bit, on every instance, bulk, vec and bytes, in f32, bf16 and
+   int8, with a sentinel in the blocks unpack must not write;
+   grouped_matmul within a relative error of 1e-5 in f32 and 2e-2 in bf16,
+   on both of its bf16 instances, TMA + wgmma and WMMA; flash_attention
+   within an absolute error of 2e-5 in f32 and 2e-2 in bf16, the
+   reference's kernel tolerances, on contiguous tensors and on
    ``[B, S, H, D]`` views) and time each, its plain version and one PyTorch
-   library call with CUDA events (median of 20), printing the kernel to
-   library ratio and each kernel's registers, shared memory and spills from
-   ``ptxas -v``; then a small f32 MoE layer on a (2, 2, 1) mesh against its
-   one-rank path;
+   library call by device time (``cuda_ms``: CUDA events around runs of
+   back-to-back launches, median of 20 runs), pack and unpack also one call
+   per event pair (``call_ms``: host and device) and on each 16-byte
+   instance; print the kernel to library ratios and each kernel's
+   registers, shared memory and spills from ``ptxas -v``; then a small f32
+   MoE layer on a (2, 2, 1) mesh against its one-rank path;
 3. megatron-moe-32e at its published widths (4 of 24 layers, random weights
    from a seed) on a local (pod 2, data 16, model 1) mesh, expert dispatch
    through the FAST plan: prefill of 32 prompts of 128 tokens, then 15
@@ -43,7 +47,11 @@ Phases (each raises on failure; none is caught):
    device time by kernel name and the device's idle share.
 
 Every bf16 serving run must launch grouped_matmul on its TMA + wgmma
-instance alone (``grouped_matmul.launches_by_variant``).
+instance alone (``grouped_matmul.launches_by_variant``), and pack and unpack
+on the instance ``a2a_pack.variant`` picks for the exchange's size: bulk for
+mixtral's prefill exchanges, vec for the rest, never bytes.  The profiler
+window also gives the median device time of a pack and an unpack launch in
+the prefill and in decode.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 results, and ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
@@ -75,8 +83,14 @@ BATCH, PROMPT, GEN = 32, 128, 16
 MIX_PROMPT, LONG_PROMPT, F32_PROMPT = 1024, 8192, 128
 SEED = 0
 TIMED_RUNS = 20
+RUN_MS, MAX_REPS = 2.0, 100    # cuda_ms: device time a timed run should fill
+SLEEP_CYCLES_PER_MS = 2.0e6    # torch.cuda._sleep cycles a ms at <= 2 GHz
 DEVICE = "cuda"
 KERNELS = ("a2a_pack", "a2a_unpack", "grouped_matmul", "flash_attention")
+# block sizes of the bulk-against-vec sweep, 64 blocks each: 8 KiB to 1280
+# MiB moved, the serving exchanges' range
+SWEEP_BLOCK_BYTES = (128, 64 << 10, 256 << 10, 512 << 10, 2 << 20, 8 << 20,
+                     20 << 20)
 
 
 def serve_config():
@@ -97,8 +111,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(torch, fn, runs=TIMED_RUNS, warmup=3) -> float:
-    """Median device time of ``fn`` in ms over ``runs`` CUDA-event pairs."""
+def call_ms(torch, fn, runs=TIMED_RUNS, warmup=3) -> float:
+    """Median time in ms of one call of ``fn`` between a CUDA-event pair,
+    over ``runs`` pairs.  Where the host's work for a call outlasts the
+    kernel, the device idles between the events while the host works, so
+    this is host plus device: what one call costs a caller that waits."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -112,6 +129,39 @@ def cuda_ms(torch, fn, runs=TIMED_RUNS, warmup=3) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def cuda_ms(torch, fn, runs=TIMED_RUNS, warmup=3) -> float:
+    """Device time in ms of one call of ``fn``: the median over ``runs``
+    CUDA-event pairs, each around a run of back-to-back calls (as many as
+    fill about RUN_MS of device time, at most MAX_REPS), divided by the
+    run's length.  A sleep kernel ahead of each pair holds the device while
+    the host enqueues the run, so the host's time between calls does not
+    enter.  The L2 is not flushed: the serving caller writes a kernel's
+    input just before it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()                                  # the host's enqueue time of a call
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    one = call_ms(torch, fn, runs=1, warmup=0)
+    reps = max(1, min(MAX_REPS, int(RUN_MS / max(one, 1e-3))))
+    hold = min(2 * reps * host_ms + 0.1, 50.0) if reps > 1 else 0.0
+    pairs = []
+    for _ in range(runs):
+        if hold:
+            torch.cuda._sleep(int(hold * SLEEP_CYCLES_PER_MS))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) / reps for a, b in pairs)
 
 
 def rel_err(torch, y, ref) -> float:
@@ -128,6 +178,15 @@ def free(torch):
     torch.cuda.empty_cache()
 
 
+def kernel_names(path):
+    """The ``__global__`` function names defined in a CUDA source."""
+    import re
+
+    return re.findall(
+        r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+        path.read_text())
+
+
 def ptxas_lines(_build):
     """One line per kernel of every source: registers, shared memory,
     spills, from the ``ptxas -v`` report of its build."""
@@ -136,9 +195,7 @@ def ptxas_lines(_build):
     lines = []
     for path in sorted(_build.CSRC.glob("*.cu")):
         src = path.stem
-        kernels = re.findall(
-            r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
-            path.read_text())
+        kernels = kernel_names(path)
         name = None
         for line in _build.ptxas_report(src).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -157,29 +214,56 @@ def ptxas_lines(_build):
     return lines
 
 
-def check_pack(torch, k, x, idx, block_rows) -> float:
-    """a2a_pack of ``x`` by ``idx`` against the plain version, bit for bit.
-    Returns the measured max abs difference."""
-    out = k.a2a_pack(x, idx, block_rows=block_rows)
+def a2a_instance(moved_bytes):
+    """The instance a serving exchange of aligned blocks should take: bulk
+    from ``BULK_MIN_BYTES`` moved, vec below (``a2a_pack.variant``)."""
+    from repro_torch.kernels.a2a_pack import BULK_MIN_BYTES
+
+    return "bulk" if moved_bytes >= BULK_MIN_BYTES else "vec"
+
+
+def forced_copy(torch, x, idx, block_rows, n_out, name, scatter):
+    """Pack (or, with ``scatter``, unpack into ``n_out`` blocks) through
+    instance ``name`` itself, bypassing the wrapper's rule and counts."""
+    from repro_torch.kernels.a2a_pack.a2a_pack import _block_copy
+
+    r, d = block_rows, x.shape[1]
+    rows = max(idx.shape[0], n_out) if scatter else idx.shape[0]
+    out = torch.empty((rows * r, d), dtype=x.dtype, device=x.device)
+    _block_copy(x, out, idx, n_out if scatter else x.shape[0] // r,
+                r * d * x.element_size(), scatter, name)
+    return out
+
+
+def check_pack(torch, k, x, idx, block_rows, name=None) -> float:
+    """a2a_pack of ``x`` by ``idx`` against the plain version, bit for bit:
+    through the wrapper (the rule's instance) or, with ``name``, through
+    that instance itself.  Returns the measured max abs difference."""
+    out = (k.a2a_pack(x, idx, block_rows=block_rows) if name is None else
+           forced_copy(torch, x, idx, block_rows, 0, name, False))
     ref = k.a2a_pack_ref(x, idx, block_rows=block_rows)
     if not torch.equal(out, ref):
-        raise AssertionError(f"a2a_pack != plain: {tuple(x.shape)} "
-                             f"r={block_rows}")
+        raise AssertionError(f"a2a_pack ({name or 'rule'}) != plain: "
+                             f"{tuple(x.shape)} r={block_rows}")
     return max_abs(torch, out, ref)
 
 
-def check_unpack(torch, k, y, idx, block_rows, n_out, trash=None) -> float:
+def check_unpack(torch, k, y, idx, block_rows, n_out, trash=None,
+                 name=None) -> float:
     """a2a_unpack of ``y`` by ``idx`` against the plain version, bit for
     bit on the named blocks (``trash`` marks blocks written more than once,
-    not compared).  The kernel also scatters into a buffer longer than its
-    output, filled with a sentinel: unnamed blocks and every row after the
-    output must still hold it.  Returns the measured max abs difference
-    over the named blocks."""
+    not compared), through the wrapper or, with ``name``, that instance
+    itself.  The kernel also scatters into a buffer longer than its output,
+    filled with a sentinel: unnamed blocks and every row after the output
+    must still hold it.  Returns the measured max abs difference over the
+    named blocks."""
     from repro_torch.kernels.a2a_pack.a2a_pack import _block_copy
 
     r, d, m = block_rows, y.shape[1], idx.shape[0]
     n_tot = max(m, n_out)
-    out = k.a2a_unpack(y, idx, n_out_blocks=n_out, block_rows=r)
+    out = (k.a2a_unpack(y, idx, n_out_blocks=n_out, block_rows=r)
+           if name is None else
+           forced_copy(torch, y, idx, r, n_out, name, True))
     ref = k.a2a_unpack_ref(y, idx, n_out_blocks=n_out, block_rows=r)
     ref = ref.reshape(n_tot, r, d)
     named = torch.unique(idx.long())
@@ -187,13 +271,14 @@ def check_unpack(torch, k, y, idx, block_rows, n_out, trash=None) -> float:
         named = named[~trash[named]]
     got = out.reshape(n_tot, r, d)[named]
     if not torch.equal(got, ref[named]):
-        raise AssertionError(f"a2a_unpack != plain: {tuple(y.shape)} r={r}")
+        raise AssertionError(f"a2a_unpack ({name or 'rule'}) != plain: "
+                             f"{tuple(y.shape)} r={r}")
     err = max_abs(torch, got, ref[named])
     del out, got
     extra = 3
     big = torch.full(((n_tot + extra) * r, d), 7, dtype=y.dtype,
                      device=y.device)
-    _block_copy(y, big, idx, n_tot, r * d * y.element_size(), scatter=True)
+    _block_copy(y, big, idx, n_tot, r * d * y.element_size(), True, name)
     blocks = big.reshape(n_tot + extra, r, d)
     unnamed = torch.ones(n_tot + extra, dtype=torch.bool, device=y.device)
     unnamed[idx.long()] = False
@@ -254,22 +339,34 @@ def exchange_rows(torch, mesh_shape, plan):
 
 
 def copy_times(torch, k, x, idx, block, d, n_out, unpack):
-    """(kernel, plain, library) ms of one pack or unpack."""
+    """Times of one pack or unpack: the kernel's, its plain version's and
+    the library call's device ms (``cuda_ms``), and the kernel's and the
+    library call's ms with one call per event pair (``call_ms``); and the
+    two 16-byte instances' device ms, each launched itself."""
     dev = x.device
     n_blocks = idx.shape[0]
     il = idx.long()
     if unpack:
         out = torch.zeros((n_out * block, d), dtype=x.dtype, device=dev)
         xv, ov = x.view(n_blocks, block, d), out.view(n_out, block, d)
-        return (cuda_ms(torch, lambda: k.a2a_unpack(
-                    x, idx, n_out_blocks=n_out, block_rows=block)),
-                cuda_ms(torch, lambda: k.a2a_unpack_ref(
-                    x, idx, n_out_blocks=n_out, block_rows=block)),
-                cuda_ms(torch, lambda: ov.index_copy_(0, il, xv)))
-    xv = x.view(-1, block, d)
-    return (cuda_ms(torch, lambda: k.a2a_pack(x, idx, block_rows=block)),
-            cuda_ms(torch, lambda: k.a2a_pack_ref(x, idx, block_rows=block)),
-            cuda_ms(torch, lambda: torch.index_select(xv, 0, il)))
+        fns = (lambda: k.a2a_unpack(x, idx, n_out_blocks=n_out,
+                                    block_rows=block),
+               lambda: k.a2a_unpack_ref(x, idx, n_out_blocks=n_out,
+                                        block_rows=block),
+               lambda: ov.index_copy_(0, il, xv))
+    else:
+        xv = x.view(-1, block, d)
+        fns = (lambda: k.a2a_pack(x, idx, block_rows=block),
+               lambda: k.a2a_pack_ref(x, idx, block_rows=block),
+               lambda: torch.index_select(xv, 0, il))
+    kernel, plain, lib = fns
+    return {"ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
+            "library_ms": cuda_ms(torch, lib),
+            "call_ms": call_ms(torch, kernel),
+            "library_call_ms": call_ms(torch, lib),
+            **{f"{name}_ms": cuda_ms(torch, lambda: forced_copy(
+                torch, x, idx, block, n_out, name, unpack))
+               for name in ("bulk", "vec")}}
 
 
 def phase_kernels(torch):
@@ -286,21 +383,42 @@ def phase_kernels(torch):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    # ragged shapes, every dtype the exchange may carry
+    # ragged shapes, every dtype the exchange may carry, each on contiguous
+    # tensors and on views one element off 16-byte alignment, through the
+    # wrappers (the rule: vec or bytes at these sizes) and, where the block
+    # allows it, through bulk itself; every dtype must reach every instance
     for dt in (torch.float32, torch.bfloat16, torch.int8):
-        for d in (1, 5, 64, 130, 2048):
+        before = {kn: dict(getattr(k, kn).launches_by_variant)
+                  for kn in ("a2a_pack", "a2a_unpack")}
+        n_bulk = 0
+        for d in (1, 5, 64, 130, 2048, 2056):
             for r in (1, 3, 8, 24):
-                x = (torch.randn((6 * r, d), generator=gen, device=dev)
-                     * 50).to(dt)
-                idx = torch.randint(0, 6, (10,), generator=gen, device=dev,
-                                    dtype=torch.int32)
-                check_pack(torch, k, x, idx, r)
-                perm = torch.randperm(9, generator=gen, device=dev)[:5]
-                check_unpack(torch, k, x[: 5 * r], perm.to(torch.int32), r,
-                             9)
-    torch.cuda.synchronize()
-    log("kernels: a2a_pack / a2a_unpack bit-exact on ragged shapes "
-        "(f32, bf16, int8)")
+                flat = (torch.randn((6 * r * d + 1,), generator=gen,
+                                    device=dev) * 50).to(dt)
+                aligned = r * d * flat.element_size() % 16 == 0
+                for x, names in ((flat[: 6 * r * d].view(6 * r, d),
+                                  (None, "bulk") if aligned else (None,)),
+                                 (flat[1:].view(6 * r, d), (None,))):
+                    for name in names:
+                        idx = torch.randint(0, 6, (10,), generator=gen,
+                                            device=dev, dtype=torch.int32)
+                        check_pack(torch, k, x, idx, r, name)
+                        perm = torch.randperm(9, generator=gen,
+                                              device=dev)[:5]
+                        check_unpack(torch, k, x[: 5 * r],
+                                     perm.to(torch.int32), r, 9, name=name)
+                        n_bulk += name == "bulk"
+        torch.cuda.synchronize()
+        hits = {kn: {v: n - before[kn][v] for v, n in
+                     getattr(k, kn).launches_by_variant.items()}
+                for kn in before}
+        for kn, hit in hits.items():
+            if not (hit["vec"] and hit["bytes"] and n_bulk):
+                raise AssertionError(f"{kn}'s ragged {dt} checks missed an "
+                                     f"instance: {hit}, bulk {n_bulk}")
+        log(f"kernels: a2a_pack / a2a_unpack bit-exact on ragged {dt} shapes "
+            f"(aligned and not); launches by instance {hits}, and {n_bulk} "
+            f"shapes each through bulk")
 
     by_variant = dict(grouped_matmul.launches_by_variant)
     for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -372,34 +490,72 @@ def phase_kernels(torch):
                                   device=dev) * 50).to(dt)
                 stack2 = (torch.randn((n_ranks * (s + 1) * block, d),
                                       generator=gen, device=dev) * 50).to(dt)
+                bb = block * d * x2.element_size()
+                want = {"a2a_pack": a2a_instance(dst_idx.shape[0] * bb),
+                        "a2a_unpack": a2a_instance(src_idx.shape[0] * bb)}
+                n_want = {kn: getattr(k, kn).launches_by_variant[v]
+                          for kn, v in want.items()}
                 errs = (check_pack(torch, k, x2, dst_idx, block),
                         check_unpack(torch, k, stack2, src_idx, block, n_out,
                                      trash))
-                for kname, err in zip(("a2a_pack", "a2a_unpack"), errs):
+                if any(getattr(k, kn).launches_by_variant[v] != n_want[kn] + 1
+                       for kn, v in want.items()):
+                    raise AssertionError(f"pack/unpack at the {arch} {what} "
+                                         f"{dt} exchange did not take "
+                                         f"{want}")
+                for name in ("bulk", "vec"):  # each 16-byte instance itself
+                    errs += (check_pack(torch, k, x2, dst_idx, block, name),
+                             check_unpack(torch, k, stack2, src_idx, block,
+                                          n_out, trash, name))
+                for kname, err in zip(("a2a_pack", "a2a_unpack") * 3, errs):
                     rows[kname]["max_abs_err"] = max(
                         rows[kname]["max_abs_err"], err)
                 torch.cuda.synchronize()
                 name = str(dt).replace("torch.", "")
                 log(f"kernels: pack/unpack bit-exact at the {arch} {what} "
                     f"exchange: {n_ranks} ranks x {s + 1} slots x {block} "
-                    f"rows x {d} {name}")
+                    f"rows x {d} {name}, on {want} by the rule and on bulk "
+                    f"and vec themselves")
                 if dt is bf16:
                     for kname, x, idx, unpack in (
                             ("a2a_pack", x2, dst_idx, False),
                             ("a2a_unpack", stack2, src_idx, True)):
-                        ms, plain, lib = copy_times(torch, k, x, idx, block,
-                                                    d, n_out, unpack)
                         nbytes = idx.shape[0] * block * d * x.element_size()
                         entry = {
                             "path": f"{arch} {what}",
                             "shape": f"{idx.shape[0]} blocks x {block} x "
                                      f"{d} bf16",
-                            "ms": ms, "plain_ms": plain, "library_ms": lib,
+                            **copy_times(torch, k, x, idx, block, d, n_out,
+                                         unpack),
                             "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
-                            "bound_by": "bytes"}
+                            "bound_by": "bytes", "instance": want[kname]}
+                        entry["ratio_to_library"] = (entry["ms"]
+                                                     / entry["library_ms"])
+                        entry["ratio_to_bound"] = (entry["ms"]
+                                                   / entry["bound_ms"])
                         rows[kname]["shapes"].append(entry)
                         log("timing:", kname, json.dumps(entry))
                 del x2, stack2
+    free(torch)
+
+    # bulk against vec by bytes moved: a pack of 64 int8 blocks in a random
+    # order, each instance launched itself; BULK_MIN_BYTES rests on this
+    sweep = []
+    for blk in SWEEP_BLOCK_BYTES:
+        x = torch.randint(-100, 100, (64, blk), generator=gen, device=dev,
+                          dtype=torch.int8)
+        idx = torch.randperm(64, generator=gen, device=dev).to(torch.int32)
+        t = {name: cuda_ms(torch, lambda: forced_copy(
+                 torch, x, idx, 1, 0, name, False))
+             for name in ("bulk", "vec")}
+        sweep.append({"moved_bytes": 64 * blk, "bulk_ms": t["bulk"],
+                      "vec_ms": t["vec"], "rule": a2a_instance(64 * blk)})
+        log(f"sweep: pack of 64 blocks x {blk} B ({64 * blk / 2**20:.3f} "
+            f"MiB): bulk {t['bulk']:.4f} ms, vec {t['vec']:.4f} ms, "
+            f"bulk/vec {t['bulk'] / t['vec']:.3f}; the rule picks "
+            f"{sweep[-1]['rule']}")
+        del x
+    rows["a2a_pack"]["sweep"] = sweep
     free(torch)
 
     # grouped matmul at the expert products: gate/up [E, C, d] @ [E, d, f]
@@ -659,8 +815,8 @@ def route_flips(torch, routes_a, routes_b, batch):
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
-    gmm = kernels["grouped_matmul"]
-    gmm.launches_by_variant = dict.fromkeys(gmm.launches_by_variant, 0)
+        if hasattr(fn, "launches_by_variant"):
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
 
 def read_launches(kernels):
@@ -668,30 +824,55 @@ def read_launches(kernels):
 
 
 def read_variants(kernels):
-    """grouped_matmul's launches by instance since the last reset."""
-    return dict(kernels["grouped_matmul"].launches_by_variant)
+    """Launches by instance since the last reset, of each kernel that
+    counts them (pack, unpack, grouped_matmul)."""
+    return {name: dict(fn.launches_by_variant)
+            for name, fn in kernels.items()
+            if hasattr(fn, "launches_by_variant")}
 
 
 def run_counts(run):
-    """A run's launch counts by kernel and grouped_matmul's by instance."""
+    """A run's launch counts by kernel and by instance."""
     return {"prefill": run["prefill_launches"],
             "decode": run["decode_launches"],
             "prefill_variants": run["prefill_variants"],
             "decode_variants": run["decode_variants"]}
 
 
-def check_variants(run, label, want="tma"):
+# The pack and unpack instances of the serving runs, by part of the run:
+# mixtral's prefill exchanges move 1280 MiB (bf16) and 640 MiB (int8 rows)
+# and take bulk, its f32 scale rows and every decode exchange and all of
+# megatron's vec.
+MEGATRON_A2A = {"prefill": {"vec"}, "decode": {"vec"}}
+MIXTRAL_A2A = {"prefill": {"bulk"}, "decode": {"vec"}}
+MIXTRAL_INT8_A2A = {"prefill": {"bulk", "vec"}}
+
+
+def check_variants(run, label, want="tma", a2a=None):
     """Every grouped_matmul launch of the run's prefill (and decode) went
-    through instance ``want``."""
+    through instance ``want``; no pack or unpack launch through ``bytes``,
+    and with ``a2a`` ({part: instances}) every one through those instances,
+    each of them taken."""
     for part in ("prefill", "decode"):
         if f"{part}_variants" not in run:
             continue
-        by, total = run[f"{part}_variants"], \
-            run[f"{part}_launches"]["grouped_matmul"]
+        by_kernel, totals = run[f"{part}_variants"], run[f"{part}_launches"]
+        by, total = by_kernel["grouped_matmul"], totals["grouped_matmul"]
         if not (total > 0 and by[want] == total):
             raise AssertionError(f"{label}: grouped_matmul's {part} launches "
                                  f"by instance {by}; expected all {total} "
                                  f"on {want!r}")
+        allowed = (a2a or {}).get(part)
+        for name in ("a2a_pack", "a2a_unpack"):
+            by, total = by_kernel[name], totals[name]
+            ok = by["bytes"] == 0 and (allowed is None or (
+                total > 0 and sum(by[v] for v in allowed) == total
+                and all(by[v] for v in allowed)))
+            if not ok:
+                raise AssertionError(
+                    f"{label}: {name}'s {part} launches by instance {by}; "
+                    f"expected {sorted(allowed) if allowed else 'none'} "
+                    f"{'' if allowed else 'on bytes'}")
 
 
 def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
@@ -752,11 +933,11 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     return res
 
 
-def check_run(torch, run, cfg, batch, label, required):
+def check_run(torch, run, cfg, batch, label, required, a2a=None):
     """Shape and finiteness of a run's logits; every kernel of ``required``
     launched in its prefill and decode, grouped_matmul on its TMA + wgmma
-    instance alone, ``flash_attention`` once per layer per prefill and never
-    in decode."""
+    instance alone, pack and unpack as ``check_variants`` asks,
+    ``flash_attention`` once per layer per prefill and never in decode."""
     for t in (run["logits"], run["last_logits"]):
         if tuple(t.shape) != (batch, cfg.vocab) or \
                 not bool(torch.isfinite(t.float()).all()):
@@ -768,7 +949,7 @@ def check_run(torch, run, cfg, batch, label, required):
                                  f"prefill")
         if name != "flash_attention" and dec[name] <= 0:
             raise AssertionError(f"{label}: {name} never launched in decode")
-    check_variants(run, label)
+    check_variants(run, label, a2a=a2a)
     if pre["flash_attention"] != cfg.n_layers or dec["flash_attention"]:
         raise AssertionError(
             f"{label}: flash_attention launched {pre['flash_attention']} "
@@ -785,8 +966,8 @@ def log_run(run, label, batch):
         f"ms, max {run['step_ms_max']:.3f} ms on the device clock); "
         f"{tok_s:.1f} tokens/s ({n_tok} tokens); launches prefill "
         f"{run['prefill_launches']}, decode {run['decode_launches']}; "
-        f"grouped_matmul by instance: prefill {run['prefill_variants']}, "
-        f"decode {run['decode_variants']}")
+        f"by instance: prefill {run['prefill_variants']}, decode "
+        f"{run['decode_variants']}")
 
 
 def plain_gates(torch, cfg, params, mesh, plan, prompts, run, kernels,
@@ -888,14 +1069,33 @@ def busy_us(intervals):
     return total
 
 
-def profile_window(torch, cfg, params, mesh, plan, prompts, steps=3):
+def copy_durations(label, events, n_prefill):
+    """Median device duration of the pack and unpack launches of a traced
+    window, prefill and decode apart: ``events`` are the block-copy
+    kernel's device events in start order, the first ``n_prefill`` of them
+    the prefill's; each exchange launches pack, then unpack."""
+    for part, evs in (("prefill", events[:n_prefill]),
+                      ("decode", events[n_prefill:])):
+        for kname, sub in (("a2a_pack", evs[0::2]), ("a2a_unpack", evs[1::2])):
+            us = [e.time_range.elapsed_us() for e in sub]
+            med = (f"{statistics.median(us) / 1e3:.4f} ms" if us
+                   else "not measured")
+            log(f"{label}: {kname} {part}: median device duration {med} "
+                f"over {len(sub)} launches")
+
+
+def profile_window(torch, cfg, params, mesh, plan, prompts, kernels,
+                   steps=3):
     """One plan prefill and ``steps`` decode steps under torch.profiler:
-    device time by kernel name (top 10) and the device's idle share over the
-    window from the first device event's start to the last one's end.
-    Prints "not measured" where the trace holds no device event."""
+    device time by kernel name (top 10), the device's idle share over the
+    window from the first device event's start to the last one's end, and
+    the median device duration of pack and unpack launches in the prefill
+    and in decode.  Prints "not measured" where the trace holds no device
+    event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import _build
     from repro_torch.launch.serve import make_prefill_step, make_serve_step
 
     prompt = prompts.shape[1]
@@ -906,7 +1106,10 @@ def profile_window(torch, cfg, params, mesh, plan, prompts, steps=3):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        n0 = kernels["a2a_pack"].launches + kernels["a2a_unpack"].launches
         logits, cache = prefill(params, {"tokens": prompts})
+        n_prefill = (kernels["a2a_pack"].launches
+                     + kernels["a2a_unpack"].launches - n0)
         toks = logits.argmax(-1)
         for t in range(prompt, prompt + steps):
             lg, cache = step(params, cache, toks, t)
@@ -936,6 +1139,10 @@ def profile_window(torch, cfg, params, mesh, plan, prompts, steps=3):
     for name, (n, t) in top:
         log(f"{label}: {t / 1e3:10.3f} ms {100 * t / total:6.2f}% {n:5d}x "
             f"{name[:110]}")
+    names = kernel_names(_build.CSRC / "a2a_block_copy.cu")
+    copies = sorted((e for e in dev if any(k in e.name for k in names)),
+                    key=lambda e: e.time_range.start)
+    copy_durations(label, copies, n_prefill)
     return {"idle_share": 1 - busy / window, "window_ms": window / 1e3,
             "top": [(name, n, t / 1e3) for name, (n, t) in top]}
 
@@ -968,7 +1175,7 @@ def phase_megatron(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
                 record=True)
-    check_run(torch, run, cfg, BATCH, "serve[plan]", KERNELS)
+    check_run(torch, run, cfg, BATCH, "serve[plan]", KERNELS, MEGATRON_A2A)
     log_run(run, "serve[plan]", BATCH)
     log(f"serve[plan]: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -994,7 +1201,7 @@ def phase_megatron(torch, kernels):
     log(f"serve[flash]: prefill logits bit-identical to plan; prefill "
         f"{flash['prefill_s'] * 1e3:.3f} ms")
     again = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels)
-    check_variants(again, "serve[plan, again]")
+    check_variants(again, "serve[plan, again]", a2a=MEGATRON_A2A)
     log(f"serve[plan, again]: prefill {again['prefill_s'] * 1e3:.3f} ms; "
         f"decode {again['decode_s'] / again['decode_steps'] * 1e3:.3f} "
         f"ms/step (median {again['step_ms_median']:.3f} ms)")
@@ -1050,7 +1257,7 @@ def phase_mixtral(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
                 record=True)
-    check_run(torch, run, cfg, BATCH, "mixtral[plan]", KERNELS)
+    check_run(torch, run, cfg, BATCH, "mixtral[plan]", KERNELS, MIXTRAL_A2A)
     log_run(run, f"mixtral[plan] batch {BATCH} x prompt {MIX_PROMPT}", BATCH)
     log(f"mixtral[plan]: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -1067,7 +1274,7 @@ def phase_mixtral(torch, kernels):
             "greedy tokens equal", BATCH)
     del rot
     free(torch)
-    profile_window(torch, cfg, params, mesh, plan, prompts)
+    profile_window(torch, cfg, params, mesh, plan, prompts, kernels)
     free(torch)
 
     # (b) int8 dispatch through the plan.  Gated where the reference's
@@ -1077,7 +1284,7 @@ def phase_mixtral(torch, kernels):
     cfg_q = dataclasses.replace(cfg, quantized_dispatch=True)
     quant = serve(torch, cfg_q, params, mesh, "plan", plan, prompts, kernels,
                   decode=False, record=True)
-    check_variants(quant, "mixtral[int8 dispatch]")
+    check_variants(quant, "mixtral[int8 dispatch]", a2a=MIXTRAL_INT8_A2A)
     n_flip, n_dec, per_layer, per_seq = route_flips(
         torch, run["routes"], quant["routes"], BATCH)
     q_err = rel_err(torch, quant["logits"], run["logits"])
@@ -1091,7 +1298,8 @@ def phase_mixtral(torch, kernels):
     layer_err = rel_err(torch, ys[1], ys[0])
     del ys, h2
     log(f"mixtral[int8 dispatch]: prefill {quant['prefill_s'] * 1e3:.3f} ms, "
-        f"launches {quant['prefill_launches']}; first MoE layer on identical "
+        f"launches {quant['prefill_launches']}, by instance "
+        f"{quant['prefill_variants']}; first MoE layer on identical "
         f"inputs: max rel diff to exact {layer_err:.3e}; prefill logits: max "
         f"rel diff {q_err:.3e}; routing differs in {n_flip} of {n_dec} "
         f"decisions (per layer {per_layer}), in {int(per_seq.sum())} of "
@@ -1136,27 +1344,49 @@ def phase_mixtral(torch, kernels):
 
 # Ratios of the redesigned kernels to their library calls that the bf16
 # serving shapes should stay under (reported, not gated: a card below its
-# power limit moves them).
+# power limit moves them).  Pack and unpack: device time at most the
+# library call's at every serving shape, at most 1.15x the bound at
+# mixtral's prefill, and one call per event pair at most 1.2x the library
+# call's at decode.
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
                 "flash_attention mixtral-8x7b long prefill": 1.5,
-                "flash_attention megatron-moe-32e prefill": 2.7}
+                "flash_attention megatron-moe-32e prefill": 2.7,
+                "a2a prefill": 1.0, "a2a decode": 1.0}
+BOUND_LIMITS = {"a2a mixtral-8x7b prefill": 1.15}
+CALL_LIMITS = {"a2a decode": 1.2}
+
+
+def verdict(limit, ratio) -> str:
+    if limit is None:
+        return ""
+    return f" (limit {limit}: {'within' if ratio <= limit else 'OVER'})"
 
 
 def log_ratios(rows):
     """Each redesigned kernel's time over its library call's at every
-    serving shape, beside the limit it should stay under."""
-    for name in ("grouped_matmul", "flash_attention"):
+    serving shape, beside the limit it should stay under; for pack and
+    unpack also the ratio to the bound and the one-call-per-pair ratio."""
+    for name in KERNELS:
         for e in rows[name]["shapes"]:
-            key = (f"{name} {e['path'].split()[-2]}" if name ==
-                   "grouped_matmul" else f"{name} {e['path']}")
-            limit = RATIO_LIMITS.get(key)
-            verdict = "" if limit is None else (
-                f" (limit {limit}: {'within' if e['ratio_to_library'] <= limit else 'OVER'})")
+            what = e["path"].split()[-1]
+            key = {"grouped_matmul": f"{name} {e['path'].split()[-2]}",
+                   "flash_attention": f"{name} {e['path']}"}.get(
+                       name, f"a2a {what}")
+            bound = (verdict(BOUND_LIMITS.get(f"a2a {e['path']}"),
+                             e["ratio_to_bound"])
+                     if name.startswith("a2a") else "")
             log(f"ratio: {name} {e['path']}: {e['ms']:.4f} ms / library "
                 f"{e['library_ms']:.4f} ms = {e['ratio_to_library']:.3f}"
-                f"{verdict}; {e['ratio_to_bound']:.3f}x its bound "
-                f"{e['bound_ms']:.4f} ms")
+                f"{verdict(RATIO_LIMITS.get(key), e['ratio_to_library'])}; "
+                f"{e['ratio_to_bound']:.3f}x its bound {e['bound_ms']:.4f} "
+                f"ms{bound}")
+            if "call_ms" in e:
+                ratio = e["call_ms"] / e["library_call_ms"]
+                log(f"ratio: {name} {e['path']}, one call per event pair: "
+                    f"{e['call_ms']:.4f} ms / library "
+                    f"{e['library_call_ms']:.4f} ms = {ratio:.3f}"
+                    f"{verdict(CALL_LIMITS.get(key), ratio)}")
 
 
 def main() -> int:
@@ -1221,14 +1451,14 @@ def main() -> int:
         row = rows[name]
         if "ms" not in row:  # the first timed shape: megatron's prefill
             first = row["shapes"][0]
-            row.update(shape=first["shape"], ms=first["ms"],
-                       plain_ms=first["plain_ms"],
-                       library_ms=first["library_ms"],
-                       bound_ms=first["bound_ms"],
-                       bound_by=first["bound_by"])
-        if name == "grouped_matmul":
+            row.update({key: first[key] for key in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "instance", "call_ms", "library_call_ms",
+                "bulk_ms", "vec_ms", "ratio_to_library", "ratio_to_bound")
+                if key in first})
+        if name in main_path["prefill_variants"]:
             row["launches_by_variant"] = {
-                part: launches["mixtral-8x7b plan"][f"{part}_variants"]
+                part: main_path[f"{part}_variants"][name]
                 for part in ("prefill", "decode")}
         row = dict(row, launches=main_path["prefill"][name]
                    + main_path["decode"][name],

@@ -8,6 +8,11 @@ is reused.  ``build_all`` starts one ``nvcc`` per source at once and waits
 for all of them.  ``ptxas -v`` reports each kernel's registers, shared memory
 and spills; the report is kept beside the library (``ptxas_report``).
 Nothing is downloaded: the sources in the package are the only input.
+
+``launch`` is every wrapper's way onto the card.  Once a library is loaded,
+a launch takes no lock, asks nothing of the CUDA runtime but the current
+device and stream, and switches the device only when the tensor lies on
+another one.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "launch", "load",
            "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -33,6 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# the current stream's raw handle, without building a torch.cuda.Stream
+# (CUDA builds of PyTorch have it)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -105,7 +113,11 @@ def ptxas_report(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it first if
-    needed.  Raises when no CUDA device is present."""
+    needed.  The first load raises when no CUDA device is present; a loaded
+    library is returned by one dictionary read."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     _require_cuda()
     with _lock:
         lib = _libs.get(name)
@@ -116,3 +128,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             _libs[name] = lib
         return lib
+
+
+def _stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call a kernel's C entry point as ``fn(*args, stream)`` on the current
+    stream of ``device`` (a CUDA device) and return its status."""
+    index = device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return fn(*args, _stream(index))
+    return fn(*args, _stream(index))

@@ -2,27 +2,57 @@
 
 Hopper counterpart of ``src/repro/kernels/a2a_pack/a2a_pack.py``
 (``a2a_pack`` / ``a2a_unpack``, one Pallas builder ``_block_call``).  Both
-wrappers launch the one CUDA kernel in ``csrc/a2a_block_copy.cu``: each CUDA
-block reads its own index and copies a contiguous tile of one
-``block_rows * D``-element block, in 16-byte vectors where the alignment
-allows.  The work is pure data movement, so the bound is bytes read plus
-bytes written over the HBM rate; the TPU kernel's 128-lane pad-and-slice and
+wrappers launch the one CUDA kernel source ``csrc/a2a_block_copy.cu``, whose
+instance ``variant`` picks from the block size, the block count and the two
+pointers alone:
+
+* ``bulk`` (block bytes a multiple of 16, both pointers 16-byte aligned, at
+  least ``BULK_MIN_BYTES`` moved): a persistent grid of at most one CTA per
+  SM, each copying its run of (block, chunk) items through a ring of shared
+  memory with Hopper's bulk asynchronous copies (``cp.async.bulk``), the
+  next block's index read ahead.  Mixtral's prefill exchanges take it.
+* ``vec`` (aligned as ``bulk``, fewer bytes): a CTA per (block, tile), four
+  16-byte vectors a thread.  On an H100 it beats ``bulk`` by 20 to 30% where
+  the copy fits in the L2 (every decode exchange) and by 1 to 3% at
+  megatron's prefill (``PERF.md``).
+* ``bytes`` (any other block): the same grid, one byte a thread.
+
+The work is pure data movement, so the bound is bytes read plus bytes
+written over the HBM rate; the TPU kernel's 128-lane pad-and-slice and
 8-row sublane tiling have no counterpart here.
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  ``launches`` on each wrapper counts kernel launches.
+the chosen instance or raises.  ``launches`` on each wrapper counts kernel
+launches, ``launches_by_variant`` the same by instance.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ... import _build
 from .ref import a2a_pack_ref, a2a_unpack_ref
 
-__all__ = ["a2a_pack", "a2a_unpack"]
+__all__ = ["a2a_pack", "a2a_unpack", "variant", "BULK_MIN_BYTES"]
+
+_VARIANTS = {"bytes": 0, "bulk": 1, "vec": 2}
+# bytes moved from which the bulk copies are at least as fast as vec
+BULK_MIN_BYTES = 512 << 20
+
+
+def variant(block_bytes: int, n_blocks: int, src_ptr: int,
+            dst_ptr: int) -> str:
+    """The kernel instance for ``n_blocks`` blocks of ``block_bytes`` bytes
+    copied from address ``src_ptr`` to ``dst_ptr``: ``"bytes"`` unless the
+    16-byte paths can address them (``block_bytes`` a multiple of 16, both
+    pointers on 16 bytes); then ``"bulk"`` from ``BULK_MIN_BYTES`` moved,
+    ``"vec"`` below."""
+    if block_bytes % 16 or src_ptr % 16 or dst_ptr % 16:
+        return "bytes"
+    return "bulk" if n_blocks * block_bytes >= BULK_MIN_BYTES else "vec"
 
 
 def _fn():
@@ -30,7 +60,8 @@ def _fn():
     if fn.argtypes is None:  # 64-bit pointers need declared argtypes
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -51,8 +82,10 @@ def _check(x: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def _block_copy(src: torch.Tensor, dst: torch.Tensor, idx: torch.Tensor,
-               n_bound: int, block_bytes: int, scatter: bool) -> None:
-    """Launch the block-copy kernel on the current stream.
+                n_bound: int, block_bytes: int, scatter: bool,
+                name: Optional[str] = None) -> str:
+    """Launch the block-copy kernel on the current stream and return the
+    instance launched: ``name``, or ``variant``'s choice.
 
     ``scatter=False``: dst block i <- src block idx[i];
     ``scatter=True``: dst block idx[i] <- src block i.  ``n_bound`` is the
@@ -60,12 +93,15 @@ def _block_copy(src: torch.Tensor, dst: torch.Tensor, idx: torch.Tensor,
     Does not count a launch: the public wrappers do.
     """
     fn = _fn()
-    with torch.cuda.device(src.device):
-        rc = fn(src.data_ptr(), dst.data_ptr(), idx.data_ptr(),
-                idx.shape[0], n_bound, block_bytes, int(scatter),
-                torch.cuda.current_stream(src.device).cuda_stream)
+    src_ptr, dst_ptr = src.data_ptr(), dst.data_ptr()
+    name = name or variant(block_bytes, idx.shape[0], src_ptr, dst_ptr)
+    rc = _build.launch(fn, src.device, src_ptr, dst_ptr, idx.data_ptr(),
+                       idx.shape[0], n_bound, block_bytes, int(scatter),
+                       _VARIANTS[name])
     if rc != 0:
-        raise RuntimeError(f"a2a_block_copy launch failed: cudaError {rc}")
+        raise RuntimeError(f"a2a_block_copy ({name}) launch failed: "
+                           f"cudaError {rc}")
+    return name
 
 
 def a2a_pack(x: torch.Tensor, idx: torch.Tensor, *,
@@ -83,8 +119,10 @@ def a2a_pack(x: torch.Tensor, idx: torch.Tensor, *,
     if x.device.type == "cpu":
         return a2a_pack_ref(x, idx, block_rows=r)
     out = torch.empty((idx.shape[0] * r, d), dtype=x.dtype, device=x.device)
-    _block_copy(x, out, idx, n // r, r * d * x.element_size(), scatter=False)
+    name = _block_copy(x, out, idx, n // r, r * d * x.element_size(),
+                       scatter=False)
     a2a_pack.launches += 1
+    a2a_pack.launches_by_variant[name] += 1
     return out
 
 
@@ -107,10 +145,14 @@ def a2a_unpack(x: torch.Tensor, idx: torch.Tensor, *, n_out_blocks: int = 0,
     if x.device.type == "cpu":
         return a2a_unpack_ref(x, idx, n_out_blocks=n_out, block_rows=r)
     out = torch.empty((n_out * r, d), dtype=x.dtype, device=x.device)
-    _block_copy(x, out, idx, n_out, r * d * x.element_size(), scatter=True)
+    name = _block_copy(x, out, idx, n_out, r * d * x.element_size(),
+                       scatter=True)
     a2a_unpack.launches += 1
+    a2a_unpack.launches_by_variant[name] += 1
     return out
 
 
 a2a_pack.launches = 0
 a2a_unpack.launches = 0
+a2a_pack.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
+a2a_unpack.launches_by_variant = dict.fromkeys(_VARIANTS, 0)

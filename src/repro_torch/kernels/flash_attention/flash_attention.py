@@ -105,12 +105,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _fn()
     strides = (ctypes.c_longlong * 12)(*(
         st for t in (q, k, v, o) for st in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                strides, b, h, kv, s, d, int(causal),
-                -1 if window is None else int(window), 1.0 / d ** 0.5,
-                _DTYPES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _build.launch(fn, q.device, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), o.data_ptr(), strides, b, h, kv, s, d,
+                       int(causal), -1 if window is None else int(window),
+                       1.0 / d ** 0.5, _DTYPES[q.dtype])
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     flash_attention.launches += 1

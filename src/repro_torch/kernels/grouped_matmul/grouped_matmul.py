@@ -99,11 +99,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     name = variant(x.dtype, d, f, all(t.data_ptr() % 16 == 0
                                       for t in (x, w, y)))
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                None if counts is None else counts.data_ptr(),
-                e, c, d, f, _VARIANTS[name],
-                torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
+                       y.data_ptr(),
+                       None if counts is None else counts.data_ptr(),
+                       e, c, d, f, _VARIANTS[name])
     if rc != 0:
         raise RuntimeError(f"grouped_matmul ({name}) launch failed: "
                            f"cudaError {rc}")
