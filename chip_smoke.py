@@ -46,6 +46,32 @@ Phases (each raises on failure; none is caught):
    ``torch.profiler`` window over one (a) prefill and three decode steps:
    device time by kernel name and the device's idle share.
 
+5. backward kernels: ``flash_attention``'s ``lse`` against the plain
+   forward's, ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
+   (within 1e-5 in f32 and 2e-2 in bf16 of the largest reference gradient
+   of the case) on ragged shapes, at the training shape (q [32, 32, 512,
+   64], 8 kv heads, causal) and at mixtral's windowed shape (q [1, 32, 8192,
+   128], window 4096), timed beside its plain version and SDPA's backward;
+   grouped_matmul's backward products (dX and dW of the gate/up and down
+   products, an operand read transposed in place) against the plain
+   version and timed beside ``bmm`` at the training shapes, and beside the
+   same product on contiguous copies of the transposes and those copies;
+6. training megatron-moe-32e at its published widths (2 of 24 layers, f32
+   masters, bf16 compute, remat) on the same mesh, EP over (pod, data)
+   through the island and the config's ``flash`` exchange: 32 x 512 tokens
+   a step, 4 AdamW steps with the kernels, each step's launches gated (per
+   layer: 2 attention forwards under remat, 1 backward, 6 grouped_matmul
+   forwards and 6 backward products, all on TMA; no pack or unpack), then
+   the same 4 steps with ``use_kernel=False`` (step losses within 2e-2);
+   the first attention and MoE layer's bf16 gradients on identical inputs
+   within 2e-2 of plain, routing equal; one layer's forward run twice,
+   bit-identical (remat recomputes it); an f32 run (1 layer, 32 x 128
+   tokens) whose every gradient is within a relative norm of 1e-4 of the
+   plain version's; the ``Trainer`` at smoke size with a checkpoint and a
+   resume (within a relative 1e-6 of an unbroken run: the embedding's
+   backward sums with atomics); and a ``torch.profiler`` window over one
+   step.
+
 Every bf16 serving run must launch grouped_matmul on its TMA + wgmma
 instance alone (``grouped_matmul.launches_by_variant``), and pack and unpack
 on the instance ``a2a_pack.variant`` picks for the exchange's size: bulk for
@@ -54,7 +80,11 @@ window also gives the median device time of a pack and an unpack launch in
 the prefill and in decode.
 
 The last lines are the card's name and power limit, one JSON line of kernel
-results, and ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
+results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
+there is its count in the newest main path that runs it: the training run
+(4 steps) for grouped_matmul, flash_attention and flash_attention_bwd,
+mixtral's plan run for pack and unpack; ``launches_by_path`` lists every
+path's counts.  It exits non-zero, printing
 no result, without a CUDA device or outside a checkout of the repository.
 """
 
@@ -86,7 +116,17 @@ TIMED_RUNS = 20
 RUN_MS, MAX_REPS = 2.0, 100    # cuda_ms: device time a timed run should fill
 SLEEP_CYCLES_PER_MS = 2.0e6    # torch.cuda._sleep cycles a ms at <= 2 GHz
 DEVICE = "cuda"
-KERNELS = ("a2a_pack", "a2a_unpack", "grouped_matmul", "flash_attention")
+SERVE_KERNELS = ("a2a_pack", "a2a_unpack", "grouped_matmul",
+                 "flash_attention")
+KERNELS = SERVE_KERNELS + ("flash_attention_bwd",)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 32, 512, 4
+F32_TRAIN_SEQ = 128
+# the serving shapes' flash_attention device ms before the forward kernel
+# could write lse (PERF.md, section 6), for the check that serving, which
+# asks for none, kept its time
+FLASH_MS_BEFORE_LSE = {"megatron-moe-32e prefill": 0.0491,
+                 "mixtral-8x7b prefill": 1.6262,
+                 "mixtral-8x7b long prefill": 1.9873}
 # block sizes of the bulk-against-vec sweep, 64 blocks each: 8 KiB to 1280
 # MiB moved, the serving exchanges' range
 SWEEP_BLOCK_BYTES = (128, 64 << 10, 256 << 10, 512 << 10, 2 << 20, 8 << 20,
@@ -98,6 +138,14 @@ def serve_config():
     from repro_torch.configs import get_config
 
     return get_config(ARCH, n_layers=N_LAYERS)
+
+
+def train_config(**over):
+    """megatron-moe-32e at its published widths, depth cut to
+    TRAIN_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return get_config(ARCH, **{"n_layers": TRAIN_LAYERS, **over})
 
 
 def mixtral_config(**over):
@@ -187,6 +235,29 @@ def kernel_names(path):
         path.read_text())
 
 
+def template_args(rest):
+    """The template arguments of a mangled kernel name, given what follows
+    the kernel's own name: ints, ``f32`` and ``bf16``."""
+    import re
+
+    out = []
+    a = rest[1:rest.find("EE") + 1] if rest.startswith("I") else ""
+    while a:
+        num = re.match(r"Li(\d+)E", a)
+        if num:
+            out.append(num.group(1))
+            a = a[num.end():]
+        elif a.startswith("13__nv_bfloat16"):
+            out.append("bf16")
+            a = a[len("13__nv_bfloat16"):]
+        elif a.startswith("f"):
+            out.append("f32")
+            a = a[1:]
+        else:
+            break
+    return out
+
+
 def ptxas_lines(_build):
     """One line per kernel of every source: registers, shared memory,
     spills, from the ``ptxas -v`` report of its build."""
@@ -199,11 +270,12 @@ def ptxas_lines(_build):
         name = None
         for line in _build.ptxas_report(src).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:  # the source's name of the mangled kernel, and its width
+            if m:  # the source's name of the mangled kernel, its template
+                # arguments (dtype, width, layout bits)
                 name = max((k for k in kernels if k in m.group(1)), key=len,
                            default=m.group(1))
-                targ = re.search(r"ILi(\d+)E", m.group(1))
-                name += f"<{targ.group(1)}>" if targ else ""
+                targs = template_args(m.group(1).split(name, 1)[-1])
+                name += f"<{', '.join(targs)}>" if targs else ""
                 spill = ""
             elif name and "spill" in line:
                 spill = line.strip()
@@ -429,13 +501,26 @@ def phase_kernels(torch):
             w = torch.randn((e, d, f), generator=gen, device=dev).to(dt)
             cnt = torch.randint(0, c + 1, (e,), generator=gen, device=dev,
                                 dtype=torch.int32)
+            # the backward's forms too: x stored as x^T, w stored as w^T
+            xt, wt = x.transpose(1, 2).contiguous(), \
+                w.transpose(1, 2).contiguous()
             for counts in (None, cnt):
-                err = rel_err(torch, grouped_matmul(x, w, counts),
-                              grouped_matmul_ref(x, w, counts))
-                if not err < tol:
-                    raise AssertionError(
-                        f"grouped_matmul {dt} {(e, c, d, f)} counts="
-                        f"{counts is not None}: rel err {err} >= {tol}")
+                ref = grouped_matmul_ref(x, w, counts)
+                for kind, got in (
+                        ("", lambda: grouped_matmul(x, w, counts)),
+                        ("x^T ", lambda: grouped_matmul(
+                            xt, w, counts, transpose_x=True)),
+                        ("w^T ", lambda: grouped_matmul(
+                            x, wt, counts, transpose_w=True)),
+                        ("x^T w^T ", lambda: grouped_matmul(
+                            xt, wt, counts, transpose_x=True,
+                            transpose_w=True))):
+                    err = rel_err(torch, got(), ref)
+                    if not err < tol:
+                        raise AssertionError(
+                            f"grouped_matmul {kind}{dt} {(e, c, d, f)} "
+                            f"counts={counts is not None}: rel err {err} >= "
+                            f"{tol}")
     torch.cuda.synchronize()
     ragged = {k: n - by_variant[k]
               for k, n in grouped_matmul.launches_by_variant.items()}
@@ -443,7 +528,8 @@ def phase_kernels(torch):
         raise AssertionError(f"grouped_matmul's ragged checks missed an "
                              f"instance: {ragged}")
     log(f"kernels: grouped_matmul within 1e-5 (f32) / 2e-2 (bf16) on ragged "
-        f"shapes, with and without counts; launches by instance {ragged}")
+        f"shapes, with and without counts, x and w stored as given or "
+        f"transposed; launches by instance {ragged}")
 
     bf16 = torch.bfloat16
     p, i = MESH[0], MESH[1]
@@ -1084,6 +1170,39 @@ def copy_durations(label, events, n_prefill):
                 f"over {len(sub)} launches")
 
 
+def device_time(prof, label, host_ms):
+    """Log a trace's device time by kernel name (top 10) and the device's
+    idle share over the window from the first device event's start to the
+    last one's end.  Returns (device events, summary), the summary None and
+    "not measured" logged where the trace holds no device event."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log(f"{label}: device time by kernel: not measured (the trace holds "
+            f"no device event); idle share: not measured; host window "
+            f"{host_ms:.3f} ms")
+        return dev, None
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    busy = busy_us(spans)
+    by_name = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    total = sum(t for _, t in by_name.values())
+    log(f"{label}: host window {host_ms:.3f} ms; device window "
+        f"{window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
+        f"{1 - busy / window:.4f}; {len(dev)} device events, "
+        f"{total / 1e3:.3f} ms summed")
+    for name, (n, t) in top:
+        log(f"{label}: {t / 1e3:10.3f} ms {100 * t / total:6.2f}% {n:5d}x "
+            f"{name[:110]}")
+    return dev, {"idle_share": 1 - busy / window, "window_ms": window / 1e3,
+                 "top": [(name, n, t / 1e3) for name, (n, t) in top]}
+
+
 def profile_window(torch, cfg, params, mesh, plan, prompts, kernels,
                    steps=3):
     """One plan prefill and ``steps`` decode steps under torch.profiler:
@@ -1092,7 +1211,6 @@ def profile_window(torch, cfg, params, mesh, plan, prompts, kernels,
     the median device duration of pack and unpack launches in the prefill
     and in decode.  Prints "not measured" where the trace holds no device
     event."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import _build
@@ -1116,35 +1234,15 @@ def profile_window(torch, cfg, params, mesh, plan, prompts, kernels,
             toks = lg.argmax(-1)
         torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     label = f"profile[mixtral plan, prefill + {steps} decode steps]"
-    if not dev:
-        log(f"{label}: device time by kernel: not measured (the trace holds "
-            f"no device event); idle share: not measured; host window "
-            f"{host_ms:.3f} ms")
+    dev, summary = device_time(prof, label, host_ms)
+    if summary is None:
         return None
-    spans = [(e.time_range.start, e.time_range.end) for e in dev]
-    window = max(b for _, b in spans) - min(a for a, _ in spans)
-    busy = busy_us(spans)
-    by_name = {}
-    for e in dev:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    total = sum(t for _, t in by_name.values())
-    log(f"{label}: host window {host_ms:.3f} ms; device window "
-        f"{window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
-        f"{1 - busy / window:.4f}; {len(dev)} device events, "
-        f"{total / 1e3:.3f} ms summed")
-    for name, (n, t) in top:
-        log(f"{label}: {t / 1e3:10.3f} ms {100 * t / total:6.2f}% {n:5d}x "
-            f"{name[:110]}")
     names = kernel_names(_build.CSRC / "a2a_block_copy.cu")
     copies = sorted((e for e in dev if any(k in e.name for k in names)),
                     key=lambda e: e.time_range.start)
     copy_durations(label, copies, n_prefill)
-    return {"idle_share": 1 - busy / window, "window_ms": window / 1e3,
-            "top": [(name, n, t / 1e3) for name, (n, t) in top]}
+    return summary
 
 
 def phase_megatron(torch, kernels):
@@ -1175,7 +1273,8 @@ def phase_megatron(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
                 record=True)
-    check_run(torch, run, cfg, BATCH, "serve[plan]", KERNELS, MEGATRON_A2A)
+    check_run(torch, run, cfg, BATCH, "serve[plan]", SERVE_KERNELS,
+              MEGATRON_A2A)
     log_run(run, "serve[plan]", BATCH)
     log(f"serve[plan]: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -1257,7 +1356,8 @@ def phase_mixtral(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
                 record=True)
-    check_run(torch, run, cfg, BATCH, "mixtral[plan]", KERNELS, MIXTRAL_A2A)
+    check_run(torch, run, cfg, BATCH, "mixtral[plan]", SERVE_KERNELS,
+              MIXTRAL_A2A)
     log_run(run, f"mixtral[plan] batch {BATCH} x prompt {MIX_PROMPT}", BATCH)
     log(f"mixtral[plan]: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -1342,6 +1442,543 @@ def phase_mixtral(torch, kernels):
     return launches
 
 
+def attn_bwd_bound(b, h, kv, s, d, causal, window, dtype_name, elem):
+    """(bound ms, what bounds it) of one flash_attention_bwd call: 10 * D
+    operations per visible pair and head; q, o, dO, k, v and the f32 lse
+    read once, dq, dk, dv written once."""
+    t_ops = 10 * b * h * d * band_pairs(s, causal, window) \
+        / PEAK_OPS_PER_S[dtype_name] * 1e3
+    t_bytes = ((4 * b * h + 4 * b * kv) * s * d * elem + 4 * b * h * s) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_backward_kernels(torch):
+    """The backward's kernels: flash_attention's lse and flash_attention_bwd
+    against their plain versions on ragged shapes, at the training shape and
+    at mixtral's windowed shape, timed beside SDPA's backward; then
+    grouped_matmul's backward products at the training shapes, timed beside
+    bmm.  Returns the flash_attention_bwd row and grouped_matmul's backward
+    shape entries."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_ref)
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul, grouped_matmul_ref)
+    from repro_torch.models.moe import _capacity
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+    def inputs(b, h, kv, s, d, dt, views):
+        if views:   # [B, S, H, D] memory seen as [B, H, S, D]
+            return [torch.randn((b, s, n, d), generator=gen,
+                                device=dev).to(dt).transpose(1, 2)
+                    for n in (h, kv, kv, h)]
+        return [torch.randn((b, n, s, d), generator=gen, device=dev).to(dt)
+                for n in (h, kv, kv, h)]
+
+    def check(b, h, kv, s, d, causal, window, dt, views):
+        """(lse max abs err, backward err): the backward's max abs
+        difference over the largest reference gradient of the case (a
+        gradient that cancels to ~0, dq and dk at S = 1, has no scale of
+        its own)."""
+        q, k, v, do = inputs(b, h, kv, s, d, dt, views)
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        _, lse_ref = attention_lse_ref(q, k, v, causal=causal, window=window)
+        e_lse = max_abs(torch, lse, lse_ref)
+        del lse_ref
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+        ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+        scale = max(r.float().abs().max().item() for r in ref)
+        err = max(max_abs(torch, g, r) for g, r in zip(got, ref)) \
+            / (scale + 1e-30)
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        if not (err <= tols[dt] and e_lse <= 1e-4 and finite):
+            raise AssertionError(
+                f"flash_attention_bwd {dt} b{b} h{h} k{kv} s{s} d{d} causal="
+                f"{causal} window={window} views={views}: err {err} > "
+                f"{tols[dt]}, lse err {e_lse}, finite {finite}")
+        return e_lse, err
+
+    worst = {dt: [0.0, 0.0] for dt in tols}
+    n = 0
+    for dt in tols:
+        for s in (1, 37, 130, 300):
+            for d in (8, 16, 40, 64, 128):
+                for group in (1, 4):
+                    for causal in (True, False):
+                        for window in (None, 5, 100):
+                            errs = check(1, 2 * group, 2, s, d, causal,
+                                         window, dt, views=n % 2 == 0)
+                            worst[dt] = [max(a, e) for a, e in
+                                         zip(worst[dt], errs)]
+                            n += 1
+    torch.cuda.synchronize()
+    log(f"kernels: flash_attention_bwd within 1e-5 (f32) / 2e-2 (bf16) of "
+        f"its plain version on {n} ragged cases (S 1 to 300, head dims 8 to "
+        f"128, groups 1 and 4, causal and not, windows none, 5, 100, "
+        f"contiguous and views): worst {worst[torch.float32][1]:.3e} / "
+        f"{worst[torch.bfloat16][1]:.3e}; forward lse max abs err "
+        f"{worst[torch.float32][0]:.3e} / {worst[torch.bfloat16][0]:.3e}")
+
+    meg, mix = train_config(), mixtral_config()
+    shapes = [("megatron-moe-32e train", TRAIN_BATCH, meg.n_heads,
+               meg.n_kv_heads, TRAIN_SEQ, meg.resolved_head_dim, None),
+              ("mixtral-8x7b long", 1, mix.n_heads, mix.n_kv_heads,
+               LONG_PROMPT, mix.resolved_head_dim, mix.swa_window)]
+    entries = []
+    for path, b, h, kv, s, d, w in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            errs = check(b, h, kv, s, d, True, w, dt, views=True)
+            worst[dt] = [max(a, e) for a, e in zip(worst[dt], errs)]
+            log(f"kernels: flash_attention_bwd at the {path} shape [{b}, "
+                f"{h}, {s}, {d}] kv {kv} window {w} {dt}: err {errs[1]:.3e}, "
+                f"lse max abs err {errs[0]:.3e}")
+            free(torch)
+        q, k, v, do = inputs(b, h, kv, s, d, torch.bfloat16, True)
+        o, lse = flash_attention(q, k, v, causal=True, window=w,
+                                 return_lse=True)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        if w is not None and w < s:
+            qi = torch.arange(s, device=dev)
+            mask = dict(attn_mask=(qi[None, :] <= qi[:, None])
+                        & (qi[None, :] > qi[:, None] - w))
+        else:
+            mask = dict(is_causal=True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qg, kg, vg,
+                                                  enable_gqa=True, **mask)
+
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+
+        bound, by = attn_bwd_bound(b, h, kv, s, d, True, w, "bfloat16", 2)
+        runs = TIMED_RUNS if s <= TRAIN_SEQ else 5
+        entry = {
+            "path": path, "shape": f"q [{b}, {h}, {s}, {d}], kv heads {kv}, "
+                                   f"causal, window {w}, bf16",
+            "ms": cuda_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, causal=True, window=w), runs=runs),
+            "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=True, window=w), runs=3,
+                warmup=1),
+            "library_ms": cuda_ms(torch, sdpa_bwd, runs=runs)
+            - cuda_ms(torch, sdpa, runs=runs),
+            "bound_ms": bound, "bound_by": by}
+        entry["ratio_to_library"] = entry["ms"] / entry["library_ms"]
+        entry["ratio_to_bound"] = entry["ms"] / bound
+        entries.append(entry)
+        log("timing: flash_attention_bwd", json.dumps(entry))
+        del q, k, v, do, o, lse, qg, kg, vg, mask
+        free(torch)
+    main = entries[0]
+    attn_row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:"
+                    "122 (forward only: the reference differentiates its "
+                    "einsum attention)",
+        "shape": main["shape"],
+        "max_abs_err": max(v[1] for v in worst.values()),
+        "max_err_f32": worst[torch.float32][1],
+        "max_err_bf16": worst[torch.bfloat16][1],
+        "lse_max_abs_err": max(v[0] for v in worst.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "shapes": entries}
+
+    # grouped_matmul's backward products at the training island's shapes:
+    # a group holds one expert's C rows from each of the 32 ranks
+    cfg = train_config()
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    c = MESH[0] * MESH[1] * _capacity(
+        cfg, TRAIN_BATCH // (MESH[0] * MESH[1]) * TRAIN_SEQ, e)
+    bf16 = torch.bfloat16
+    gmm_entries = []
+    for kind, din, dout in (("gate/up", d, f), ("down", f, d)):
+        x = torch.randn((e, c, din), generator=gen, device=dev).to(bf16)
+        wt = (torch.randn((e, din, dout), generator=gen, device=dev)
+              / din ** 0.5).to(bf16)
+        dy = torch.randn((e, c, dout), generator=gen, device=dev).to(bf16)
+        # what the autograd Function launches (an operand read transposed
+        # in place), and the contiguous operands the copies would make
+        products = (
+            ("dX", lambda: grouped_matmul(dy, wt, transpose_w=True),
+             lambda: (dy, wt.transpose(1, 2).contiguous())),
+            ("dW", lambda: grouped_matmul(x, dy, transpose_x=True),
+             lambda: (x.transpose(1, 2).contiguous(), dy)))
+        for what, product, operands in products:
+            a, bmat = operands()
+            n_tma = grouped_matmul.launches_by_variant["tma"]
+            y, ref = product(), grouped_matmul_ref(a, bmat)
+            if grouped_matmul.launches_by_variant["tma"] != n_tma + 1:
+                raise AssertionError(f"grouped_matmul's {what} of the {kind} "
+                                     f"product did not take TMA + wgmma")
+            err = rel_err(torch, y, ref)
+            if not err < 2e-2:
+                raise AssertionError(f"grouped_matmul {what} of the {kind} "
+                                     f"product: rel err {err}")
+            del y, ref
+            bound, by = gmm_bound(a, bmat)
+            entry = {
+                "path": f"megatron-moe-32e train {kind} {what}",
+                "shape": f"{list(a.shape)} @ {list(bmat.shape)} bf16",
+                "ms": cuda_ms(torch, product),
+                "contiguous_ms": cuda_ms(torch, lambda: grouped_matmul(
+                    a, bmat)),
+                "plain_ms": cuda_ms(torch, lambda: grouped_matmul_ref(
+                    a, bmat), runs=5, warmup=1),
+                "library_ms": cuda_ms(torch, lambda: torch.bmm(a, bmat)),
+                "transpose_copy_ms": cuda_ms(torch, operands),
+                "bound_ms": bound, "bound_by": by, "instance": "tma",
+                "max_err": err}
+            entry["ratio_to_library"] = entry["ms"] / entry["library_ms"]
+            entry["ratio_to_bound"] = entry["ms"] / bound
+            gmm_entries.append(entry)
+            log("timing: grouped_matmul backward", json.dumps(entry))
+            del a, bmat
+            free(torch)
+        del x, wt, dy
+        free(torch)
+    log("kernels: grouped_matmul's dX and dW products (an operand read "
+        "transposed in place) within 2e-2 at the training shapes, all on "
+        "TMA + wgmma")
+    return attn_row, gmm_entries
+
+
+def rel_norm(torch, a, b) -> float:
+    """||a - b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / (b.norm() + 1e-30)).item()
+
+
+def train_launches_per_step(n_layers):
+    """Launches a training step must make, worked out from the code: under
+    remat each layer's forward runs twice (attention once and the expert
+    FFN's three products each time), the backward once (one attention
+    backward, two products for each of the three expert products)."""
+    return {"flash_attention": 2 * n_layers,
+            "flash_attention_bwd": n_layers,
+            "grouped_matmul": (2 * 3 + 3 * 2) * n_layers,
+            "a2a_pack": 0, "a2a_unpack": 0}
+
+
+def train_batches(cfg, batch, seq, steps):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=SEED), cfg)
+    return [data.batch(i) for i in range(steps)]
+
+
+def train_run(torch, cfg, mesh, batches, kernels, use_kernel=True,
+              profile_extra=False):
+    """TRAIN_STEPS AdamW steps (peak rate 3e-4 after one warm-up step) of
+    fresh parameters from the seed, through ``make_train_step``; counts set
+    to 0 just before each step and read just after.  Returns the metrics,
+    step ms, launches and instances of each step, the launches of the whole
+    run, and the peak device memory."""
+    from repro_torch.launch.train import (TrainOptions, init_train_state,
+                                          make_train_step)
+    from repro_torch.models import build_model
+
+    dev = torch.device(DEVICE)
+    params = build_model(cfg, dev, train=True).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    state = init_train_state(params)
+    step = make_train_step(cfg, mesh, TrainOptions(
+        peak_lr=3e-4, warmup_steps=1, total_steps=len(batches)),
+        use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"metrics": [], "step_ms": [], "launches": [], "variants": []}
+    total = dict.fromkeys(kernels, 0)
+    for batch in batches:
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["launches"].append(read_launches(kernels))
+        out["variants"].append(read_variants(kernels))
+        for k, n in out["launches"][-1].items():
+            total[k] += n
+    out["total_launches"] = total
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if profile_extra:
+        out["profile"] = profile_train_step(torch, step, state, batches[-1])
+    del state, params, step
+    free(torch)
+    return out
+
+
+def profile_train_step(torch, step, state, batch):
+    """One more training step under torch.profiler: device time by kernel
+    name (top 10) and the device's idle share over the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return device_time(prof, "profile[train step]", host_ms)[1]
+
+
+def check_train_launches(run, n_layers, label):
+    """Every step's launches as ``train_launches_per_step`` says, every
+    grouped_matmul launch on TMA + wgmma."""
+    want = train_launches_per_step(n_layers)
+    for i, (got, by) in enumerate(zip(run["launches"], run["variants"])):
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if bad:
+            raise AssertionError(f"{label} step {i}: launches (got, "
+                                 f"expected) {bad}")
+        if by["grouped_matmul"]["tma"] != want["grouped_matmul"]:
+            raise AssertionError(f"{label} step {i}: grouped_matmul by "
+                                 f"instance {by['grouped_matmul']}")
+
+
+def layer_grads(torch, cfg, blk, fn, x, dy):
+    """(output, gradients of the input and of every parameter of ``blk``)
+    of ``fn(x)`` against the cotangent ``dy``; ``fn`` returns (y, aux) or
+    y, and aux enters the loss as the model's does."""
+    x = x.detach().requires_grad_()
+    out = fn(x)
+    y, aux = out if isinstance(out, tuple) else (out, None)
+    loss = (y.float() * dy.float()).sum()
+    if aux is not None:
+        loss = loss + 0.01 * aux
+    names = [n for n, _ in blk.named_parameters()]
+    grads = torch.autograd.grad(loss, [x] + [p for _, p in
+                                             blk.named_parameters()])
+    return y.detach(), dict(zip(["input"] + names, grads))
+
+
+def train_layer_gates(torch, mesh, kernels):
+    """On one layer of fresh bf16-compute parameters and the cell's first
+    batch: the first attention and MoE layer's outputs and gradients with
+    the kernels against plain on identical inputs (relative norm 2e-2,
+    routing equal), and the layer's forward run twice bit-identical (what
+    remat recomputes)."""
+    from repro_torch.launch.train import make_dist_context
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import attention_apply, norm_apply
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.transformer import _block_train, _embed_tokens
+
+    dev = torch.device(DEVICE)
+    cfg = train_config(n_layers=1)
+    params = build_model(cfg, dev, train=True).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1)[0]
+    tokens = torch.from_numpy(batch["tokens"]).long().to(dev)
+    b, s = tokens.shape
+    blk = params.blocks[0]
+    dist = make_dist_context(cfg, mesh)
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    with torch.no_grad():
+        x0 = _embed_tokens(cfg, params, tokens, None)
+        h = norm_apply(cfg, blk.norm1, x0)
+        h2 = norm_apply(cfg, blk.norm2, x0)
+    dy = torch.randn(x0.shape, generator=gen, device=dev).to(x0.dtype)
+    worst = {}
+    for name, sub, fn_of, x in (
+            ("attention", blk.attn, lambda uk: lambda t: attention_apply(
+                cfg, blk.attn, t, positions=positions, use_kernel=uk), h),
+            ("moe", blk.moe, lambda uk: lambda t: moe_apply(
+                cfg, blk.moe, t, dist, use_kernel=uk), h2)):
+        with RouteRecorder() as rec:
+            runs = [layer_grads(torch, cfg, sub, fn_of(uk), x, dy)
+                    for uk in (True, False)]
+        (y_k, g_k), (y_p, g_p) = runs
+        errs = {"output": rel_norm(torch, y_k, y_p)}
+        errs.update({k: rel_norm(torch, g_k[k], g_p[k]) for k in g_k})
+        same = name != "moe" or torch.equal(rec.eids[0], rec.eids[-1])
+        log(f"train[identical inputs]: first {name} layer, bf16, kernels vs "
+            f"plain, relative norms: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + (f"; routing equal {same}" if name == "moe" else ""))
+        if not (max(errs.values()) < 2e-2 and same):
+            raise AssertionError(f"train: first {name} layer kernels vs "
+                                 f"plain: {errs}, routing equal {same}")
+        worst[name] = max(errs.values())
+        del runs, y_k, g_k, y_p, g_p
+        free(torch)
+
+    # remat runs each layer's forward again in the backward: the kernels'
+    # forward must give the same bits, routing included
+    with RouteRecorder() as rec:
+        outs = [_block_train(cfg, blk, x0.detach().requires_grad_(),
+                             positions=positions, dist=dist, kind="moe",
+                             full_flag=False, use_kernel=True)
+                for _ in range(2)]
+    same = torch.equal(outs[0][0], outs[1][0]) and \
+        torch.equal(outs[0][1], outs[1][1]) and \
+        torch.equal(rec.eids[0], rec.eids[1])
+    log(f"train[remat]: one layer's forward with the kernels run twice: "
+        f"bit-identical {same}")
+    if not same:
+        raise AssertionError("train: the layer's forward is not "
+                             "bit-identical when run again")
+    del outs, params, x0, h, h2, dy
+    free(torch)
+    return worst
+
+
+def train_f32_gate(torch, mesh, kernels):
+    """An f32 step's gradients (1 layer, TRAIN_BATCH x F32_TRAIN_SEQ tokens)
+    with the kernels against the plain versions, every parameter within a
+    relative norm of 1e-4; returns the worst."""
+    from repro_torch.launch.train import _on, make_dist_context
+    from repro_torch.models import build_model
+
+    dev = torch.device(DEVICE)
+    cfg = train_config(n_layers=1, compute_dtype="float32")
+    model = build_model(cfg, dev, train=True)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    batch = _on(dev, train_batches(cfg, TRAIN_BATCH, F32_TRAIN_SEQ, 1)[0])
+    named = dict(params.named_parameters())
+    grads, losses = [], []
+    for uk in (True, False):
+        dist = make_dist_context(cfg, mesh, use_kernel=uk)
+        reset_launches(kernels)
+        loss, _ = model.loss(params, batch, dist, uk)
+        grads.append(torch.autograd.grad(loss, list(named.values())))
+        losses.append(loss.item())
+        if uk and not (kernels["flash_attention_bwd"].launches == 1 and
+                       kernels["grouped_matmul"].launches == 12):
+            raise AssertionError(f"train[f32]: launches "
+                                 f"{read_launches(kernels)}")
+    errs = {k: rel_norm(torch, a, b)
+            for k, a, b in zip(named, grads[0], grads[1])}
+    worst = max(errs, key=errs.get)
+    log(f"train[f32]: 1 layer, {TRAIN_BATCH} x {F32_TRAIN_SEQ} tokens: loss "
+        f"kernels {losses[0]:.6f}, plain {losses[1]:.6f}; gradients, "
+        f"relative norm, worst {errs[worst]:.3e} ({worst}); "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not errs[worst] < 1e-4:
+        raise AssertionError(f"train[f32]: gradient {worst} kernels vs "
+                             f"plain {errs[worst]}")
+    del grads, params, model
+    free(torch)
+    return errs[worst]
+
+
+def train_resume_gate(torch):
+    """The Trainer at smoke size on the card: 6 steps unbroken, and 3 steps,
+    a checkpoint and a resume to 6; parameters within a relative 1e-6
+    (each tensor's largest value) of the unbroken run's."""
+    import tempfile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (TrainOptions, init_train_state,
+                                          make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    dev = torch.device(DEVICE)
+    cfg = smoke_config(ARCH)
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), dev)
+    step = make_train_step(cfg, mesh, TrainOptions(
+        peak_lr=5e-3, warmup_steps=2, total_steps=6))
+    model = build_model(cfg, dev, train=True)
+    batches = train_batches(cfg, 8, 32, 6)
+
+    def init_state():
+        return init_train_state(model.init(
+            torch.Generator(device=dev).manual_seed(SEED)))
+
+    with tempfile.TemporaryDirectory() as root:
+        a = Trainer(TrainerConfig(total_steps=6, ckpt_dir=f"{root}/a",
+                                  ckpt_every=100), step, init_state,
+                    batches.__getitem__).run()
+        Trainer(TrainerConfig(total_steps=3, ckpt_dir=f"{root}/b",
+                              ckpt_every=3), step, init_state,
+                batches.__getitem__).run()
+        b = Trainer(TrainerConfig(total_steps=6, ckpt_dir=f"{root}/b",
+                                  ckpt_every=100), step, init_state,
+                    batches.__getitem__).run()
+    errs = {k: ((p - q).abs().max() / q.abs().max()).item()
+            for (k, p), (_, q) in zip(
+                b["state"]["params"].named_parameters(),
+                a["state"]["params"].named_parameters())}
+    worst = max(errs, key=errs.get)
+    n_equal = sum(v == 0 for v in errs.values())
+    log(f"train[trainer]: smoke {cfg.name} on (2, 2, 1), 6 steps against 3 "
+        f"+ checkpoint + resume 3: stopped at {b['stopped_at']}; parameters "
+        f"bit-identical in {n_equal} of {len(errs)} tensors, worst relative "
+        f"difference {errs[worst]:.3e} ({worst}); loss {a['metrics']['loss']:.6f}"
+        f" and {b['metrics']['loss']:.6f}")
+    if b["stopped_at"] != 6 or int(b["state"]["step"]) != 6 \
+            or not errs[worst] <= 1e-6:
+        raise AssertionError(f"train[trainer]: resume differs: {errs[worst]}")
+    return errs[worst]
+
+
+def phase_training(torch, kernels):
+    """megatron-moe-32e trained at full width (the cell), then the gates.
+    Returns the kernel run's launches over its TRAIN_STEPS steps and a
+    summary."""
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device(DEVICE)
+    cfg = train_config()
+    mesh = make_mesh(MESH, ("pod", "data", "model"), dev)
+    batches = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    log(f"train: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} experts="
+        f"{cfg.moe.num_experts} top{cfg.moe.top_k} layers={cfg.n_layers}/24 "
+        f"mesh={MESH} batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps="
+        f"{TRAIN_STEPS}; {cfg.param_dtype} masters, {cfg.compute_dtype} "
+        f"compute, remat={cfg.remat}, exchange {cfg.a2a_impl!r}")
+    run = train_run(torch, cfg, mesh, batches, kernels, profile_extra=True)
+    check_train_launches(run, cfg.n_layers, "train[kernels]")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = statistics.median(run["step_ms"][1:])
+    for i, (m, ms) in enumerate(zip(run["metrics"], run["step_ms"])):
+        log(f"train[kernels] step {i}: {ms:.3f} ms ({tokens / ms * 1e3:.1f} "
+            f"tokens/s); " + ", ".join(f"{k} {v:.6f}" for k, v in m.items())
+            + f"; launches {run['launches'][i]}")
+    log(f"train[kernels]: steady step {steady:.3f} ms (median of steps 1 to "
+        f"{TRAIN_STEPS - 1}), {tokens / steady * 1e3:.1f} tokens/s; peak "
+        f"device memory {run['peak_gb']:.2f} GB; launches over the run "
+        f"{run['total_launches']}")
+    plain = train_run(torch, cfg, mesh, batches, kernels, use_kernel=False)
+    if any(any(n.values()) for n in plain["launches"]):
+        raise AssertionError(f"train[plain]: use_kernel=False launched a "
+                             f"kernel: {plain['launches']}")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(run["metrics"], plain["metrics"])]
+    log(f"train[plain]: step ms {[round(x, 3) for x in plain['step_ms']]}; "
+        f"peak device memory {plain['peak_gb']:.2f} GB; step losses "
+        f"kernels {[round(m['loss'], 6) for m in run['metrics']]}, plain "
+        f"{[round(m['loss'], 6) for m in plain['metrics']]}; relative "
+        f"differences {[f'{d:.3e}' for d in diffs]}")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"train: step losses kernels vs plain {diffs}")
+    summary = {"step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
+               "peak_gb": run["peak_gb"], "loss_diffs": diffs,
+               "profile": run.get("profile")}
+    summary["layers"] = train_layer_gates(torch, mesh, kernels)
+    summary["f32_grad_err"] = train_f32_gate(torch, mesh, kernels)
+    summary["resume_err"] = train_resume_gate(torch)
+    return run["total_launches"], summary
+
+
 # Ratios of the redesigned kernels to their library calls that the bf16
 # serving shapes should stay under (reported, not gated: a card below its
 # power limit moves them).  Pack and unpack: device time at most the
@@ -1371,7 +2008,8 @@ def log_ratios(rows):
         for e in rows[name]["shapes"]:
             what = e["path"].split()[-1]
             key = {"grouped_matmul": f"{name} {e['path'].split()[-2]}",
-                   "flash_attention": f"{name} {e['path']}"}.get(
+                   "flash_attention": f"{name} {e['path']}",
+                   "flash_attention_bwd": f"{name} {e['path']}"}.get(
                        name, f"a2a {what}")
             bound = (verdict(BOUND_LIMITS.get(f"a2a {e['path']}"),
                              e["ratio_to_bound"])
@@ -1406,7 +2044,8 @@ def main() -> int:
 
     from repro_torch import _build
     from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.grouped_matmul import grouped_matmul
 
     t_start = time.perf_counter()
@@ -1428,14 +2067,19 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = phase_kernels(torch)
     rows["flash_attention"] = phase_flash_attention(torch)
-    log_ratios(rows)
+    for e in rows["flash_attention"]["shapes"]:
+        was = FLASH_MS_BEFORE_LSE[e["path"]]
+        log(f"ratio: flash_attention {e['path']} against its time before "
+            f"the lse store: {e['ms']:.4f} / {was:.4f} ms = "
+            f"{e['ms'] / was:.3f} (the serving path writes no lse)")
     phase_small_reference(torch)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # 3. megatron-moe-32e; 4. mixtral-8x7b
     kernels = {"a2a_pack": a2a_pack, "a2a_unpack": a2a_unpack,
                "grouped_matmul": grouped_matmul,
-               "flash_attention": flash_attention}
+               "flash_attention": flash_attention,
+               "flash_attention_bwd": flash_attention_bwd}
     t0 = time.perf_counter()
     launches = {"megatron-moe-32e plan": phase_megatron(torch, kernels)}
     log(f"phase megatron: {time.perf_counter() - t0:.1f} s")
@@ -1443,9 +2087,22 @@ def main() -> int:
     launches.update(phase_mixtral(torch, kernels))
     log(f"phase mixtral: {time.perf_counter() - t0:.1f} s")
 
-    # The main path of this slice is mixtral's plan run: its launches are
-    # each row's count; every path's counts are listed beside them.
-    main_path = launches["mixtral-8x7b plan"]
+    # 5. the backward's kernels; 6. training
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"], gmm_bwd = phase_backward_kernels(torch)
+    rows["grouped_matmul"]["shapes"] += gmm_bwd
+    log_ratios(rows)
+    log(f"phase backward kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_launches, summary = phase_training(torch, kernels)
+    log(f"phase training: {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(summary)}")
+
+    # Each kernel's count is that of the newest main path that runs it:
+    # training (this slice's) for grouped_matmul and both attention
+    # kernels, mixtral's plan run for pack and unpack, which training does
+    # not launch.  Every path's counts are listed beside them.
+    serving = launches["mixtral-8x7b plan"]
     result = []
     for name in KERNELS:
         row = rows[name]
@@ -1456,17 +2113,24 @@ def main() -> int:
                 "bound_by", "instance", "call_ms", "library_call_ms",
                 "bulk_ms", "vec_ms", "ratio_to_library", "ratio_to_bound")
                 if key in first})
-        if name in main_path["prefill_variants"]:
-            row["launches_by_variant"] = {
-                part: main_path[f"{part}_variants"][name]
-                for part in ("prefill", "decode")}
-        row = dict(row, launches=main_path["prefill"][name]
-                   + main_path["decode"][name],
-                   launches_prefill=main_path["prefill"][name],
-                   launches_decode=main_path["decode"][name],
-                   launches_by_path={p: {"prefill": c["prefill"][name],
-                                         "decode": c["decode"][name]}
-                                     for p, c in launches.items()})
+        by_path = {p: {"prefill": c["prefill"][name],
+                       "decode": c["decode"][name]}
+                   for p, c in launches.items()}
+        by_path[f"megatron-moe-32e train ({TRAIN_STEPS} steps)"] = \
+            train_launches[name]
+        if train_launches[name]:
+            row = dict(row, launches=train_launches[name],
+                       main_path=f"megatron-moe-32e train ({TRAIN_STEPS} "
+                                 f"steps)")
+        else:
+            if name in serving["prefill_variants"]:
+                row["launches_by_variant"] = {
+                    part: serving[f"{part}_variants"][name]
+                    for part in ("prefill", "decode")}
+            row = dict(row, launches=serving["prefill"][name]
+                       + serving["decode"][name],
+                       main_path="mixtral-8x7b plan (serving)")
+        row["launches_by_path"] = by_path
         result.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -55,8 +55,9 @@ def load_params(module: nn.Module, params_np: Any) -> nn.Module:
 
 
 def from_jax_params(params_np: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda") -> LM:
-    """The reference's LM pytree (numpy leaves) as the port's ``LM``."""
+                    device="cuda", train: bool = False) -> LM:
+    """The reference's LM pytree (numpy leaves) as the port's ``LM``
+    (``train=True``: trainable, the expert stacks kept as f32 masters)."""
     tree = dict(params_np)
     blocks = tree["blocks"]
     if isinstance(blocks, dict):  # stacked: split the leading layer axis
@@ -68,4 +69,4 @@ def from_jax_params(params_np: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
-        return load_params(LM(cfg, gen, dev), tree)
+        return load_params(LM(cfg, gen, dev, train), tree)

@@ -1,5 +1,5 @@
 // Blockwise (flash) attention forward with GQA, causal masking and a sliding
-// window.
+// window, and optionally each row's log-sum-exp for the backward.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py (`flash_attention`, body `_flash_kernel`):
@@ -65,6 +65,10 @@
 // Any S >= 1: rows and keys past S are zero-filled and masked.  Any head dim
 // up to 128 runs in the instance of the next width of 16, 32, 64 or 128, its
 // extra columns zero-filled.
+// Given an `lse` pointer (training), each row also stores the natural
+// log-sum-exp of its scaled, masked scores, m + log(l), in f32 ([B, H, S]
+// contiguous): the backward kernel (flash_attention_bwd.cu) recomputes the
+// probabilities from it.  Serving passes none, and the store is skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +91,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;         // [B, H, S] or null
   Strides sq, sk, sv, so;
   int B, H, K, S, d;  // d: the real head dim (<= the instance's DP)
   int n_qt;           // q tiles per (batch, head)
@@ -468,6 +473,24 @@ flash_bf16_kernel(Params p) {
   }
   cp_async_wait<0>();
 
+  // Each row's log-sum-exp, for the backward, before the output: the scores
+  // are dead here and the running max dies with it.  m and log2(l) are in
+  // log2 units, so the natural lse is their sum times ln 2.
+  if (p.lse != nullptr) {
+#pragma unroll
+    for (int rb = 0; rb < kRB; ++rb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[rb][r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int qpos = qa + 16 * rb + g + 8 * r;
+        if (t == 0 && qpos < p.S)
+          p.lse[((long long)b * p.H + h) * p.S + qpos] =
+              (m_run[rb][r] + log2f(l)) * 0.6931471805599453f;
+      }
+  }
+
   // o / max(l, 1e-30) in bf16, one row block at a time.
 #pragma unroll
   for (int rb = 0; rb < kRB; ++rb) {
@@ -663,6 +686,10 @@ flash_f32_kernel(Params p) {
         og[(long long)qpos * p.so.s + c] = acc[i][j] / l;
     }
   }
+  // each row's log-sum-exp, for the backward, once the accumulator is dead
+  if (p.lse != nullptr && threadIdx.x < kBQF32 && q0 + threadIdx.x < p.S)
+    p.lse[((long long)b * p.H + h) * p.S + q0 + threadIdx.x] =
+        row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
 }
 
 template <typename Kernel>
@@ -683,11 +710,12 @@ Strides strides_at(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 // given by its base and its (batch, head, sequence) strides in elements
 // (`strides`: q's three, then k's, v's and o's); the head dim has unit
 // stride.  causal: 0 or 1; window <= 0: none.  dtype: 0 = float32,
-// 1 = bfloat16.  1 <= D <= 128.  Returns the launch's cudaError_t.
+// 1 = bfloat16.  1 <= D <= 128.  lse: null, or [B, H, S] f32 for each row's
+// log-sum-exp.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, const long long* strides, int B,
                                int H, int K, int S, int D, int causal,
-                               int window, float scale, int dtype,
+                               int window, float scale, int dtype, float* lse,
                                void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
@@ -698,6 +726,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.sq = strides_at(strides);
   p.sk = strides_at(strides + 3);
   p.sv = strides_at(strides + 6);

@@ -32,6 +32,12 @@
 //   >= counts[e] to zero, converts to bf16 and writes 16-byte vectors
 //   through a shared tile.  A row tile wholly past counts[e] loads nothing,
 //   runs no products and only writes zeros.
+//   The backward's products take an operand transposed without a copy
+//   (`layout`): x stored as x^T [E, D, C] (dW = x^T dy) is loaded as two
+//   64 x 64 boxes per stage like w's and read M-major (wgmma's A transpose
+//   bit), and w stored as w^T [E, F, D] (dX = dy w^T) is loaded as one
+//   128 x 64 box like x's and read K-major (B's transpose bit clear).  The
+//   ring, the tile walk and the epilogue do not change.
 // wmma (bf16, any shape): WMMA 16x16x16 bf16 fragments on a 128x128x32
 //   block tile shared by 8 warps, synchronous loads, ragged edges masked;
 //   it takes the shapes TMA cannot (D or F not a multiple of 8).
@@ -323,7 +329,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64x128] += a[64x16] (K-major) @ b[16x128] (N-major: transpose bit set).
+// d[64x128] += a[64x16] @ b[16x128]: A K-major (kTransA = 0) or M-major
+// (1), B N-major (kTransB = 1) or K-major (0).
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -339,7 +347,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -357,7 +365,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -398,6 +406,8 @@ __device__ __forceinline__ int valid_rows(const int* counts, int e, int C) {
   return cnt < 0 ? 0 : (cnt > C ? C : cnt);
 }
 
+// kTransA: x holds x^T [E, D, C]; kTransB: w holds w^T [E, F, D].
+template <int kTransA, int kTransB>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
                const __grid_constant__ CUtensorMap wmap,
@@ -439,10 +449,20 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
           unsigned char* xs = smem + stage * kStageBytes;
           unsigned char* ws = xs + kXBytes;
           mbar_expect_tx(&full[stage], kStageBytes);
-          tma_load_3d(xs, &xmap, &full[stage], kb * kBK, tl.m * kBM, tl.e);
-          tma_load_3d(ws, &wmap, &full[stage], tl.n * kBN, kb * kBK, tl.e);
-          tma_load_3d(ws + kWBox, &wmap, &full[stage], tl.n * kBN + 64,
-                      kb * kBK, tl.e);
+          if (kTransA) {  // two [64 k x 64 m] boxes, m innermost
+            tma_load_3d(xs, &xmap, &full[stage], tl.m * kBM, kb * kBK, tl.e);
+            tma_load_3d(xs + kWBox, &xmap, &full[stage], tl.m * kBM + 64,
+                        kb * kBK, tl.e);
+          } else {        // one [128 m x 64 k] box, k innermost
+            tma_load_3d(xs, &xmap, &full[stage], kb * kBK, tl.m * kBM, tl.e);
+          }
+          if (kTransB) {  // one [128 n x 64 k] box, k innermost
+            tma_load_3d(ws, &wmap, &full[stage], kb * kBK, tl.n * kBN, tl.e);
+          } else {        // two [64 k x 64 n] boxes, n innermost
+            tma_load_3d(ws, &wmap, &full[stage], tl.n * kBN, kb * kBK, tl.e);
+            tma_load_3d(ws + kWBox, &wmap, &full[stage], tl.n * kBN + 64,
+                        kb * kBK, tl.e);
+          }
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -469,18 +489,26 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
         int prev = -1;
         for (int kb = 0; kb < k_blocks; ++kb) {
           mbar_wait(&full[stage], phase);
-          const uint32_t xa =
-              smem_u32(smem + stage * kStageBytes) + wg * 64 * 128;
+          // this warpgroup's 64 rows: the second half of the k-innermost
+          // box, or the second of the two m-innermost boxes
+          const uint32_t xa = smem_u32(smem + stage * kStageBytes) +
+                              wg * (kTransA ? kWBox : 64 * 128);
           const uint32_t wa = smem_u32(smem + stage * kStageBytes + kXBytes);
           fence_acc(acc);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kBK / 16; ++kk) {
-            // A: 16 k = 32 bytes along the swizzled row; 8-row groups 1024
-            // bytes apart.  B: 16 k = two 8-row groups of 1024 bytes; the
-            // second 64-column box 8 KB on.
-            wgmma_m64n128k16(acc, sw128_desc(xa + kk * 32, 16, 1024),
-                             sw128_desc(wa + kk * 2048, kWBox, 1024));
+            // K-major (k innermost): 16 k = 32 bytes along the swizzled
+            // row; 8-row groups 1024 bytes apart.  MN-major: 16 k = two
+            // 8-row groups of 1024 bytes; the next 64 columns one 8 KB box
+            // on.
+            const uint64_t da = kTransA ? sw128_desc(xa + kk * 2048, kWBox,
+                                                     1024)
+                                        : sw128_desc(xa + kk * 32, 16, 1024);
+            const uint64_t db = kTransB ? sw128_desc(wa + kk * 32, 16, 1024)
+                                        : sw128_desc(wa + kk * 2048, kWBox,
+                                                     1024);
+            wgmma_m64n128k16<kTransA, !kTransB>(acc, da, db);
           }
           wgmma_commit();
           fence_acc(acc);
@@ -572,31 +600,45 @@ bool encode_3d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-cudaError_t launch(const bf16* x, const bf16* w, bf16* y, const int* counts,
-                   int E, int C, int D, int F, cudaStream_t s) {
-  if (D % 8 != 0 || F % 8 != 0 || D <= 0 ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(y)) % 16 != 0)
-    return cudaErrorInvalidValue;  // the wrapper's rule sends these to wmma
-  CUtensorMap xmap, wmap;
-  if (!encode_3d(&xmap, x, D, C, E, kBK, kBM) ||
-      !encode_3d(&wmap, w, F, D, E, 64, kBK))
-    return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gmm_tma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
+template <int kTransA, int kTransB>
+cudaError_t run(const CUtensorMap& xmap, const CUtensorMap& wmap, bf16* y,
+                const int* counts, int E, int C, int D, int F, int sms,
+                cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_tma_kernel<kTransA, kTransB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)E * ((C + kBM - 1) / kBM) *
                           ((F + kBN - 1) / kBN);
   const int blocks = (int)(tiles < sms ? tiles : sms);
-  gmm_tma_kernel<<<blocks, kThreads, kSmemBytes, s>>>(xmap, wmap, y, counts,
-                                                      E, C, D, F);
+  gmm_tma_kernel<kTransA, kTransB><<<blocks, kThreads, kSmemBytes, s>>>(
+      xmap, wmap, y, counts, E, C, D, F);
   return cudaGetLastError();
+}
+
+// layout bit 0: x holds x^T [E, D, C]; bit 1: w holds w^T [E, F, D].
+cudaError_t launch(const bf16* x, const bf16* w, bf16* y, const int* counts,
+                   int E, int C, int D, int F, int layout, cudaStream_t s) {
+  const bool ta = layout & 1, tb = layout & 2;
+  if (D % 8 != 0 || F % 8 != 0 || D <= 0 || (ta && C % 8 != 0) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(y)) % 16 != 0)
+    return cudaErrorInvalidValue;  // the wrapper's rule sends these to wmma
+  CUtensorMap xmap, wmap;
+  const bool ok_x = ta ? encode_3d(&xmap, x, C, D, E, 64, kBK)
+                       : encode_3d(&xmap, x, D, C, E, kBK, kBM);
+  const bool ok_w = tb ? encode_3d(&wmap, w, D, F, E, kBK, kBN)
+                       : encode_3d(&wmap, w, F, D, E, 64, kBK);
+  if (!ok_x || !ok_w) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (ta && tb) return run<1, 1>(xmap, wmap, y, counts, E, C, D, F, sms, s);
+  if (ta) return run<1, 0>(xmap, wmap, y, counts, E, C, D, F, sms, s);
+  if (tb) return run<0, 1>(xmap, wmap, y, counts, E, C, D, F, sms, s);
+  return run<0, 0>(xmap, wmap, y, counts, E, C, D, F, sms, s);
 }
 
 }  // namespace tma
@@ -605,18 +647,20 @@ cudaError_t launch(const bf16* x, const bf16* w, bf16* y, const int* counts,
 
 // y[e] = x[e] @ w[e], rows >= counts[e] zero.  variant: 0 = simt (f32),
 // 1 = wmma (bf16, any shape), 2 = tma (bf16, D and F multiples of 8,
-// 16-byte aligned x, w and y).  counts may be null.  Returns the launch's
-// cudaError_t; a variant that cannot take the shape returns
-// cudaErrorInvalidValue without launching.
+// 16-byte aligned x, w and y).  layout (tma only, else 0): bit 0, x holds
+// x^T [E, D, C] (C a multiple of 8); bit 1, w holds w^T [E, F, D].  counts
+// may be null.  Returns the launch's cudaError_t; a variant that cannot
+// take the shape returns cudaErrorInvalidValue without launching.
 extern "C" int grouped_matmul(const void* x, const void* w, void* y,
                               const int* counts, int E, int C, int D, int F,
-                              int variant, void* stream) {
+                              int variant, int layout, void* stream) {
   if (E <= 0 || C <= 0 || F <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (layout != 0 && variant != 2) return (int)cudaErrorInvalidValue;
   if (variant == 2) {
     return (int)tma::launch(static_cast<const bf16*>(x),
                             static_cast<const bf16*>(w), static_cast<bf16*>(y),
-                            counts, E, C, D, F, s);
+                            counts, E, C, D, F, layout, s);
   } else if (variant == 1) {
     dim3 grid((F + kBN - 1) / kBN, (C + kBM - 1) / kBM, E);
     const bool x_vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;

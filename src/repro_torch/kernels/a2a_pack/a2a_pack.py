@@ -24,6 +24,12 @@ written over the HBM rate; the TPU kernel's 128-lane pad-and-slice and
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the chosen instance or raises.  ``launches`` on each wrapper counts kernel
 launches, ``launches_by_variant`` the same by instance.
+
+Neither wrapper has a gradient, on either device: under autograd (an input
+that requires grad, grad mode on) the result's backward raises
+``NotImplementedError``, as ``jax.grad`` through the reference's Pallas pack
+raises (``pallas_call`` has no transpose rule).  Without this the kernel's
+output would silently cut the graph.
 """
 
 from __future__ import annotations
@@ -104,6 +110,34 @@ def _block_copy(src: torch.Tensor, dst: torch.Tensor, idx: torch.Tensor,
     return name
 
 
+_NO_GRADIENT = (
+    "{} has no gradient: the reference's Pallas pack has none either "
+    "(pallas_call has no transpose rule, so jax.grad through "
+    "impl='plan' raises).  Train through the 'flash' exchange, or with "
+    "use_kernel=False; ROADMAP.md Queue 3 (a gradient through the plan "
+    "exchange) holds the missing piece.")
+
+
+class _NoGradient(torch.autograd.Function):
+    """Runs ``fn(x)`` and raises in the backward instead of returning a
+    detached result."""
+
+    @staticmethod
+    def forward(ctx, x, fn, name):
+        ctx.name = name
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(_NO_GRADIENT.format(ctx.name))
+
+
+def _guarded(x: torch.Tensor, fn, name: str) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NoGradient.apply(x, fn, name)
+    return fn(x)
+
+
 def a2a_pack(x: torch.Tensor, idx: torch.Tensor, *,
              block_rows: int = 1) -> torch.Tensor:
     """Gather ``block_rows``-row blocks of ``x [N, D]`` in ``idx`` order.
@@ -111,6 +145,11 @@ def a2a_pack(x: torch.Tensor, idx: torch.Tensor, *,
     Output block ``m`` is input block ``idx[m]``; returns
     ``[M * block_rows, D]``.
     """
+    return _guarded(x, lambda t: _pack(t, idx, block_rows), "a2a_pack")
+
+
+def _pack(x: torch.Tensor, idx: torch.Tensor, block_rows: int
+          ) -> torch.Tensor:
     _check(x, idx)
     n, d = x.shape
     r = block_rows
@@ -135,6 +174,12 @@ def a2a_unpack(x: torch.Tensor, idx: torch.Tensor, *, n_out_blocks: int = 0,
     ``idx`` does not name are unspecified (zero on the CPU path); duplicate
     indices are allowed only for a block the caller discards.
     """
+    return _guarded(x, lambda t: _unpack(t, idx, n_out_blocks, block_rows),
+                    "a2a_unpack")
+
+
+def _unpack(x: torch.Tensor, idx: torch.Tensor, n_out_blocks: int,
+            block_rows: int) -> torch.Tensor:
     _check(x, idx)
     n, d = x.shape
     m = idx.shape[0]

@@ -1,1 +1,2 @@
-"""Entry points: the local mesh (``mesh``) and serving (``serve``)."""
+"""Entry points: the local mesh (``mesh``), serving (``serve``) and
+training (``train``)."""

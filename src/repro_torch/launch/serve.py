@@ -26,38 +26,12 @@ import numpy as np
 import torch
 
 from ..configs import ModelConfig, get_config, smoke_config
-from ..models import DistContext, build_model, choose_ep_axes
-from .mesh import LocalMesh, dp_axes, make_mesh, resolve_device, slow_axis
+from ..models import build_model
+from .mesh import LocalMesh, make_mesh, resolve_device
+from .train import make_dist_context
 
 __all__ = ["make_dist_context", "make_serve_step", "make_prefill_step",
            "flash_plan"]
-
-
-def make_dist_context(cfg: ModelConfig, mesh: LocalMesh,
-                      a2a_impl: Optional[str] = None, plan=None,
-                      use_kernel: bool = True) -> DistContext:
-    """Build the DistContext; ``a2a_impl`` overrides the config's choice.
-
-    The name is validated against the comm-layer registry, so a typo fails
-    here and not inside the model.
-    """
-    from ..comm.all_to_all import all_to_all_by_name
-
-    impl = a2a_impl or cfg.a2a_impl
-    if impl != "auto":
-        all_to_all_by_name(impl)  # raises on unknown impls
-    if impl == "plan" and plan is None:
-        raise ValueError('a2a_impl="plan" needs a synthesized plan; pass '
-                         "plan=")
-    return DistContext(
-        mesh=mesh,
-        dp_axes=dp_axes(mesh),
-        slow_axis=slow_axis(mesh),
-        ep_axes=choose_ep_axes(cfg, mesh),
-        a2a_impl=impl,
-        plan=plan,
-        use_kernel=use_kernel,
-    )
 
 
 def _device(mesh: Optional[LocalMesh], device) -> torch.device:

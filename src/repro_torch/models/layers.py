@@ -5,8 +5,9 @@ Counterpart of ``src/repro/models/layers.py``.  Parameters live in
 ``nn.Module``s whose attribute names are the JAX dict keys (``scale``,
 ``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down``), so the
 functions below read ``p.wq`` where the reference reads ``p["wq"]``.
-The prefill attention runs on the ``flash_attention`` kernel
-(``use_kernel=True``), held against the reference's ``mha_einsum`` /
+The prefill and training attention runs on the ``flash_attention`` kernel
+(``use_kernel=True``; under autograd its backward runs on
+``flash_attention_bwd``), held against the reference's ``mha_einsum`` /
 ``mha_chunked`` math, which ``use_kernel=False`` runs; the reference computes
 it outside any Pallas kernel and calls its chunked form "mathematically
 identical to the Pallas flash_attention kernel".  Decode attention is plain
@@ -24,7 +25,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.registry import ModelConfig
-from ..kernels.flash_attention import flash_attention
+# the kernel's differentiable form: without a gradient to take it is the
+# plain wrapper call
+from ..kernels.flash_attention import flash_attention_autograd as \
+    flash_attention
 
 NEG_INF = -1e30
 
@@ -56,7 +60,8 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A frozen parameter: the serving path takes no gradients."""
+    """A frozen parameter: the serving path takes no gradients (training
+    turns them on for the whole module, ``models.model.build_model``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

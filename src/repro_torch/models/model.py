@@ -1,12 +1,13 @@
-"""Unified model API: ``build_model(cfg, device)`` -> init / prefill /
-init_cache / decode_step.
+"""Unified model API: ``build_model(cfg, device, train)`` -> init / loss /
+prefill / init_cache / decode_step.
 
-Counterpart of ``src/repro/models/model.py`` for the serving slice: the
-training loss and the encoder-decoder family are not ported yet.  The model
-runs on ``device``, the card unless the caller asks for the CPU; asking for a
-CUDA device without one raises.  ``prefill`` and ``decode_step`` take
-``use_kernel`` (default True); False runs the plain versions of the kernels,
-with or without a ``dist``.
+Counterpart of ``src/repro/models/model.py``; the encoder-decoder family is
+not ported yet.  The model runs on ``device``, the card unless the caller
+asks for the CPU; asking for a CUDA device without one raises.  ``loss``,
+``prefill`` and ``decode_step`` take ``use_kernel`` (default True); False
+runs the plain versions of the kernels, with or without a ``dist``.
+``train=True`` makes ``init`` return trainable parameters with f32 masters
+of the expert stacks (``transformer.LM``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ __all__ = ["Model", "build_model"]
 class Model:
     cfg: ModelConfig
     init: Callable[[torch.Generator], Any]  # gen -> LM module
+    # (params, batch, dist, use_kernel) -> (loss, metrics)
+    loss: Callable[..., Any]
     # (params, batch, dist, cache_len, use_kernel)
     prefill: Callable[..., Any]
     init_cache: Callable[..., Any]    # (batch, seq_len) -> cache
@@ -34,7 +37,8 @@ class Model:
     decode_step: Callable[..., Any]
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> Model:
+def build_model(cfg: ModelConfig, device="cuda", train: bool = False
+                ) -> Model:
     if cfg.encdec:
         raise NotImplementedError(
             "the encoder-decoder family is not ported to PyTorch yet: "
@@ -43,7 +47,9 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     dev = resolve_device(device)
     return Model(
         cfg=cfg,
-        init=lambda gen: transformer.init_lm(gen, cfg, dev),
+        init=lambda gen: transformer.init_lm(gen, cfg, dev, train),
+        loss=lambda params, batch, dist=None, use_kernel=True:
+            transformer.lm_loss(cfg, params, batch, dist, use_kernel),
         prefill=lambda params, batch, dist=None, cache_len=None,
         use_kernel=True: transformer.lm_prefill(
             cfg, params, batch["tokens"], batch, dist, cache_len=cache_len,

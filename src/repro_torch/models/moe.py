@@ -23,6 +23,15 @@ Over the slow axis the exchange may be int8 with a per-row f32 scale
 ``dist=None`` runs the same math with one rank and no exchange; it is the
 correctness oracle for the island.  ``use_kernel=False`` runs the plain
 versions of the kernels on every path.
+
+Every path is differentiable, as the reference's: the gates and the aux
+loss carry gradients into the router, ``_dispatch``'s ``index_copy_`` and
+``_combine``'s ``gather`` differentiate as the reference's ``.at[].set`` and
+``y_buf[slot]`` (a dropped choice gets no gradient), the exchanges are
+index copies, and the expert FFN's products differentiate through the
+``grouped_matmul`` kernel.  The plan exchange's pack and unpack have no
+gradient (neither has the reference's Pallas pack) and raise in the
+backward.
 """
 
 from __future__ import annotations
@@ -36,7 +45,11 @@ from torch import nn
 
 from ..comm.all_to_all import resolve_all_to_all
 from ..configs.registry import ModelConfig
-from ..kernels.grouped_matmul import grouped_matmul, grouped_matmul_ref
+from ..kernels.grouped_matmul import grouped_matmul_ref
+# the kernel's differentiable form: without a gradient to take it is the
+# plain wrapper call
+from ..kernels.grouped_matmul import grouped_matmul_autograd as \
+    grouped_matmul
 from ..launch.mesh import LocalMesh, pmean
 from .dist import DistContext
 from .layers import dense_init, param
@@ -48,16 +61,19 @@ class MoE(nn.Module):
     """``router [d, E]`` in f32; expert stacks ``w_gate``/``w_up [E, d, f]``
     and ``w_down [E, f, d]``.
 
-    The expert stacks are kept in the compute dtype: they hold exactly what
-    the reference's ``w.astype(dt)`` gives at each use (``moe.py:119-121``),
-    cast once instead of per call, which halves their memory in bf16.
+    Serving keeps the expert stacks in the compute dtype: they hold exactly
+    what the reference's ``w.astype(dt)`` gives at each use
+    (``moe.py:119-121``), cast once instead of per call, which halves their
+    memory in bf16.  Training (``masters=True``) keeps them in ``dtype``
+    (the config's ``param_dtype``), the masters AdamW updates, and
+    ``_expert_ffn`` casts them at each use, as the reference does.
     """
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype,
-                 device):
+                 device, masters: bool = False):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
-        wdt = getattr(torch, cfg.compute_dtype)
+        wdt = dtype if masters else getattr(torch, cfg.compute_dtype)
 
         def stack(din, dout):
             w = torch.randn((e, din, dout), generator=gen,

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly for the "dense" and "moe" block kinds: init,
-prefill with a decode cache, and the one-token decode step.
+the training forward and loss, prefill with a decode cache, and the
+one-token decode step.
 
 Counterpart of ``src/repro/models/transformer.py``.  Parameters live in an
 ``LM`` module whose attribute paths are the reference's pytree paths
@@ -12,18 +13,29 @@ is a list of per-layer ``{"k", "v"}`` dicts, updated in place.
 path (prefill attention, the expert FFN and the exchange's pack and unpack),
 with or without a mesh.
 
-The recurrent and hybrid block kinds (``"m"``, ``"s"``, ``"hybrid"``), the
-encoder-decoder stack and the training forward (``lm_forward``,
-``lm_loss``) are not ported yet.
+``lm_forward`` / ``lm_loss`` are the reference's training forward and loss:
+with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+(non-reentrant), and with ``cfg.remat_group`` each group of that many
+layers is checkpointed around its checkpointed layers (the reference's
+two-level remat).  The backward then runs every layer's forward again,
+routing included, on the same deterministic kernels.  The embedding is
+gathered, then cast, as in prefill: the same forward values as the
+reference's cast-then-gather, but the gradient of a repeated token sums in
+f32 where the reference's sums in the compute dtype.
+
+The recurrent and hybrid block kinds (``"m"``, ``"s"``, ``"hybrid"``) and
+the encoder-decoder stack are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.registry import ModelConfig
 from .dist import DistContext
@@ -42,8 +54,8 @@ from .layers import (
 from .moe import MoE, moe_apply
 
 __all__ = [
-    "LM", "layer_kinds", "init_lm", "init_decode_cache", "lm_decode_step",
-    "lm_prefill",
+    "LM", "layer_kinds", "init_lm", "lm_forward", "lm_loss",
+    "init_decode_cache", "lm_decode_step", "lm_prefill",
 ]
 
 
@@ -59,7 +71,7 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
-                 device):
+                 device, masters: bool = False):
         super().__init__()
         d = cfg.d_model
         pdt = getattr(torch, cfg.param_dtype)
@@ -67,13 +79,19 @@ class Block(nn.Module):
         self.attn = Attention(cfg, gen, pdt, device)
         self.norm2 = Norm(cfg, d, device)
         if kind == "moe":
-            self.moe = MoE(cfg, gen, pdt, device)
+            self.moe = MoE(cfg, gen, pdt, device, masters)
         else:
             self.mlp = MLP(cfg, gen, pdt, device)
 
 
 class LM(nn.Module):
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+    """The parameters.  ``train=True`` keeps every parameter in
+    ``cfg.param_dtype`` (the expert stacks too: the masters AdamW updates)
+    and lets autograd take their gradients; serving keeps the expert stacks
+    in the compute dtype, frozen."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 train: bool = False):
         super().__init__()
         pdt = getattr(torch, cfg.param_dtype)
         self.embed = param(embed_init(gen, cfg.vocab, cfg.d_model, pdt,
@@ -83,11 +101,13 @@ class LM(nn.Module):
             self.lm_head = param(embed_init(gen, cfg.vocab, cfg.d_model, pdt,
                                             device).T.contiguous())  # [d, V]
         self.blocks = nn.ModuleList(
-            Block(cfg, kind, gen, device) for kind in layer_kinds(cfg))
+            Block(cfg, kind, gen, device, train) for kind in layer_kinds(cfg))
+        self.requires_grad_(train)
 
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> LM:
-    return LM(cfg, gen, device)
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda",
+            train: bool = False) -> LM:
+    return LM(cfg, gen, device, train)
 
 
 def _window_args(cfg: ModelConfig, full_flag: bool
@@ -125,6 +145,88 @@ def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x = x + mlp_apply(cfg, p.mlp, h2)
     return x, aux, {"k": k_c, "v": v_c}
+
+
+def _block_train(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
+                 positions, dist, kind: str, full_flag: bool,
+                 use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the training forward: (x, aux)."""
+    window, use_window = _window_args(cfg, full_flag)
+    h = norm_apply(cfg, p.norm1, x)
+    x = x + attention_apply(cfg, p.attn, h, positions=positions,
+                            window=window, use_window=use_window,
+                            use_kernel=use_kernel)
+    h2 = norm_apply(cfg, p.norm2, x)
+    if kind == "moe":
+        y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
+        return x + y, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp_apply(cfg, p.mlp, h2), aux
+
+
+def _layers(fns, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``fns`` (each ``x -> (x, aux)``) in order, summing aux."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for fn in fns:
+        x, a = fn(x)
+        aux = aux + a
+    return x, aux
+
+
+def _remat(fn):
+    return partial(checkpoint, fn, use_reentrant=False)
+
+
+def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+               extras: Any = None, dist: Optional[DistContext] = None,
+               use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, V], aux summed over the layers)."""
+    b, s = tokens.shape
+    x = _embed_tokens(cfg, params, tokens, extras)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    kinds = layer_kinds(cfg)
+    fns = [partial(_block_train, cfg, p_l, positions=positions, dist=dist,
+                   kind=kinds[i], full_flag=i in cfg.full_attn_layers,
+                   use_kernel=use_kernel)
+           for i, p_l in enumerate(params.blocks)]
+    g = cfg.remat_group
+    if cfg.remat and g and cfg.n_layers % g == 0:
+        # two-level remat: only the group boundaries are kept; each group's
+        # layers run three times in all
+        fns = [_remat(partial(_layers, [_remat(f) for f in fns[i:i + g]]))
+               for i in range(0, len(fns), g)]
+    elif cfg.remat:
+        fns = [_remat(f) for f in fns]
+    x, aux = _layers(fns, x)
+    return _lm_logits(cfg, params, x), aux
+
+
+def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
+            dist: Optional[DistContext] = None, use_kernel: bool = True):
+    """batch: {"tokens": [B, S], "labels": [B, S], extras...} ->
+    (loss, metrics): next-token cross entropy plus 0.01 * aux, with the
+    reference's metrics (``loss``, ``nll``, ``aux``, ``ppl_proxy``).
+    ``cfg.bf16_ce`` keeps the max and the exponentials in the logits'
+    dtype and sums over the vocabulary in f32."""
+    logits, aux = lm_forward(cfg, params, batch["tokens"], batch, dist,
+                             use_kernel)
+    labels = batch["labels"].long()[..., None]
+    if cfg.bf16_ce:
+        m = logits.amax(-1, keepdim=True)
+        denom = torch.exp(logits - m).sum(-1, dtype=torch.float32)
+        lse = m[..., 0].float() + torch.log(denom)
+        label_logit = torch.gather(logits, -1, labels)[..., 0].float()
+    else:
+        logits32 = logits.float()
+        m = logits32.amax(-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(logits32 - m).sum(-1))
+        label_logit = torch.gather(logits32, -1, labels)[..., 0]
+    nll = (lse - label_logit).mean()
+    loss = nll + 0.01 * aux
+    metrics = {"loss": loss, "nll": nll, "aux": aux,
+               "ppl_proxy": torch.exp(torch.clamp(nll, max=20.0))}
+    return loss, metrics
 
 
 def _embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,

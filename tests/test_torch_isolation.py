@@ -20,7 +20,7 @@ REF = os.path.join(SRC, "repro")
 
 def _copied_files():
     out = []
-    for sub in ("configs", "core"):
+    for sub in ("configs", "core", "data"):
         out += [os.path.join(sub, n)
                 for n in sorted(os.listdir(os.path.join(REF, sub)))
                 if n.endswith(".py")]
@@ -55,9 +55,10 @@ def test_copied_host_file_is_identical(rel):
 
 
 def test_no_copy_beyond_the_listed_ones():
-    """configs/ and core/ hold exactly the reference's files; analysis/
-    holds locks.py only (guards.py imports the reference by name)."""
-    for sub in ("configs", "core"):
+    """configs/, core/ and data/ hold exactly the reference's files;
+    analysis/ holds locks.py only (guards.py imports the reference by
+    name)."""
+    for sub in ("configs", "core", "data"):
         ours = {n for n in os.listdir(os.path.join(PORT, sub))
                 if n.endswith(".py")}
         theirs = {n for n in os.listdir(os.path.join(REF, sub))
