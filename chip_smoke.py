@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases (each raises on failure; none is caught):
 
 1. build: compile every CUDA source of ``src/repro_torch/csrc`` with nvcc, all
-   at once;
+   at once; log every kernel's registers, shared memory and spills (``ptxas
+   -v``) and fail on a spill in the attention backward's wgmma instance;
 2. kernels: run ``a2a_pack``, ``a2a_unpack``, ``grouped_matmul`` and
    ``flash_attention`` at the serving paths' prefill and decode shapes and at
    ragged ones, hold each against its plain PyTorch version (pack and unpack
@@ -49,9 +50,12 @@ Phases (each raises on failure; none is caught):
 5. backward kernels: ``flash_attention``'s ``lse`` against the plain
    forward's, ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
    (within 1e-5 in f32 and 2e-2 in bf16 of the largest reference gradient
-   of the case) on ragged shapes, at the training shape (q [32, 32, 512,
-   64], 8 kv heads, causal) and at mixtral's windowed shape (q [1, 32, 8192,
-   128], window 4096), timed beside its plain version and SDPA's backward;
+   of the case) on 480 ragged shapes, bf16 through both instances (the
+   rule's, wgmma, and simt forced), the rule's run twice and bit-identical
+   (no atomics), at the training shape (q [32, 32, 512, 64], 8 kv heads,
+   causal) and at mixtral's windowed shape (q [1, 32, 8192, 128], window
+   4096), timed beside the simt instance, its plain version and SDPA's
+   backward;
    grouped_matmul's backward products (dX and dW of the gate/up and down
    products, an operand read transposed in place) against the plain
    version and timed beside ``bmm`` at the training shapes, and beside the
@@ -60,8 +64,9 @@ Phases (each raises on failure; none is caught):
    masters, bf16 compute, remat) on the same mesh, EP over (pod, data)
    through the island and the config's ``flash`` exchange: 32 x 512 tokens
    a step, 4 AdamW steps with the kernels, each step's launches gated (per
-   layer: 2 attention forwards under remat, 1 backward, 6 grouped_matmul
-   forwards and 6 backward products, all on TMA; no pack or unpack), then
+   layer: 2 attention forwards under remat, 1 backward on its wgmma
+   instance, 6 grouped_matmul forwards and 6 backward products, all on
+   TMA; no pack or unpack), then
    the same 4 steps with ``use_kernel=False`` (step losses within 2e-2);
    the first attention and MoE layer's bf16 gradients on identical inputs
    within 2e-2 of plain, routing equal; one layer's forward run twice,
@@ -72,8 +77,9 @@ Phases (each raises on failure; none is caught):
    backward sums with atomics); and a ``torch.profiler`` window over one
    step.
 
-Every bf16 serving run must launch grouped_matmul on its TMA + wgmma
-instance alone (``grouped_matmul.launches_by_variant``), and pack and unpack
+Every bf16 serving and training run must launch grouped_matmul on its TMA +
+wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
+attention backward on wgmma alone, and serving pack and unpack
 on the instance ``a2a_pack.variant`` picks for the exchange's size: bulk for
 mixtral's prefill exchanges, vec for the rest, never bytes.  The profiler
 window also gives the median device time of a pack and an unpack launch in
@@ -284,6 +290,27 @@ def ptxas_lines(_build):
                              f"{line.split(':', 1)[1].strip()}; {spill}")
                 name = None
     return lines
+
+
+# kernels that must build without a spill (ptxas -v)
+NO_SPILL = ("bwd_prep_kernel", "bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel")
+
+
+def check_no_spill(lines):
+    """Every instance of the NO_SPILL kernels in the ptxas lines reports no
+    spill store or load; returns those lines."""
+    import re
+
+    mine = [line for line in lines
+            if re.search(r"\b(" + "|".join(NO_SPILL) + r")<", line)]
+    found = {k for k in NO_SPILL if any(f" {k}<" in line for line in mine)}
+    bad = [line for line in mine
+           if not ("0 bytes spill stores" in line
+                   and "0 bytes spill loads" in line)]
+    if found != set(NO_SPILL) or bad:
+        raise AssertionError(f"ptxas: kernels {sorted(set(NO_SPILL) - found)} "
+                             f"not reported, or spills: {bad}")
+    return mine
 
 
 def a2a_instance(moved_bytes):
@@ -911,7 +938,7 @@ def read_launches(kernels):
 
 def read_variants(kernels):
     """Launches by instance since the last reset, of each kernel that
-    counts them (pack, unpack, grouped_matmul)."""
+    counts them (pack, unpack, grouped_matmul, flash_attention_bwd)."""
     return {name: dict(fn.launches_by_variant)
             for name, fn in kernels.items()
             if hasattr(fn, "launches_by_variant")}
@@ -1453,18 +1480,30 @@ def attn_bwd_bound(b, h, kv, s, d, causal, window, dtype_name, elem):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def forced_bwd(q, k, v, o, lse, do, causal, window, name):
+    """flash_attention_bwd through instance ``name`` itself, bypassing the
+    wrapper's rule and counts."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _bwd_call, _bwd_inputs)
+
+    o, do, lse = _bwd_inputs(q, k, v, o, lse, do, window)
+    return _bwd_call(q, k, v, o, lse, do, causal, window, name)
+
+
 def phase_backward_kernels(torch):
     """The backward's kernels: flash_attention's lse and flash_attention_bwd
-    against their plain versions on ragged shapes, at the training shape and
-    at mixtral's windowed shape, timed beside SDPA's backward; then
-    grouped_matmul's backward products at the training shapes, timed beside
-    bmm.  Returns the flash_attention_bwd row and grouped_matmul's backward
-    shape entries."""
+    against their plain versions on ragged shapes (bf16 through both
+    instances, the rule's and simt forced; the rule's run twice,
+    bit-identical), at the training shape and at mixtral's windowed shape,
+    timed beside the simt instance, the plain version and SDPA's backward;
+    then grouped_matmul's backward products at the training shapes, timed
+    beside bmm.  Returns the flash_attention_bwd row and grouped_matmul's
+    backward shape entries."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
         attention_lse_ref, flash_attention, flash_attention_bwd,
-        flash_attention_bwd_ref)
+        flash_attention_bwd_ref, rows_aligned, variant)
     from repro_torch.kernels.grouped_matmul import (
         grouped_matmul, grouped_matmul_ref)
     from repro_torch.models.moe import _capacity
@@ -1472,6 +1511,7 @@ def phase_backward_kernels(torch):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
     def inputs(b, h, kv, s, d, dt, views):
         if views:   # [B, S, H, D] memory seen as [B, H, S, D]
@@ -1482,32 +1522,59 @@ def phase_backward_kernels(torch):
                 for n in (h, kv, kv, h)]
 
     def check(b, h, kv, s, d, causal, window, dt, views):
-        """(lse max abs err, backward err): the backward's max abs
-        difference over the largest reference gradient of the case (a
-        gradient that cancels to ~0, dq and dk at S = 1, has no scale of
-        its own)."""
+        """{instance: backward err} and the lse max abs err: the backward's
+        max abs difference over the largest reference gradient of the case
+        (a gradient that cancels to ~0, dq and dk at S = 1, has no scale of
+        its own), through the wrapper (the rule's instance, run twice and
+        bit-identical) and, in bf16, through simt forced."""
         q, k, v, do = inputs(b, h, kv, s, d, dt, views)
         o, lse = flash_attention(q, k, v, causal=causal, window=window,
                                  return_lse=True)
         _, lse_ref = attention_lse_ref(q, k, v, causal=causal, window=window)
         e_lse = max_abs(torch, lse, lse_ref)
         del lse_ref
-        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                  window=window)
+        rule = variant(dt, d, rows_aligned(q, k, v, o, do))
+        before = flash_attention_bwd.launches_by_variant[rule]
+        got = {rule: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window)}
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+        took = flash_attention_bwd.launches_by_variant[rule] - before
+        same = all(torch.equal(a, g) for a, g in zip(again, got[rule]))
+        del again
+        if dt == torch.bfloat16 and rule != "simt":
+            got["simt"] = forced_bwd(q, k, v, o, lse, do, causal, window,
+                                     "simt")
         ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                       window=window)
         scale = max(r.float().abs().max().item() for r in ref)
-        err = max(max_abs(torch, g, r) for g, r in zip(got, ref)) \
-            / (scale + 1e-30)
-        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-        if not (err <= tols[dt] and e_lse <= 1e-4 and finite):
+        errs = {name: max(max_abs(torch, g, r) for g, r in zip(out, ref))
+                / (scale + 1e-30) for name, out in got.items()}
+        finite = all(bool(torch.isfinite(g.float()).all())
+                     for out in got.values() for g in out)
+        if not (max(errs.values()) <= tols[dt] and e_lse <= 1e-4 and finite
+                and same and took == 2):
             raise AssertionError(
                 f"flash_attention_bwd {dt} b{b} h{h} k{kv} s{s} d{d} causal="
-                f"{causal} window={window} views={views}: err {err} > "
-                f"{tols[dt]}, lse err {e_lse}, finite {finite}")
-        return e_lse, err
+                f"{causal} window={window} views={views}: err {errs} > "
+                f"{tols[dt]}, lse err {e_lse}, finite {finite}, run twice "
+                f"bit-identical {same}, launches on {rule!r} {took} of 2")
+        return errs, e_lse
 
-    worst = {dt: [0.0, 0.0] for dt in tols}
+    # the rule: bf16 rows TMA can address take wgmma, anything else simt
+    x = torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16, device=dev)
+    rules = {"bf16 [B, S, H, D] view": variant(
+                 x.dtype, 64, rows_aligned(x.transpose(1, 2))),
+             "f32": variant(torch.float32, 64),
+             "head dim 12": variant(x.dtype, 12),
+             "base off 16 bytes": variant(
+                 x.dtype, 8, rows_aligned(x[..., 1:9].transpose(1, 2)))}
+    if list(rules.values()) != ["wgmma", "simt", "simt", "simt"]:
+        raise AssertionError(f"flash_attention_bwd's instance rule: {rules}")
+    del x
+
+    worst = {"f32 simt": 0.0, "bf16 wgmma": 0.0, "bf16 simt": 0.0}
+    e_lse = {dt: 0.0 for dt in tols}
     n = 0
     for dt in tols:
         for s in (1, 37, 130, 300):
@@ -1515,18 +1582,22 @@ def phase_backward_kernels(torch):
                 for group in (1, 4):
                     for causal in (True, False):
                         for window in (None, 5, 100):
-                            errs = check(1, 2 * group, 2, s, d, causal,
-                                         window, dt, views=n % 2 == 0)
-                            worst[dt] = [max(a, e) for a, e in
-                                         zip(worst[dt], errs)]
+                            errs, el = check(1, 2 * group, 2, s, d, causal,
+                                             window, dt, views=n % 2 == 0)
+                            for name, err in errs.items():
+                                key = f"{short[dt]} {name}"
+                                worst[key] = max(worst[key], err)
+                            e_lse[dt] = max(e_lse[dt], el)
                             n += 1
     torch.cuda.synchronize()
     log(f"kernels: flash_attention_bwd within 1e-5 (f32) / 2e-2 (bf16) of "
         f"its plain version on {n} ragged cases (S 1 to 300, head dims 8 to "
         f"128, groups 1 and 4, causal and not, windows none, 5, 100, "
-        f"contiguous and views): worst {worst[torch.float32][1]:.3e} / "
-        f"{worst[torch.bfloat16][1]:.3e}; forward lse max abs err "
-        f"{worst[torch.float32][0]:.3e} / {worst[torch.bfloat16][0]:.3e}")
+        f"contiguous and views), bf16 through wgmma (the rule's, run twice "
+        f"bit-identical) and simt forced: worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; forward lse max abs err {e_lse[torch.float32]:.3e} / "
+        f"{e_lse[torch.bfloat16]:.3e}")
 
     meg, mix = train_config(), mixtral_config()
     shapes = [("megatron-moe-32e train", TRAIN_BATCH, meg.n_heads,
@@ -1536,15 +1607,23 @@ def phase_backward_kernels(torch):
     entries = []
     for path, b, h, kv, s, d, w in shapes:
         for dt in (torch.float32, torch.bfloat16):
-            errs = check(b, h, kv, s, d, True, w, dt, views=True)
-            worst[dt] = [max(a, e) for a, e in zip(worst[dt], errs)]
+            errs, el = check(b, h, kv, s, d, True, w, dt, views=True)
+            for name, err in errs.items():
+                key = f"{short[dt]} {name}"
+                worst[key] = max(worst[key], err)
+            e_lse[dt] = max(e_lse[dt], el)
             log(f"kernels: flash_attention_bwd at the {path} shape [{b}, "
-                f"{h}, {s}, {d}] kv {kv} window {w} {dt}: err {errs[1]:.3e}, "
-                f"lse max abs err {errs[0]:.3e}")
+                f"{h}, {s}, {d}] kv {kv} window {w} {dt}: err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (the rule's run twice, bit-identical); lse max abs err "
+                f"{el:.3e}")
             free(torch)
         q, k, v, do = inputs(b, h, kv, s, d, torch.bfloat16, True)
         o, lse = flash_attention(q, k, v, causal=True, window=w,
                                  return_lse=True)
+        if variant(q.dtype, d, rows_aligned(q, k, v, o, do)) != "wgmma":
+            raise AssertionError(f"flash_attention_bwd at the {path} shape "
+                                 f"would not take wgmma")
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         if w is not None and w < s:
             qi = torch.arange(s, device=dev)
@@ -1567,6 +1646,9 @@ def phase_backward_kernels(torch):
                                    f"causal, window {w}, bf16",
             "ms": cuda_ms(torch, lambda: flash_attention_bwd(
                 q, k, v, o, lse, do, causal=True, window=w), runs=runs),
+            "instance": "wgmma",
+            "simt_ms": cuda_ms(torch, lambda: forced_bwd(
+                q, k, v, o, lse, do, True, w, "simt"), runs=5, warmup=1),
             "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_ref(
                 q, k, v, o, lse, do, causal=True, window=w), runs=3,
                 warmup=1),
@@ -1586,12 +1668,14 @@ def phase_backward_kernels(torch):
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:"
                     "122 (forward only: the reference differentiates its "
                     "einsum attention)",
-        "shape": main["shape"],
-        "max_abs_err": max(v[1] for v in worst.values()),
-        "max_err_f32": worst[torch.float32][1],
-        "max_err_bf16": worst[torch.bfloat16][1],
-        "lse_max_abs_err": max(v[0] for v in worst.values()),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "shape": main["shape"], "instance": "wgmma",
+        "max_abs_err": max(worst.values()),
+        "max_err_f32": worst["f32 simt"],
+        "max_err_bf16": worst["bf16 wgmma"],
+        "max_err_bf16_simt": worst["bf16 simt"],
+        "lse_max_abs_err": max(e_lse.values()),
+        "ms": main["ms"], "simt_ms": main["simt_ms"],
+        "plain_ms": main["plain_ms"],
         "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "shapes": entries}
 
@@ -1723,7 +1807,8 @@ def train_run(torch, cfg, mesh, batches, kernels, use_kernel=True,
 
 def profile_train_step(torch, step, state, batch):
     """One more training step under torch.profiler: device time by kernel
-    name (top 10) and the device's idle share over the window."""
+    name (top 10), the device's idle share over the window, and the
+    attention backward's kernels' device time and share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1733,21 +1818,34 @@ def profile_train_step(torch, step, state, batch):
         step(state, batch)
         torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    return device_time(prof, "profile[train step]", host_ms)[1]
+    label = "profile[train step]"
+    dev, summary = device_time(prof, label, host_ms)
+    if summary is not None:
+        bwd = [e.time_range.elapsed_us() for e in dev if "bwd_" in e.name]
+        total = sum(e.time_range.elapsed_us() for e in dev)
+        summary["attention_bwd_ms"] = sum(bwd) / 1e3
+        summary["attention_bwd_share"] = sum(bwd) / total
+        log(f"{label}: flash_attention_bwd's kernels {sum(bwd) / 1e3:.3f} ms "
+            f"({100 * sum(bwd) / total:.2f}% of the device time), "
+            f"{len(bwd)} kernel launches")
+    return summary
 
 
 def check_train_launches(run, n_layers, label):
     """Every step's launches as ``train_launches_per_step`` says, every
-    grouped_matmul launch on TMA + wgmma."""
+    grouped_matmul launch on TMA + wgmma and every attention backward on
+    its wgmma instance."""
     want = train_launches_per_step(n_layers)
     for i, (got, by) in enumerate(zip(run["launches"], run["variants"])):
         bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
         if bad:
             raise AssertionError(f"{label} step {i}: launches (got, "
                                  f"expected) {bad}")
-        if by["grouped_matmul"]["tma"] != want["grouped_matmul"]:
-            raise AssertionError(f"{label} step {i}: grouped_matmul by "
-                                 f"instance {by['grouped_matmul']}")
+        for name, inst in (("grouped_matmul", "tma"),
+                           ("flash_attention_bwd", "wgmma")):
+            if by[name][inst] != want[name]:
+                raise AssertionError(f"{label} step {i}: {name} by "
+                                     f"instance {by[name]}")
 
 
 def layer_grads(torch, cfg, blk, fn, x, dy):
@@ -1970,8 +2068,12 @@ def phase_training(torch, kernels):
         f"differences {[f'{d:.3e}' for d in diffs]}")
     if not max(diffs) < 2e-2:
         raise AssertionError(f"train: step losses kernels vs plain {diffs}")
+    by_instance = {name: {inst: sum(v[name][inst] for v in run["variants"])
+                          for inst in run["variants"][0][name]}
+                   for name in run["variants"][0]}
     summary = {"step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
                "peak_gb": run["peak_gb"], "loss_diffs": diffs,
+               "launches_by_variant": by_instance,
                "profile": run.get("profile")}
     summary["layers"] = train_layer_gates(torch, mesh, kernels)
     summary["f32_grad_err"] = train_f32_gate(torch, mesh, kernels)
@@ -1980,8 +2082,8 @@ def phase_training(torch, kernels):
 
 
 # Ratios of the redesigned kernels to their library calls that the bf16
-# serving shapes should stay under (reported, not gated: a card below its
-# power limit moves them).  Pack and unpack: device time at most the
+# serving and training shapes should stay under (reported, not gated: a
+# card below its power limit moves them).  Pack and unpack: device time at most the
 # library call's at every serving shape, at most 1.15x the bound at
 # mixtral's prefill, and one call per event pair at most 1.2x the library
 # call's at decode.
@@ -1989,6 +2091,8 @@ RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
                 "flash_attention mixtral-8x7b long prefill": 1.5,
                 "flash_attention megatron-moe-32e prefill": 2.7,
+                "flash_attention_bwd megatron-moe-32e train": 1.0,
+                "flash_attention_bwd mixtral-8x7b long": 1.0,
                 "a2a prefill": 1.0, "a2a decode": 1.0}
 BOUND_LIMITS = {"a2a mixtral-8x7b prefill": 1.15}
 CALL_LIMITS = {"a2a decode": 1.2}
@@ -2060,8 +2164,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
-    for line in ptxas_lines(_build):
+    lines = ptxas_lines(_build)
+    for line in lines:
         log(line)
+    log(f"build: no spill in the {len(check_no_spill(lines))} instances of "
+        f"{', '.join(NO_SPILL)}")
 
     # 2. kernels against their plain versions; a small reference
     t0 = time.perf_counter()
@@ -2122,6 +2229,9 @@ def main() -> int:
             row = dict(row, launches=train_launches[name],
                        main_path=f"megatron-moe-32e train ({TRAIN_STEPS} "
                                  f"steps)")
+            if name in summary["launches_by_variant"]:
+                row["launches_by_variant"] = \
+                    summary["launches_by_variant"][name]
         else:
             if name in serving["prefill_variants"]:
                 row["launches_by_variant"] = {

@@ -27,12 +27,25 @@ serving asks for none and its kernel skips the store.
 The backward is its own hand-written kernel, ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd``): the reference has no backward kernel (it takes
 the gradient of its einsum attention), so nothing on the TPU side is
-replaced there.  ``flash_attention_autograd`` ties the two together for
+replaced there.  It is deterministic (two passes, dK/dV and dQ, each output
+written by one block, no atomics) and holds two instances, which
+``variant`` picks by dtype, head dim and alignment alone:
+
+* ``wgmma`` (bf16, the head dim a multiple of 8, and rows TMA can address:
+  every base of q, k, v, o and dO on 16 bytes and every batch, head and
+  sequence stride a nonzero multiple of 16 bytes): TMA loads through a
+  ring, a producer warp and two consumer warpgroups on ``wgmma``, P and dS
+  as bf16 register operands.  The training shapes take it, as
+  ``[B, S, H, D]`` views.
+* ``simt`` (f32, an odd head dim, unaligned views): plain f32 FMAs.
+
+``flash_attention_autograd`` ties the forward and the backward together for
 autograd, on both devices.
 
 A CPU tensor goes to the plain versions in ``ref.py``; a CUDA tensor
 launches the kernel or raises.  ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` count kernel launches.
+``flash_attention_bwd.launches`` count kernel launches,
+``flash_attention_bwd.launches_by_variant`` the latter by instance.
 """
 
 from __future__ import annotations
@@ -46,9 +59,10 @@ from ... import _build
 from .ref import attention_lse_ref, flash_attention_bwd_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd",
-           "flash_attention_autograd"]
+           "flash_attention_autograd", "rows_aligned", "variant"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "wgmma": 1}
 _MAX_HEAD_DIM = 128
 _INT_MAX = 2 ** 31 - 1
 
@@ -143,26 +157,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, lse) if return_lse else o
 
 
+def variant(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """The backward's kernel instance: ``"wgmma"`` for bf16 with a head
+    dim ``d`` that is a multiple of 8 (up to 128) and ``aligned`` rows (see
+    ``rows_aligned``), else ``"simt"``."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and 8 <= d <= _MAX_HEAD_DIM \
+            and aligned:
+        return "wgmma"
+    return "simt"
+
+
+def rows_aligned(*ts: torch.Tensor) -> bool:
+    """Every base on 16 bytes and every batch, head and sequence stride of
+    a dimension wider than 1 a nonzero multiple of 16 bytes: rows that TMA
+    can address."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            return False
+        for n, st in zip(t.shape[:3], t.stride()[:3]):
+            if n > 1 and (st == 0 or st * t.element_size() % 16):
+                return False
+    return True
+
+
 def _bwd_fn():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:  # 64-bit pointers need declared argtypes
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = True, window: Optional[int] = None):
-    """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o`` and
-    ``lse`` and the output's gradient ``do`` (``o``'s shape, any strides
-    with a unit head dim).  Returns ``dq [B, H, S, D]`` and ``dk``, ``dv
-    [B, K, S, D]`` in the inputs' dtype, each a view of ``[B, S, ., D]``
-    memory (the layout of the projections they flow back into)."""
+def _bwd_inputs(q, k, v, o, lse, do, window):
+    """Checks the backward's inputs on every device; returns ``o``, ``do``
+    with a unit head stride and ``lse`` contiguous."""
     _check(q, k, v, window)
     b, h, s, d = q.shape
-    kv = k.shape[1]
     if tuple(o.shape) != (b, h, s, d) or do.shape != o.shape \
             or tuple(lse.shape) != (b, h, s):
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
@@ -175,29 +206,57 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         do = do.contiguous()
     if o.stride(-1) != 1 and d > 1:
         o = o.contiguous()
-    lse = lse.contiguous()
+    return o, do, lse.contiguous()
+
+
+def _bwd_call(q, k, v, o, lse, do, causal, window, name):
+    """One launch of instance ``name`` on CUDA inputs that ``_bwd_inputs``
+    passed, uncounted; ``(dq, dk, dv)``."""
+    b, h, s, d = q.shape
+    dq = _bshd_output(q)
+    dk, dv = _bshd_output(k), _bshd_output(v)
+    if name == "wgmma":   # lse * log2(e) and delta, rows padded to 128
+        shape = (2, b * h, -(-s // 128) * 128)
+    else:
+        shape = (b, h, s)
+    scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
+    rc = _build.launch(_bwd_fn(), q.device, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                       lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(),
+                       _strides(q, k, v, o, do, dq, dk, dv), b, h,
+                       k.shape[1], s, d, int(causal),
+                       -1 if window is None else int(window), 1.0 / d ** 0.5,
+                       _DTYPES[q.dtype], _VARIANTS[name])
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd ({name}) launch failed: "
+                           f"cudaError {rc}")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None):
+    """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o`` and
+    ``lse`` and the output's gradient ``do`` (``o``'s shape, any strides
+    with a unit head dim).  Returns ``dq [B, H, S, D]`` and ``dk``, ``dv
+    [B, K, S, D]`` in the inputs' dtype, each a view of ``[B, S, ., D]``
+    memory (the layout of the projections they flow back into).  On the
+    card the instance is ``variant``'s for these inputs."""
+    o, do, lse = _bwd_inputs(q, k, v, o, lse, do, window)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window)
-    dq = _bshd_output(q)
-    dk, dv = _bshd_output(k), _bshd_output(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    rc = _build.launch(_bwd_fn(), q.device, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                       dk.data_ptr(), dv.data_ptr(),
-                       _strides(q, k, v, o, do, dq, dk, dv), b, h, kv, s, d,
-                       int(causal), -1 if window is None else int(window),
-                       1.0 / d ** 0.5, _DTYPES[q.dtype])
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError "
-                           f"{rc}")
+    name = variant(q.dtype, q.shape[-1], rows_aligned(q, k, v, o, do))
+    out = _bwd_call(q, k, v, o, lse, do, causal, window, name)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    flash_attention_bwd.launches_by_variant[name] += 1
+    return out
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -232,8 +232,13 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
 def _embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
                   extras) -> torch.Tensor:
     compute = getattr(torch, cfg.compute_dtype)
-    # gather, then cast: the same values as the reference's cast-then-gather
-    x = params.embed[tokens].to(compute)
+    # Under a gradient, cast the table, then gather, as the reference does:
+    # a repeated token's gradient then sums in the compute dtype, as there.
+    # The values are the same either way, so serving casts only its rows.
+    if torch.is_grad_enabled() and params.embed.requires_grad:
+        x = params.embed.to(compute)[tokens]
+    else:
+        x = params.embed[tokens].to(compute)
     if cfg.frontend == "vision_stub" and extras is not None:
         fl = cfg.frontend_len
         patch = torch.as_tensor(extras["patch_embeds"],
