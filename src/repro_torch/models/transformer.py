@@ -18,10 +18,11 @@ with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
 (non-reentrant), and with ``cfg.remat_group`` each group of that many
 layers is checkpointed around its checkpointed layers (the reference's
 two-level remat).  The backward then runs every layer's forward again,
-routing included, on the same deterministic kernels.  The embedding is
-gathered, then cast, as in prefill: the same forward values as the
-reference's cast-then-gather, but the gradient of a repeated token sums in
-f32 where the reference's sums in the compute dtype.
+routing included, on the same deterministic kernels.  Under a gradient
+the embedding table is cast to the compute dtype, then gathered, as the
+reference does, so a repeated token's gradient sums in the compute dtype
+in both; serving gathers, then casts only the rows it took (the same
+values).
 
 The recurrent and hybrid block kinds (``"m"``, ``"s"``, ``"hybrid"``) and
 the encoder-decoder stack are not ported yet.
