@@ -1,11 +1,13 @@
 """Convert a JAX parameter pytree of the reference into the port's modules.
 
 ``from_jax_params(params_np, cfg)`` takes the reference's ``init_lm`` pytree
-with every leaf as a numpy array (``np.asarray`` of each leaf) and returns
-the port's ``LM`` module holding the same values.  Stacked blocks
-(``scan_layers=True``: one dict of ``[L, ...]`` arrays) and listed blocks
-both convert.  ``load_params`` does the same for any sub-module whose
-attribute paths are the pytree's keys (an ``MoE``, an ``Attention``, ...).
+(``init_encdec``'s for an encoder-decoder config) with every leaf as a numpy
+array (``np.asarray`` of each leaf) and returns the port's ``LM`` (or
+``EncDec``) module holding the same values.  Stacked blocks
+(``scan_layers=True``: one dict of ``[L, ...]`` arrays, nested sub-dicts
+such as the hybrid's ``mamba`` included) and listed blocks both convert.
+``load_params`` does the same for any sub-module whose attribute paths are
+the pytree's keys (an ``MoE``, an ``Attention``, ...).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 
 from .configs.registry import ModelConfig
 from .launch.mesh import resolve_device
+from .models.encdec import EncDec
 from .models.transformer import LM
 
 __all__ = ["from_jax_params", "load_params", "to_torch"]
@@ -55,9 +58,15 @@ def load_params(module: nn.Module, params_np: Any) -> nn.Module:
 
 
 def from_jax_params(params_np: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda", train: bool = False) -> LM:
-    """The reference's LM pytree (numpy leaves) as the port's ``LM``
-    (``train=True``: trainable, the expert stacks kept as f32 masters)."""
+                    device="cuda", train: bool = False) -> nn.Module:
+    """The reference's model pytree (numpy leaves) as the port's ``LM``, or
+    ``EncDec`` for an encoder-decoder config (``train=True``: trainable, the
+    expert stacks kept as f32 masters)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if cfg.encdec:
+        with torch.no_grad():
+            return load_params(EncDec(cfg, gen, dev, train), params_np)
     tree = dict(params_np)
     blocks = tree["blocks"]
     if isinstance(blocks, dict):  # stacked: split the leading layer axis
@@ -66,7 +75,5 @@ def from_jax_params(params_np: Dict[str, Any], cfg: ModelConfig,
                 return {k: split(v, i) for k, v in t.items()}
             return np.asarray(t)[i]
         tree["blocks"] = [split(blocks, i) for i in range(cfg.n_layers)]
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         return load_params(LM(cfg, gen, dev, train), tree)

@@ -10,6 +10,8 @@ mesh.  Run directly for a batched-serving demo on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch mixtral-8x7b --n-layers 4 --mesh 2,16 --a2a plan \\
         --batch 32 --prompt-len 1024 --gen-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch xlstm-125m --smoke --device cpu --plan-server
 
 ``--mesh POD,DATA`` is the one-card counterpart of the JAX ``mesh``
 argument; ``--device cpu`` runs on the CPU.
@@ -98,31 +100,65 @@ def flash_plan(n_pods: int, gpus_per_pod: int, seed: int = 0):
 
 # -- batched-serving demo -----------------------------------------------------
 
-def _plan_dispatch_schedules(gen_len: int, use_plan_server: bool) -> None:
-    """Plan the MoE dispatch schedule each decode step would issue, on the
-    testbed fabric (4 servers x 8 GPUs), through a process-local PlanCache.
-    The plan-serving daemon (``serving/``) is not ported yet."""
-    if use_plan_server:
-        raise NotImplementedError(
-            "--plan-server needs serving/, which is not ported to PyTorch "
-            "yet: ROADMAP.md Queue 1, item 6 (serving)")
+def _plan_dispatch_schedules(gen_len: int, use_plan_server: bool) -> dict:
+    """Plan the MoE dispatch schedule each decode step would issue.
+
+    Models the testbed fabric (4 servers x 8 GPUs) and one drifting MoE
+    dispatch matrix per generated token.  With ``use_plan_server`` the plan
+    requests route through the plan-serving daemon (``serving/``) and each
+    plan comes back with its lowered stage tables (the device handoff);
+    the default stays on the inline path, ``simulate_many`` over a
+    process-local PlanCache.  Prints the reference's lines and returns
+    their counts."""
     from ..core.plan import PlanCache
     from ..core.simulator import simulate_many
     from ..core.traffic import ClusterSpec, moe_workload
 
     cluster = ClusterSpec(n_servers=4, m_gpus=8)
+    # Each decode step re-draws gating for the same token budget; every
+    # 4th step repeats a seed (hot signatures), the rest drift.
     traj = [moe_workload(cluster, tokens_per_gpu=2048, bytes_per_token=2,
                          seed=(step // 4 if step % 4 == 0 else step))
             for step in range(gen_len)]
     t0 = time.perf_counter()
-    cache = PlanCache(capacity=256, warm_start=True)
-    results = simulate_many(traj, "flash", cache=cache)
-    route = (f"inline: hits={cache.hits} misses={cache.misses} "
-             f"warm={cache.warm_hits}")
+    out = {"steps": len(traj)}
+    if use_plan_server:
+        from ..serving import PlanClient, PlanServer
+
+        with PlanServer(workers=2) as srv:
+            client = PlanClient(srv, algorithm="flash")
+            results = client.simulate_many(traj)
+            # Device handoff: each distinct signature's plan comes back
+            # with its lowered stage tables; repeats reuse the memoized
+            # lowering (counters["lowered"] counts only the cache misses).
+            scheds = [client.get_device_schedule(w)[1] for w in traj]
+            srv.drain(10.0)
+            stats = srv.telemetry_snapshot()
+        counters = stats["counters"]
+        route = (f"plan-server: hits={counters.get('hits', 0)} "
+                 f"warm={counters.get('warm', 0)} "
+                 f"cold={counters.get('cold', 0)} "
+                 f"upgrades={counters.get('upgrades', 0)}")
+        n_stages = sorted({s.n_stages for s in scheds})
+        lowered = client.counters["lowered"]
+        print(f"device handoff: {len(scheds)} schedules, {lowered} lowered "
+              f"({len(scheds) - lowered} memoized); stage counts "
+              f"{n_stages}")
+        out.update(schedules=len(scheds), lowered=lowered,
+                   memoized=len(scheds) - lowered, stage_counts=n_stages,
+                   counters={k: counters.get(k, 0) for k in (
+                       "hits", "warm", "cold", "upgrades")})
+    else:
+        cache = PlanCache(capacity=256, warm_start=True)
+        results = simulate_many(traj, "flash", cache=cache)
+        route = (f"inline: hits={cache.hits} misses={cache.misses} "
+                 f"warm={cache.warm_hits}")
     dt = time.perf_counter() - t0
     mean_us = float(np.mean([r.completion_time for r in results])) * 1e6
     print(f"dispatch planning [{route}] {len(traj)} steps in {dt:.3f}s; "
           f"mean schedule completion {mean_us:.1f}us")
+    out.update(route=route, seconds=dt, mean_completion_us=mean_us)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -146,7 +182,8 @@ def main(argv=None):
                          "'auto'); defaults to the arch config's a2a_impl")
     ap.add_argument("--plan-server", action="store_true",
                     help="route dispatch-schedule planning through the "
-                         "plan-serving daemon (not ported yet)")
+                         "plan-serving daemon (repro_torch.serving) instead "
+                         "of the inline PlanCache path")
     ap.add_argument("--mesh", default=None, metavar="POD,DATA",
                     help="serve on a local (POD, DATA, 1) mesh stacked on "
                          "the device; default: no mesh")
@@ -157,6 +194,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.encdec:
+        # the demo feeds token prompts alone; an encoder-decoder needs
+        # frames and has no prefill cache (models/model.py)
+        ap.error(f"{args.arch} is an encoder-decoder: this demo serves "
+                 f"decoder-only archs")
     over = {}
     if args.a2a:
         over["a2a_impl"] = args.a2a

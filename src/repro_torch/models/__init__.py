@@ -1,5 +1,6 @@
-"""Model code: the MoE layer, the decoder LM for the dense and moe block
-kinds, and the ``build_model`` surface."""
+"""Model code: the MoE layer, the recurrent blocks, the decoder LM for every
+decoder-only block kind, the encoder-decoder, and the ``build_model``
+surface."""
 
 from .dist import DistContext, choose_ep_axes
 from .model import Model, build_model

@@ -1,6 +1,8 @@
-"""Decoder-only LM assembly for the "dense" and "moe" block kinds: init,
-the training forward and loss, prefill with a decode cache, and the
-one-token decode step.
+"""Decoder-only LM assembly for every non-enc-dec family: init, the
+training forward and loss, prefill with a decode cache, and the one-token
+decode step, for the block kinds "dense", "moe", "hybrid" (attention and a
+Mamba head side by side, their normalized outputs averaged), "m" and "s"
+(xLSTM's mLSTM and sLSTM, ``models/ssm.py``).
 
 Counterpart of ``src/repro/models/transformer.py``.  Parameters live in an
 ``LM`` module whose attribute paths are the reference's pytree paths
@@ -8,7 +10,9 @@ Counterpart of ``src/repro/models/transformer.py``.  Parameters live in an
 Blocks are always a list: a stacked (``scan_layers``) reference layout
 converts to it (``convert.py``), and the per-layer math is the same, including
 the scan branch's window rules for mixed full/window stacks.  The decode cache
-is a list of per-layer ``{"k", "v"}`` dicts, updated in place.
+is a list of per-layer dicts, updated in place: ``{"k", "v"}`` for attention,
+plus ``"ssm"`` (Mamba's state) for the hybrid, ``{"state"}`` for the
+recurrent kinds.
 ``use_kernel=False`` runs the plain PyTorch versions of every kernel on the
 path (prefill attention, the expert FFN and the exchange's pack and unpack),
 with or without a mesh.
@@ -23,9 +27,6 @@ the embedding table is cast to the compute dtype, then gathered, as the
 reference does, so a repeated token's gradient sums in the compute dtype
 in both; serving gathers, then casts only the rows it took (the same
 values).
-
-The recurrent and hybrid block kinds (``"m"``, ``"s"``, ``"hybrid"``) and
-the encoder-decoder stack are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +54,12 @@ from .layers import (
     param,
 )
 from .moe import MoE, moe_apply
+from .ssm import (
+    MLSTM, SLSTM, Mamba,
+    mamba_apply, mamba_decode, mamba_zero_state,
+    mlstm_apply, mlstm_decode, mlstm_zero_state,
+    slstm_apply, slstm_decode, slstm_zero_state,
+)
 
 __all__ = [
     "LM", "layer_kinds", "init_lm", "lm_forward", "lm_loss",
@@ -61,10 +68,14 @@ __all__ = [
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
-    if cfg.family in ("ssm", "hybrid") or cfg.encdec:
-        raise NotImplementedError(
-            f"the {cfg.family} model stack is not ported to PyTorch yet: "
-            "ROADMAP.md Queue 1, item 4 (dense, ssm and encdec stacks)")
+    if cfg.family == "ssm":
+        if not (cfg.block_pattern and
+                len(cfg.block_pattern) == cfg.n_layers):
+            raise ValueError(f"{cfg.name}: block_pattern must name each of "
+                             f"the {cfg.n_layers} layers")
+        return tuple(cfg.block_pattern)
+    if cfg.family == "hybrid":
+        return ("hybrid",) * cfg.n_layers
     if cfg.family == "moe":
         return ("moe",) * cfg.n_layers
     return ("dense",) * cfg.n_layers
@@ -77,10 +88,21 @@ class Block(nn.Module):
         d = cfg.d_model
         pdt = getattr(torch, cfg.param_dtype)
         self.norm1 = Norm(cfg, d, device)
+        if kind == "m":
+            self.mlstm = MLSTM(cfg, gen, pdt, device)
+            return
+        if kind == "s":
+            self.slstm = SLSTM(cfg, gen, pdt, device)
+            return
         self.attn = Attention(cfg, gen, pdt, device)
         self.norm2 = Norm(cfg, d, device)
         if kind == "moe":
             self.moe = MoE(cfg, gen, pdt, device, masters)
+        elif kind == "hybrid":
+            self.mamba = Mamba(cfg, gen, pdt, device)
+            self.fuse_norm_attn = Norm(cfg, d, device)
+            self.fuse_norm_ssm = Norm(cfg, d, device)
+            self.mlp = MLP(cfg, gen, pdt, device)
         else:
             self.mlp = MLP(cfg, gen, pdt, device)
 
@@ -125,10 +147,41 @@ def _full_flag(cfg: ModelConfig, i: int) -> bool:
     return (not cfg.scan_layers) and i in cfg.full_attn_layers
 
 
+def _recurrent(kind: str):
+    """(apply, decode, attribute) of a recurrent block kind."""
+    if kind == "m":
+        return mlstm_apply, mlstm_decode, "mlstm"
+    return slstm_apply, slstm_decode, "slstm"
+
+
+def _fuse(cfg: ModelConfig, p: Block, attn_out: torch.Tensor,
+          ssm: torch.Tensor) -> torch.Tensor:
+    """The hybrid's mix of its attention and Mamba outputs."""
+    return 0.5 * (norm_apply(cfg, p.fuse_norm_attn, attn_out)
+                  + norm_apply(cfg, p.fuse_norm_ssm, ssm))
+
+
+def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor, kind: str, dist,
+         use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second half of an attention block: (x, aux)."""
+    h2 = norm_apply(cfg, p.norm2, x)
+    if kind == "moe":
+        y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
+        return x + y, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp_apply(cfg, p.mlp, h2), aux
+
+
 def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
                    positions, dist, kind: str, full_flag: bool,
                    cache_len: int, use_kernel: bool):
     """Returns (x, aux, cache_entry)."""
+    if kind in ("m", "s"):
+        apply, _, name = _recurrent(kind)
+        y, st = apply(cfg, getattr(p, name), norm_apply(cfg, p.norm1, x),
+                      return_state=True)
+        return x + y, torch.zeros((), dtype=torch.float32,
+                                  device=x.device), {"state": st}
     window, use_window = _window_args(cfg, full_flag)
     h = norm_apply(cfg, p.norm1, x)
     attn_out, (k_raw, v_raw) = attention_apply(
@@ -137,32 +190,34 @@ def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
     cache_window = None if (cfg.swa_window is None or full_flag) \
         else cfg.swa_window
     k_c, v_c = assemble_kv_cache(k_raw, v_raw, cache_window, cache_len)
-    x = x + attn_out
-    h2 = norm_apply(cfg, p.norm2, x)
-    if kind == "moe":
-        y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
-        x = x + y
+    cache = {"k": k_c, "v": v_c}
+    if kind == "hybrid":
+        ssm, cache["ssm"] = mamba_apply(cfg, p.mamba, h, return_state=True)
+        x = x + _fuse(cfg, p, attn_out, ssm)
     else:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        x = x + mlp_apply(cfg, p.mlp, h2)
-    return x, aux, {"k": k_c, "v": v_c}
+        x = x + attn_out
+    x, aux = _ffn(cfg, p, x, kind, dist, use_kernel)
+    return x, aux, cache
 
 
 def _block_train(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
                  positions, dist, kind: str, full_flag: bool,
                  use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of the training forward: (x, aux)."""
+    if kind in ("m", "s"):
+        apply, _, name = _recurrent(kind)
+        y = apply(cfg, getattr(p, name), norm_apply(cfg, p.norm1, x))
+        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
     window, use_window = _window_args(cfg, full_flag)
     h = norm_apply(cfg, p.norm1, x)
-    x = x + attention_apply(cfg, p.attn, h, positions=positions,
-                            window=window, use_window=use_window,
-                            use_kernel=use_kernel)
-    h2 = norm_apply(cfg, p.norm2, x)
-    if kind == "moe":
-        y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
-        return x + y, aux
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp_apply(cfg, p.mlp, h2), aux
+    attn_out = attention_apply(cfg, p.attn, h, positions=positions,
+                               window=window, use_window=use_window,
+                               use_kernel=use_kernel)
+    if kind == "hybrid":
+        x = x + _fuse(cfg, p, attn_out, mamba_apply(cfg, p.mamba, h))
+    else:
+        x = x + attn_out
+    return _ffn(cfg, p, x, kind, dist, use_kernel)
 
 
 def _layers(fns, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -263,29 +318,42 @@ def _phys_len(cfg: ModelConfig, seq_len: int, full_attn: bool) -> int:
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                      device="cuda") -> List[Dict[str, torch.Tensor]]:
+                      device="cuda") -> List[Dict[str, Any]]:
     kinds = layer_kinds(cfg)
     kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     compute = getattr(torch, cfg.compute_dtype)
     cache = []
-    for i in range(len(kinds)):
+    for i, kind in enumerate(kinds):
+        if kind in ("m", "s"):
+            zero = mlstm_zero_state if kind == "m" else slstm_zero_state
+            cache.append({"state": zero(cfg, batch, device)})
+            continue
         # the scanned reference cannot stack mixed window/full caches and
         # uses full-size ones everywhere
         full = (i in cfg.full_attn_layers) if not cfg.scan_layers \
             else bool(cfg.full_attn_layers)
         phys = _phys_len(cfg, seq_len, full)
-        cache.append({
+        entry = {
             "k": torch.zeros((batch, phys, kv, dh), dtype=compute,
                              device=device),
             "v": torch.zeros((batch, phys, kv, dh), dtype=compute,
                              device=device),
-        })
+        }
+        if kind == "hybrid":
+            entry["ssm"] = mamba_zero_state(cfg, batch, device)
+        cache.append(entry)
     return cache
 
 
 def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
                   kind: str, full_flag: bool, dist,
                   use_kernel: bool) -> torch.Tensor:
+    if kind in ("m", "s"):
+        _, decode, name = _recurrent(kind)
+        y, cache["state"] = decode(cfg, getattr(p, name),
+                                   norm_apply(cfg, p.norm1, x),
+                                   cache["state"])
+        return x + y
     window = None
     if cfg.swa_window is not None:
         phys = cache["k"].shape[1]
@@ -295,12 +363,12 @@ def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
     h = norm_apply(cfg, p.norm1, x)
     attn, _, _ = attention_decode(cfg, p.attn, h, cache["k"], cache["v"],
                                   pos, window=window)
-    x = x + attn
-    h2 = norm_apply(cfg, p.norm2, x)
-    if kind == "moe":
-        y, _ = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
-        return x + y
-    return x + mlp_apply(cfg, p.mlp, h2)
+    if kind == "hybrid":
+        ssm, cache["ssm"] = mamba_decode(cfg, p.mamba, h, cache["ssm"])
+        x = x + _fuse(cfg, p, attn, ssm)
+    else:
+        x = x + attn
+    return _ffn(cfg, p, x, kind, dist, use_kernel)[0]
 
 
 def lm_decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor,

@@ -20,11 +20,12 @@ REF = os.path.join(SRC, "repro")
 
 def _copied_files():
     out = []
-    for sub in ("configs", "core", "data"):
+    for sub in ("configs", "core", "data", "serving"):
         out += [os.path.join(sub, n)
                 for n in sorted(os.listdir(os.path.join(REF, sub)))
                 if n.endswith(".py")]
-    return out + [os.path.join("analysis", "locks.py")]
+    return out + [os.path.join("analysis", n)
+                  for n in ("locks.py", "planlint.py")]
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -55,17 +56,18 @@ def test_copied_host_file_is_identical(rel):
 
 
 def test_no_copy_beyond_the_listed_ones():
-    """configs/, core/ and data/ hold exactly the reference's files;
-    analysis/ holds locks.py only (guards.py imports the reference by
-    name)."""
-    for sub in ("configs", "core", "data"):
+    """configs/, core/, data/ and serving/ hold exactly the reference's
+    files; analysis/ holds locks.py and planlint.py only (guards.py imports
+    the reference by name)."""
+    for sub in ("configs", "core", "data", "serving"):
         ours = {n for n in os.listdir(os.path.join(PORT, sub))
                 if n.endswith(".py")}
         theirs = {n for n in os.listdir(os.path.join(REF, sub))
                   if n.endswith(".py")}
         assert ours == theirs, sub
     assert {n for n in os.listdir(os.path.join(PORT, "analysis"))
-            if n.endswith(".py")} == {"__init__.py", "locks.py"}
+            if n.endswith(".py")} == {"__init__.py", "locks.py",
+                                      "planlint.py"}
 
 
 def test_comm_layer_has_no_det001_finding():
