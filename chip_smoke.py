@@ -77,6 +77,27 @@ Phases (each raises on failure; none is caught):
    backward sums with atomics); and a ``torch.profiler`` window over one
    step.
 
+7. the other stacks, no mesh, random weights from the seed, f32 parameters
+   and bf16 compute: xlstm-125m (all 12 layers) and hymba-1.5b (all 32,
+   scanned: full-size caches and no window in the prefill) serve 8 prompts
+   of 1024 tokens and 15 decode steps (xlstm launches no attention kernel;
+   hymba one flash_attention a layer in the prefill, none in decode); in
+   f32 on 2 prompts of 256 tokens, each xlstm layer's prefill states and
+   last output against a teacher-forced decode chain on identical inputs
+   (relative 1e-4; the whole stack's chain reported) and hymba at 4
+   layers against the plain versions (1e-4); hymba's first layer on
+   identical bf16 inputs within 2e-2 of plain; a ``torch.profiler`` window
+   over hymba's prefill (the recurrences' time loops' share); hymba trained
+   at 2 layers (full, then windowed attention) on 4 x 2048 tokens, two
+   AdamW steps with the kernels (every backward on wgmma) and two plain
+   (losses within 2e-2), each layer's bf16 gradients on identical inputs
+   within 2e-2; whisper-tiny (4 + 4 layers, 1500 frames) for 32 requests:
+   the encoder and cross K/V, ``Model.prefill`` over a 64-token prompt, a
+   teacher-forced decode chain over it and 15 greedy steps (the chain
+   within 1e-4 of the forward in f32; the first encoder layer within 2e-2
+   of plain in bf16); and the plan-serving daemon's device handoff
+   (``--plan-server``).
+
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
 attention backward on wgmma alone, and serving pack and unpack
@@ -87,10 +108,10 @@ the prefill and in decode.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
-there is its count in the newest main path that runs it: the training run
-(4 steps) for grouped_matmul, flash_attention and flash_attention_bwd,
-mixtral's plan run for pack and unpack; ``launches_by_path`` lists every
-path's counts.  It exits non-zero, printing
+there is its count on the port's main path, the MoE cells: the
+megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
+and flash_attention_bwd, mixtral's plan run for pack and unpack;
+``launches_by_path`` lists every path's counts, phase 7's too.  It exits non-zero, printing
 no result, without a CUDA device or outside a checkout of the repository.
 """
 
@@ -127,6 +148,15 @@ SERVE_KERNELS = ("a2a_pack", "a2a_unpack", "grouped_matmul",
 KERNELS = SERVE_KERNELS + ("flash_attention_bwd",)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 32, 512, 4
 F32_TRAIN_SEQ = 128
+# phase 7: the recurrent, hybrid and encoder-decoder stacks, no mesh
+XLSTM_ARCH, HYMBA_ARCH, WHISPER_ARCH = ("xlstm-125m", "hymba-1.5b",
+                                        "whisper-tiny")
+STACK_BATCH, STACK_PROMPT = 8, 1024
+STACK_GATE_BATCH, STACK_GATE_PROMPT = 2, 256
+HYMBA_F32_LAYERS = 4
+HYMBA_TRAIN_LAYERS, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ = 2, 4, 2048
+WHISPER_BATCH, WHISPER_PROMPT = 32, 64
+PLAN_SERVER_STEPS = 16
 # the serving shapes' flash_attention device ms before the forward kernel
 # could write lse (PERF.md, section 6), for the check that serving, which
 # asks for none, kept its time
@@ -159,6 +189,13 @@ def mixtral_config(**over):
     from repro_torch.configs import get_config
 
     return get_config(MIX_ARCH, n_layers=MIX_LAYERS, **over)
+
+
+def stack_config(arch, **over):
+    """xlstm-125m, hymba-1.5b or whisper-tiny at its published config."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch, **over)
 
 
 def log(*a):
@@ -999,8 +1036,9 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     prompt = prompts.shape[1]
     total = prompt + GEN
     prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total,
-                                use_kernel=use_kernel)
-    step = make_serve_step(cfg, mesh, impl, plan, use_kernel=use_kernel)
+                                use_kernel=use_kernel, device=DEVICE)
+    step = make_serve_step(cfg, mesh, impl, plan, use_kernel=use_kernel,
+                           device=DEVICE)
     batch = {"tokens": prompts}
     if warmup:
         prefill(params, batch)
@@ -1018,7 +1056,8 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     res = {"logits": logits, "prefill_s": t_prefill, "routes": rec.eids,
            "prefill_launches": read_launches(kernels),
            "prefill_variants": read_variants(kernels),
-           "cache_slots": cache[0]["k"].shape[1]}
+           "cache_slots": cache[0]["k"].shape[1] if "k" in cache[0]
+           else None}
     if not decode:
         return res
     toks = logits.argmax(-1)
@@ -1204,7 +1243,10 @@ def device_time(prof, label, host_ms):
     "not measured" logged where the trace holds no device event."""
     from torch.autograd import DeviceType
 
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a profiler range (record_function) is traced on the device too, as
+    # a span over the kernels it encloses: not a kernel
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     if not dev:
         log(f"{label}: device time by kernel: not measured (the trace holds "
             f"no device event); idle share: not measured; host window "
@@ -1780,7 +1822,7 @@ def train_run(torch, cfg, mesh, batches, kernels, use_kernel=True,
     state = init_train_state(params)
     step = make_train_step(cfg, mesh, TrainOptions(
         peak_lr=3e-4, warmup_steps=1, total_steps=len(batches)),
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = {"metrics": [], "step_ms": [], "launches": [], "variants": []}
@@ -2081,6 +2123,581 @@ def phase_training(torch, kernels):
     return run["total_launches"], summary
 
 
+# -- 7. the recurrent, hybrid and encoder-decoder stacks -----------------------
+
+EXPERT_KERNELS = ("a2a_pack", "a2a_unpack", "grouped_matmul")
+
+
+def stack_params(torch, cfg, train=False):
+    """Fresh parameters from the seed on the device."""
+    from repro_torch.models import build_model
+
+    dev = torch.device(DEVICE)
+    return build_model(cfg, dev, train=train).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+
+
+def stack_prompts(torch, cfg, batch, prompt, seed=SEED):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
+                            .astype(np.int64)).to(DEVICE)
+
+
+def param_gb(params):
+    return sum(t.numel() * t.element_size()
+               for t in params.parameters()) / 1e9
+
+
+def attn_counts(*parts):
+    """The attention kernels' launches of (name, launches dict) parts."""
+    return {k: {part: counts[k] for part, counts in parts}
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def check_stack_launches(label, counts, want_attn):
+    """``want_attn`` flash_attention launches, no attention backward and no
+    expert kernel (none of the three stacks has experts)."""
+    bad = {k: counts[k] for k in EXPERT_KERNELS + ("flash_attention_bwd",)
+           if counts[k]}
+    if counts["flash_attention"] != want_attn or bad:
+        raise AssertionError(f"{label}: launches {counts}; expected "
+                             f"{want_attn} flash_attention and nothing "
+                             f"else")
+
+
+def check_stack_run(torch, run, cfg, batch, label, prefill_attn):
+    """Finite logits of the right shape, ``prefill_attn`` flash_attention
+    launches in the prefill and none in decode, nothing else launched."""
+    for t in (run["logits"], run["last_logits"]):
+        if tuple(t.shape) != (batch, cfg.vocab) or \
+                not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"{label}: bad logits {tuple(t.shape)}")
+    check_stack_launches(f"{label} prefill", run["prefill_launches"],
+                         prefill_attn)
+    check_stack_launches(f"{label} decode", run["decode_launches"], 0)
+
+
+def run_summary(run, batch, peak_gb):
+    """A serving run's numbers as ``log_run`` prints them."""
+    return {"prefill_ms": run["prefill_s"] * 1e3,
+            "decode_ms_per_step": run["decode_s"] / run["decode_steps"] * 1e3,
+            "decode_ms_median_device": run["step_ms_median"],
+            "tokens_per_s": batch * GEN / (run["prefill_s"]
+                                           + run["decode_s"]),
+            "peak_gb": peak_gb}
+
+
+def chain_gate(torch, cfg, prompts, label):
+    """In f32 with fresh f32 weights: the prefill's recurrent states and
+    outputs against teacher-forced decode chains over the same prompt from
+    the zero state.  Gated layer by layer on identical inputs (each layer's
+    input in the prefill): the layer's final state and last output within a
+    relative 1e-4 of its chain's.  Reported: the whole stack's chain
+    against its prefill, where the rounding of the prompt pass's and
+    decode's differently shaped products grows through the recurrences and
+    the layers (the reference's own f32 chain drifts from its prefill as
+    well)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import (_block_decode, _block_prefill,
+                                                _embed_tokens, layer_kinds)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = build_model(cfg32, torch.device(DEVICE))
+    params = stack_params(torch, cfg32)
+    b, s = prompts.shape
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      cache_len=s)
+        chain = model.init_cache(b, s)
+        for t in range(s):
+            last, chain = model.decode_step(params, chain, prompts[:, t], t)
+        stack = {"logits": rel_err(torch, last, logits)}
+        for i, (a, c) in enumerate(zip(cache, chain)):
+            for key, st in a["state"].items():
+                stack[f"layer {i} {key}"] = rel_err(torch, c["state"][key],
+                                                    st)
+        del cache, chain
+        x = _embed_tokens(cfg32, params, prompts, None)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        errs = {}
+        for i, (kind, blk) in enumerate(zip(layer_kinds(cfg32),
+                                            params.blocks)):
+            y, _, entry = _block_prefill(
+                cfg32, blk, x, positions=positions, dist=None, kind=kind,
+                full_flag=False, cache_len=s, use_kernel=True)
+            step = model.init_cache(b, 1)[i]
+            for t in range(s):
+                y_t = _block_decode(cfg32, blk, step, x[:, t:t + 1], t,
+                                    kind=kind, full_flag=False, dist=None,
+                                    use_kernel=True)
+            errs[f"layer {i} output"] = rel_err(torch, y_t[:, 0], y[:, -1])
+            for key, st in entry["state"].items():
+                errs[f"layer {i} {key}"] = rel_err(torch, step["state"][key],
+                                                   st)
+            x = y
+    worst = max(errs, key=errs.get)
+    stack_worst = max(stack, key=stack.get)
+    log(f"{label}[f32 chain]: {b} x {s} tokens, each layer on identical "
+        f"inputs: prefill against a teacher-forced decode chain, "
+        f"{len(errs)} states and last outputs: worst relative difference "
+        f"{errs[worst]:.3e} ({worst}); the whole stack (reported): last "
+        f"logits {stack['logits']:.3e}, worst state {stack[stack_worst]:.3e} "
+        f"({stack_worst})")
+    if not errs[worst] < 1e-4:
+        raise AssertionError(f"{label}: prefill vs decode chain {worst} "
+                             f"{errs[worst]}")
+    del params
+    free(torch)
+    return {"layer_worst": errs[worst], "stack_logits": stack["logits"],
+            "stack_worst_state": stack[stack_worst]}
+
+
+def scan_share(prof, label):
+    """The ``ssm_scan`` ranges (the recurrences' time loops) in a traced
+    window: their host time against the window's, and the device time of
+    the kernels launched inside them against all kernels'."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    scans = sorted((e.time_range.start, e.time_range.end) for e in cpu
+                   if e.name == "ssm_scan")
+    window = (max(e.time_range.end for e in cpu)
+              - min(e.time_range.start for e in cpu))
+    host_scan = busy_us(scans)
+    starts = [a for a, _ in scans]
+    in_scan = total = 0.0
+    for e in cpu:
+        if not e.kernels:
+            continue
+        dur = sum(k.duration for k in e.kernels)
+        total += dur
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= scans[i][1]:
+            in_scan += dur
+    out = {"scans": len(scans), "host_scan_ms": host_scan / 1e3,
+           "host_window_ms": window / 1e3,
+           "host_share": host_scan / window if window else None,
+           "device_scan_ms": in_scan / 1e3 if total else None,
+           "device_ms": total / 1e3 if total else None,
+           "device_share": in_scan / total if total else None}
+    dev = (f"kernels launched inside them {in_scan / 1e3:.3f} ms of "
+           f"{total / 1e3:.3f} ms of kernel time ({in_scan / total:.4f})"
+           if total else "their device time: not measured (no kernel "
+           "linked to a host op)")
+    log(f"{label}: {len(scans)} scan loops (ssm_scan) take "
+        f"{host_scan / 1e3:.3f} ms of the {window / 1e3:.3f} ms host window "
+        f"({out['host_share']:.4f}, profiler overhead included); {dev}")
+    return out
+
+
+def profile_stack_prefill(torch, cfg, params, prompts, label):
+    """One prefill under torch.profiler: device time by kernel name, the
+    device's idle share and the scan loops' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_prefill_step
+
+    prefill = make_prefill_step(cfg, None, cache_len=prompts.shape[1] + GEN,
+                                device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _, summary = device_time(prof, label, host_ms)
+    summary = dict(summary or {}, scan=scan_share(prof, label))
+    del prof
+    return summary
+
+
+def phase_xlstm(torch, kernels):
+    """xlstm-125m served at its published config; its f32 chain gate."""
+    cfg = stack_config(XLSTM_ARCH)
+    params = stack_params(torch, cfg)
+    prompts = stack_prompts(torch, cfg, STACK_BATCH, STACK_PROMPT)
+    log(f"xlstm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+        f"(head dim {cfg.d_model // cfg.n_heads}) vocab={cfg.vocab} "
+        f"layers={cfg.n_layers} pattern {''.join(cfg.block_pattern)}; "
+        f"batch={STACK_BATCH} prompt={STACK_PROMPT} gen={GEN}; params "
+        f"{param_gb(params):.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(torch, cfg, params, None, None, None, prompts, kernels,
+                warmup=False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_stack_run(torch, run, cfg, STACK_BATCH, "xlstm", 0)
+    log_run(run, f"xlstm batch {STACK_BATCH} x prompt {STACK_PROMPT} (no "
+            f"warm-up)", STACK_BATCH)
+    log(f"xlstm: peak device memory {peak:.2f} GB")
+    summary = run_summary(run, STACK_BATCH, peak)
+    counts = attn_counts(("prefill", run["prefill_launches"]),
+                         ("decode", run["decode_launches"]))
+    del params, run
+    free(torch)
+    summary["chain_err"] = chain_gate(
+        torch, cfg, prompts[:STACK_GATE_BATCH, :STACK_GATE_PROMPT], "xlstm")
+    return {f"{XLSTM_ARCH} serve": counts}, summary
+
+
+def phase_hymba(torch, kernels):
+    """hymba-1.5b served at its published config (scanned: full-size
+    caches, no window in the prefill); a profiled prefill; the first hybrid
+    layer against the plain attention on identical bf16 inputs; the f32
+    prefill at HYMBA_F32_LAYERS layers against the plain versions."""
+    from repro_torch.models.layers import attention_apply, norm_apply
+    from repro_torch.models.transformer import _block_train, _embed_tokens
+
+    cfg = stack_config(HYMBA_ARCH)
+    params = stack_params(torch, cfg)
+    prompts = stack_prompts(torch, cfg, STACK_BATCH, STACK_PROMPT)
+    log(f"hymba: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"ssm_state={cfg.ssm_state} window={cfg.swa_window} full layers "
+        f"{cfg.full_attn_layers} vocab={cfg.vocab} layers={cfg.n_layers} "
+        f"scan_layers={cfg.scan_layers}; batch={STACK_BATCH} "
+        f"prompt={STACK_PROMPT} gen={GEN}; params {param_gb(params):.2f} GB "
+        f"({sum(t.numel() for t in params.parameters()) / 1e9:.3f} B; "
+        f"n_params() {cfg.n_params() / 1e9:.3f} B)")
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(torch, cfg, params, None, None, None, prompts, kernels,
+                warmup=False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_stack_run(torch, run, cfg, STACK_BATCH, "hymba", cfg.n_layers)
+    if run["cache_slots"] != STACK_PROMPT + GEN:
+        raise AssertionError(f"hymba: {run['cache_slots']} cache slots; the "
+                             f"scanned stack keeps full-size caches")
+    log_run(run, f"hymba batch {STACK_BATCH} x prompt {STACK_PROMPT} (no "
+            f"warm-up)", STACK_BATCH)
+    log(f"hymba: peak device memory {peak:.2f} GB")
+    summary = run_summary(run, STACK_BATCH, peak)
+    counts = attn_counts(("prefill", run["prefill_launches"]),
+                         ("decode", run["decode_launches"]))
+    del run
+    free(torch)
+    summary["profile"] = profile_stack_prefill(
+        torch, cfg, params, prompts, f"profile[hymba prefill {STACK_BATCH} "
+        f"x {STACK_PROMPT}]")
+    free(torch)
+
+    # the first hybrid layer on identical bf16 inputs: only its attention
+    # differs between the two runs
+    blk = params.blocks[0]
+    b, s = prompts.shape
+    full = 0 in cfg.full_attn_layers
+    with torch.no_grad():
+        x0 = _embed_tokens(cfg, params, prompts, None)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x0.device).expand(b, s)
+        h = norm_apply(cfg, blk.norm1, x0)
+        attn = [attention_apply(cfg, blk.attn, h, positions=positions,
+                                window=None if full else cfg.swa_window,
+                                use_kernel=uk) for uk in (True, False)]
+        outs = [_block_train(cfg, blk, x0, positions=positions, dist=None,
+                             kind="hybrid", full_flag=full,
+                             use_kernel=uk)[0] for uk in (True, False)]
+    errs = {"attention": rel_err(torch, attn[0], attn[1]),
+            "block": rel_err(torch, outs[0], outs[1])}
+    log(f"hymba[plain]: first hybrid layer on identical bf16 inputs, kernels "
+        f"vs plain: attention max rel diff {errs['attention']:.3e}, the "
+        f"block's output {errs['block']:.3e}")
+    if not max(errs.values()) < 2e-2:
+        raise AssertionError(f"hymba: first layer kernels vs plain {errs}")
+    summary["first_layer_err"] = errs
+    del params, attn, outs, x0, h
+    free(torch)
+
+    cfg32 = stack_config(HYMBA_ARCH, n_layers=HYMBA_F32_LAYERS,
+                         compute_dtype="float32")
+    params32 = stack_params(torch, cfg32)
+    gate_prompts = stack_prompts(torch, cfg32, STACK_GATE_BATCH,
+                                 STACK_GATE_PROMPT, SEED + 1)
+    k32 = serve(torch, cfg32, params32, None, None, None, gate_prompts,
+                kernels, decode=False, warmup=False)
+    p32 = serve(torch, cfg32, params32, None, None, None, gate_prompts,
+                kernels, use_kernel=False, decode=False, warmup=False)
+    if k32["prefill_launches"]["flash_attention"] != cfg32.n_layers or \
+            any(p32["prefill_launches"].values()):
+        raise AssertionError(f"hymba[f32]: launches kernels "
+                             f"{k32['prefill_launches']}, plain "
+                             f"{p32['prefill_launches']}")
+    diff = rel_err(torch, k32["logits"], p32["logits"])
+    log(f"hymba[f32]: {cfg32.n_layers} layers, {STACK_GATE_BATCH} x "
+        f"{STACK_GATE_PROMPT} tokens: prefill kernels vs plain, max rel "
+        f"logit diff {diff:.3e}")
+    if not diff < 1e-4:
+        raise AssertionError(f"hymba[f32]: kernels vs plain {diff}")
+    summary["f32_err"] = diff
+    del params32, k32, p32
+    free(torch)
+    return {f"{HYMBA_ARCH} serve": counts}, summary
+
+
+def phase_hymba_train(torch, kernels):
+    """hymba-1.5b trained at its published widths, HYMBA_TRAIN_LAYERS
+    layers (layer 0 full attention, layer 1 windowed): two AdamW steps with
+    the kernels and two with the plain versions; then each layer's bf16
+    outputs and gradients on identical inputs."""
+    from repro_torch.models.transformer import _block_train, _embed_tokens
+
+    dev = torch.device(DEVICE)
+    cfg = stack_config(HYMBA_ARCH, n_layers=HYMBA_TRAIN_LAYERS)
+    batches = train_batches(cfg, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ, 2)
+    windows = ["full" if i in cfg.full_attn_layers else cfg.swa_window
+               for i in range(cfg.n_layers)]
+    log(f"hymba train: {cfg.name} layers={cfg.n_layers}/32 (attention "
+        f"{windows}) batch={HYMBA_TRAIN_BATCH} seq={HYMBA_TRAIN_SEQ}; "
+        f"{cfg.param_dtype} masters, {cfg.compute_dtype} compute, "
+        f"remat={cfg.remat}")
+    run = train_run(torch, cfg, None, batches, kernels)
+    n = cfg.n_layers
+    for i, (got, by) in enumerate(zip(run["launches"], run["variants"])):
+        check_stack_launches(f"hymba train step {i}", dict(
+            got, flash_attention_bwd=0), 2 * n)
+        bwd = by["flash_attention_bwd"]
+        if got["flash_attention_bwd"] != n or bwd["wgmma"] != n:
+            raise AssertionError(f"hymba train step {i}: attention "
+                                 f"backward launches {bwd}; expected {n} "
+                                 f"on wgmma")
+    plain = train_run(torch, cfg, None, batches, kernels, use_kernel=False)
+    if any(any(c.values()) for c in plain["launches"]):
+        raise AssertionError(f"hymba train[plain]: use_kernel=False "
+                             f"launched a kernel: {plain['launches']}")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(run["metrics"], plain["metrics"])]
+    tokens = HYMBA_TRAIN_BATCH * HYMBA_TRAIN_SEQ
+    step_ms = run["step_ms"][-1]
+    log(f"hymba train[kernels]: step ms {[round(x, 3) for x in run['step_ms']]}"
+        f" (the last after a warm-up step: {step_ms:.3f} ms, "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s); peak device memory "
+        f"{run['peak_gb']:.2f} GB; launches a step {run['launches'][-1]}; "
+        f"plain step ms {[round(x, 3) for x in plain['step_ms']]}, peak "
+        f"{plain['peak_gb']:.2f} GB; step losses kernels "
+        f"{[round(m['loss'], 6) for m in run['metrics']]}, plain "
+        f"{[round(m['loss'], 6) for m in plain['metrics']]}; relative "
+        f"differences {[f'{d:.3e}' for d in diffs]}")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"hymba train: losses kernels vs plain {diffs}")
+    summary = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+               "peak_gb": run["peak_gb"], "plain_step_ms": plain["step_ms"],
+               "loss_diffs": diffs}
+    counts = attn_counts(*(
+        (f"step {i}", c) for i, c in enumerate(run["launches"])))
+    del plain
+
+    params = stack_params(torch, cfg, train=True)
+    tokens_t = torch.from_numpy(batches[0]["tokens"]).long().to(dev)
+    b, s = tokens_t.shape
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    with torch.no_grad():
+        x0 = _embed_tokens(cfg, params, tokens_t, None)
+    dy = torch.randn(x0.shape, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 3), device=dev).to(x0.dtype)
+    worst = {}
+    for i, blk in enumerate(params.blocks):
+        full = i in cfg.full_attn_layers
+        (y_k, g_k), (y_p, g_p) = [layer_grads(
+            torch, cfg, blk, lambda t, uk=uk: _block_train(
+                cfg, blk, t, positions=positions, dist=None, kind="hybrid",
+                full_flag=full, use_kernel=uk), x0, dy)
+            for uk in (True, False)]
+        errs = {"output": rel_norm(torch, y_k, y_p)}
+        errs.update({k: rel_norm(torch, g_k[k], g_p[k]) for k in g_k})
+        log(f"hymba train[identical inputs]: layer {i} "
+            f"({'full' if full else f'window {cfg.swa_window}'}), bf16, "
+            f"kernels vs plain, relative norms: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        if not max(errs.values()) < 2e-2:
+            raise AssertionError(f"hymba train: layer {i} kernels vs plain "
+                                 f"{errs}")
+        worst[f"layer {i}"] = max(errs.values())
+        del y_k, g_k, y_p, g_p
+        free(torch)
+    summary["layer_grad_err"] = worst
+    del params, x0, dy, run
+    free(torch)
+    return {f"{HYMBA_ARCH} train (2 steps)": counts}, summary
+
+
+def phase_whisper(torch, kernels):
+    """whisper-tiny at its published config: the encoder and the cross K/V
+    (``encdec_init_cache``), ``Model.prefill`` (the forward, which encodes
+    again), a teacher-forced decode chain over the prompt and GEN - 1
+    greedy steps; the chain against the forward in f32; the first encoder
+    layer against the plain attention in bf16."""
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.encdec import (encdec_decode_step,
+                                           encdec_forward, encdec_init_cache)
+    from repro_torch.models.layers import attention_apply, norm_apply
+
+    dev = torch.device(DEVICE)
+    cfg = stack_config(WHISPER_ARCH)
+    model = build_model(cfg, dev)
+    params = stack_params(torch, cfg)
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy((rng.standard_normal(
+        (WHISPER_BATCH, cfg.encoder_len, cfg.d_model)) * 0.5).astype(
+            np.float32)).to(dev)
+    prompts = stack_prompts(torch, cfg, WHISPER_BATCH, WHISPER_PROMPT)
+    total = WHISPER_PROMPT + GEN
+    log(f"whisper: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab} layers {cfg.n_encoder_layers} + "
+        f"{cfg.n_layers}, {cfg.encoder_len} frames; batch={WHISPER_BATCH} "
+        f"prompt={WHISPER_PROMPT} gen={GEN}; params {param_gb(params):.2f} "
+        f"GB")
+    step = make_serve_step(cfg, None, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = encdec_init_cache(cfg, WHISPER_BATCH, total, frames, params)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    enc = read_launches(kernels)
+    check_stack_launches("whisper init_cache", enc, cfg.n_encoder_layers)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    full, _ = model.prefill(params, {"tokens": prompts, "frames": frames})
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    fwd = read_launches(kernels)
+    check_stack_launches("whisper prefill", fwd,
+                         cfg.n_encoder_layers + cfg.n_layers)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    for t in range(WHISPER_PROMPT):
+        logits, cache = step(params, cache, prompts[:, t], t)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    chain_err = rel_err(torch, logits, full[:, -1])
+    toks = logits.argmax(-1)
+    out, events = [toks], []
+    t0 = time.perf_counter()
+    for t in range(WHISPER_PROMPT, total - 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = step(params, cache, toks, t)
+        toks = logits.argmax(-1)
+        b.record()
+        events.append((a, b))
+        out.append(toks)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    dec = read_launches(kernels)
+    check_stack_launches("whisper decode", dec, 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for t in (full[:, -1], logits):
+        if tuple(t.shape) != (WHISPER_BATCH, cfg.vocab) or \
+                not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"whisper: bad logits {tuple(t.shape)}")
+    n_dec = len(events)
+    prefill_s = t_enc + t_chain
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    summary = {"encode_ms": t_enc * 1e3, "forward_ms": t_fwd * 1e3,
+               "chain_ms_per_step": t_chain / WHISPER_PROMPT * 1e3,
+               "prefill_ms": prefill_s * 1e3,
+               "decode_ms_per_step": t_dec / n_dec * 1e3,
+               "decode_ms_median_device": statistics.median(step_ms),
+               "tokens_per_s": WHISPER_BATCH * GEN / (prefill_s + t_dec),
+               "peak_gb": peak}
+    log(f"whisper batch {WHISPER_BATCH}: encoder and cross K/V "
+        f"(encdec_init_cache) {t_enc * 1e3:.3f} ms; Model.prefill (the "
+        f"forward over {WHISPER_PROMPT} tokens, encoding again) "
+        f"{t_fwd * 1e3:.3f} ms; teacher-forced chain over the prompt "
+        f"{t_chain * 1e3:.3f} ms ({summary['chain_ms_per_step']:.3f} "
+        f"ms/step; its last logits vs the forward's, bf16: max rel diff "
+        f"{chain_err:.3e}); prefill (encoder + chain) "
+        f"{prefill_s * 1e3:.3f} ms; decode {summary['decode_ms_per_step']:.3f}"
+        f" ms/step over {n_dec} steps (median {summary['decode_ms_median_device']:.3f}"
+        f" ms on the device clock); {summary['tokens_per_s']:.1f} tokens/s "
+        f"({WHISPER_BATCH * GEN} tokens); peak device memory {peak:.2f} GB; "
+        f"launches init_cache {enc}, prefill {fwd}, chain and decode {dec}")
+    counts = attn_counts(("init_cache", enc), ("prefill", fwd),
+                         ("decode", dec))
+    del cache, full, logits
+    free(torch)
+
+    # the chain against the forward at every prompt position, in f32 (the
+    # parameters are f32 whatever the compute dtype)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        full32, _ = encdec_forward(cfg32, params, prompts, {"frames": frames})
+        cache32 = encdec_init_cache(cfg32, WHISPER_BATCH, WHISPER_PROMPT,
+                                    frames, params)
+        errs = []
+        for t in range(WHISPER_PROMPT):
+            lg, cache32 = encdec_decode_step(cfg32, params, cache32,
+                                             prompts[:, t], t)
+            errs.append(rel_err(torch, lg, full32[:, t]))
+    log(f"whisper[f32 chain]: decode chain vs encdec_forward at each of "
+        f"{WHISPER_PROMPT} positions: worst max rel diff {max(errs):.3e} "
+        f"(position {int(np.argmax(errs))})")
+    if not max(errs) < 1e-4:
+        raise AssertionError(f"whisper: f32 chain vs forward {max(errs)}")
+    summary["f32_chain_err"] = max(errs)
+    del full32, cache32, lg
+    free(torch)
+
+    blk = params.enc_blocks[0]
+    compute = getattr(torch, cfg.compute_dtype)
+    b, se = WHISPER_BATCH, cfg.encoder_len
+    with torch.no_grad():
+        x = frames.to(compute) + params.enc_pos.to(compute)[None]
+        h = norm_apply(cfg, blk.norm1, x)
+        positions = torch.arange(se, dtype=torch.int32,
+                                 device=dev).expand(b, se)
+        outs = [attention_apply(cfg, blk.attn, h, positions=positions,
+                                causal=False, use_kernel=uk)
+                for uk in (True, False)]
+    err = rel_err(torch, outs[0], outs[1])
+    log(f"whisper[plain]: first encoder layer's attention (non-causal, "
+        f"S={se}) on identical bf16 inputs, kernel vs plain: max rel diff "
+        f"{err:.3e}")
+    if not err < 2e-2:
+        raise AssertionError(f"whisper: first encoder layer {err}")
+    summary["first_layer_err"] = err
+    del params, frames, outs, x, h
+    free(torch)
+    return {f"{WHISPER_ARCH} serve": counts}, summary
+
+
+def phase_plan_server():
+    """The plan-serving daemon's device handoff, as ``--plan-server``
+    runs it on the card's host."""
+    from repro_torch.launch.serve import _plan_dispatch_schedules
+
+    out = _plan_dispatch_schedules(PLAN_SERVER_STEPS, True)
+    sys.stdout.flush()
+    if not (out["schedules"] == PLAN_SERVER_STEPS
+            and 0 < out["lowered"] <= PLAN_SERVER_STEPS
+            and out["memoized"] == out["schedules"] - out["lowered"]):
+        raise AssertionError(f"plan server: handoff {out}")
+    return out
+
+
+def phase_stacks(torch, kernels):
+    """Phase 7.  Returns the attention kernels' launches by path and a
+    summary."""
+    launches, summary = {}, {}
+    for name, fn in (("xlstm", phase_xlstm), ("hymba", phase_hymba),
+                     ("hymba_train", phase_hymba_train),
+                     ("whisper", phase_whisper)):
+        t0 = time.perf_counter()
+        counts, summary[name] = fn(torch, kernels)
+        launches.update(counts)
+        summary[name]["phase_s"] = time.perf_counter() - t0
+        log(f"phase stacks[{name}]: {summary[name]['phase_s']:.1f} s")
+    summary["plan_server"] = phase_plan_server()
+    return launches, summary
+
+
 # Ratios of the redesigned kernels to their library calls that the bf16
 # serving and training shapes should stay under (reported, not gated: a
 # card below its power limit moves them).  Pack and unpack: device time at most the
@@ -2205,10 +2822,19 @@ def main() -> int:
     log(f"phase training: {time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(summary)}")
 
-    # Each kernel's count is that of the newest main path that runs it:
-    # training (this slice's) for grouped_matmul and both attention
-    # kernels, mixtral's plan run for pack and unpack, which training does
-    # not launch.  Every path's counts are listed beside them.
+    # 7. the recurrent, hybrid and encoder-decoder stacks, and the plan
+    # server
+    t0 = time.perf_counter()
+    stack_launches, stacks = phase_stacks(torch, kernels)
+    log(f"phase stacks: {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(stacks)}")
+
+    # Each kernel's count is that of the megatron-moe-32e training cell for
+    # grouped_matmul and both attention kernels, mixtral's plan run for
+    # pack and unpack, which training does not launch: the main path of
+    # the port is the MoE cell, so PERF.md's launch column keeps its
+    # meaning.  Every path's counts are listed beside them, phase 7's
+    # stacks' too.
     serving = launches["mixtral-8x7b plan"]
     result = []
     for name in KERNELS:
@@ -2225,6 +2851,9 @@ def main() -> int:
                    for p, c in launches.items()}
         by_path[f"megatron-moe-32e train ({TRAIN_STEPS} steps)"] = \
             train_launches[name]
+        for path, counts in stack_launches.items():
+            if name in counts:
+                by_path[path] = counts[name]
         if train_launches[name]:
             row = dict(row, launches=train_launches[name],
                        main_path=f"megatron-moe-32e train ({TRAIN_STEPS} "

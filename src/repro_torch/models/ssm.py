@@ -12,7 +12,8 @@ arithmetic stays the reference's: Mamba's ``exp(dt * a)`` and its
 stacked states after it.  Decode runs one step on a carried state.
 
 These are plain PyTorch: the reference computes them outside any Pallas
-kernel.
+kernel.  Each time loop runs inside a ``torch.profiler`` range named
+``ssm_scan``, so that a trace can tell the loops' share of a prompt pass.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from ..configs.registry import ModelConfig
 from .layers import dense_init, param
@@ -105,12 +107,13 @@ def mlstm_apply(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
     """x [B, T, d] -> [B, T, d] (and, with ``return_state``, the state
     after the last step)."""
     b, t, d = x.shape
-    ins = [a.transpose(0, 1) for a in _mlstm_inputs(cfg, p, x)]
+    steps = zip(*(a.unbind(1) for a in _mlstm_inputs(cfg, p, x)))
     state = mlstm_zero_state(cfg, b, x.device)
     hs = []
-    for i in range(t):
-        state, h = _mlstm_step(state, *(a[i] for a in ins))
-        hs.append(h)
+    with record_function("ssm_scan"):
+        for ins in steps:
+            state, h = _mlstm_step(state, *ins)
+            hs.append(h)
     hs = torch.stack(hs, dim=1).reshape(b, t, d).to(x.dtype)
     z = F.silu(x @ p.wz.to(x.dtype))
     out = (hs * z) @ p.wo.to(x.dtype)
@@ -173,14 +176,15 @@ def _slstm_step(r: torch.Tensor, state: State, wx_t: torch.Tensor
 
 def slstm_apply(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
                 return_state: bool = False):
-    b, t, _ = x.shape
-    wx = (x @ p.w.to(x.dtype)).float().transpose(0, 1)  # [T, B, 4d]
+    b = x.shape[0]
+    wx = (x @ p.w.to(x.dtype)).float()                  # [B, T, 4d]
     r = p.r.float()
     state = slstm_zero_state(cfg, b, x.device)
     hs = []
-    for i in range(t):
-        state, h = _slstm_step(r, state, wx[i])
-        hs.append(h)
+    with record_function("ssm_scan"):
+        for wx_t in wx.unbind(1):
+            state, h = _slstm_step(r, state, wx_t)
+            hs.append(h)
     out = torch.stack(hs, dim=1).to(x.dtype) @ p.wo.to(x.dtype)
     return (out, state) if return_state else out
 
@@ -275,9 +279,12 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
     h = torch.zeros((b, x.shape[-1], a.shape[-1]), dtype=_F32,
                     device=x.device)
     hs = []
-    for i in range(t):
-        h = da[i] * h + dbx[i]
-        hs.append(h)
+    with record_function("ssm_scan"):
+        # unbind, not indexing: under autograd each index's backward would
+        # write a gradient the size of the whole tensor
+        for da_t, dbx_t in zip(da.unbind(0), dbx.unbind(0)):
+            h = da_t * h + dbx_t
+            hs.append(h)
     y = (torch.stack(hs, dim=1) * c_t[:, :, None, :]).sum(-1) \
         + p.d_skip * x32                                    # [B, T, d_in]
     y = y.to(x.dtype) * F.silu(z)
