@@ -1337,7 +1337,7 @@ def phase_megatron(torch, kernels):
         f"mesh={MESH} batch={BATCH} prompt={PROMPT} gen={GEN}; plan "
         f"{sched.algorithm} n_plan_stages={sched.n_plan_stages} "
         f"n_fallback_stages={sched.n_fallback_stages}; params "
-        f"{sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9:.2f} GB")
+        f"{param_gb(params):.2f} GB")
 
     torch.cuda.reset_peak_memory_stats()
     run = serve(torch, cfg, params, mesh, "plan", plan, prompts, kernels,
@@ -1418,7 +1418,7 @@ def phase_mixtral(torch, kernels):
         f"{cfg.moe.top_k} window={cfg.swa_window} layers={cfg.n_layers}/32 "
         f"mesh={MESH} EP axes {dist.ep_axes} ({cfg.a2a_impl!r} resolves to "
         f"the rotation); params "
-        f"{sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9:.2f} GB, "
+        f"{param_gb(params):.2f} GB, "
         f"initialised in {time.perf_counter() - t0:.1f} s")
 
     # (a) the plan, then the config's flash (the rotation schedule)
@@ -2154,15 +2154,16 @@ def attn_counts(*parts):
             for k in ("flash_attention", "flash_attention_bwd")}
 
 
-def check_stack_launches(label, counts, want_attn):
-    """``want_attn`` flash_attention launches, no attention backward and no
-    expert kernel (none of the three stacks has experts)."""
-    bad = {k: counts[k] for k in EXPERT_KERNELS + ("flash_attention_bwd",)
-           if counts[k]}
-    if counts["flash_attention"] != want_attn or bad:
+def check_stack_launches(label, counts, want_attn, want_bwd=0):
+    """``want_attn`` flash_attention launches, ``want_bwd`` attention
+    backward ones and no expert kernel (none of the three stacks has
+    experts)."""
+    bad = {k: counts[k] for k in EXPERT_KERNELS if counts[k]}
+    if counts["flash_attention"] != want_attn or bad or \
+            counts["flash_attention_bwd"] != want_bwd:
         raise AssertionError(f"{label}: launches {counts}; expected "
-                             f"{want_attn} flash_attention and nothing "
-                             f"else")
+                             f"{want_attn} flash_attention, {want_bwd} "
+                             f"flash_attention_bwd and nothing else")
 
 
 def check_stack_run(torch, run, cfg, batch, label, prefill_attn):
@@ -2456,13 +2457,12 @@ def phase_hymba_train(torch, kernels):
     run = train_run(torch, cfg, None, batches, kernels)
     n = cfg.n_layers
     for i, (got, by) in enumerate(zip(run["launches"], run["variants"])):
-        check_stack_launches(f"hymba train step {i}", dict(
-            got, flash_attention_bwd=0), 2 * n)
-        bwd = by["flash_attention_bwd"]
-        if got["flash_attention_bwd"] != n or bwd["wgmma"] != n:
+        check_stack_launches(f"hymba train step {i}", got, 2 * n, n)
+        if by["flash_attention_bwd"]["wgmma"] != n:
             raise AssertionError(f"hymba train step {i}: attention "
-                                 f"backward launches {bwd}; expected {n} "
-                                 f"on wgmma")
+                                 f"backward launches by instance "
+                                 f"{by['flash_attention_bwd']}; expected all "
+                                 f"{n} on wgmma")
     plain = train_run(torch, cfg, None, batches, kernels, use_kernel=False)
     if any(any(c.values()) for c in plain["launches"]):
         raise AssertionError(f"hymba train[plain]: use_kernel=False "

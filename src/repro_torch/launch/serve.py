@@ -121,7 +121,7 @@ def _plan_dispatch_schedules(gen_len: int, use_plan_server: bool) -> dict:
                          seed=(step // 4 if step % 4 == 0 else step))
             for step in range(gen_len)]
     t0 = time.perf_counter()
-    out = {"steps": len(traj)}
+    out = {}
     if use_plan_server:
         from ..serving import PlanClient, PlanServer
 

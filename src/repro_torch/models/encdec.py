@@ -38,6 +38,7 @@ from .layers import (
     mlp_apply,
     norm_apply,
     param,
+    take_rows,
 )
 
 __all__ = [
@@ -97,16 +98,6 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig, device="cuda",
     return EncDec(cfg, gen, device, train)
 
 
-def _take(table: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
-    """Rows ``idx`` of ``table`` in ``dtype``.  Under a gradient the table is
-    cast, then gathered, as the reference does, so that a repeated row's
-    gradient sums in ``dtype`` as there; otherwise only the rows taken are
-    cast (the same values)."""
-    if torch.is_grad_enabled() and table.requires_grad:
-        return table.to(dtype)[idx]
-    return table[idx].to(dtype)
-
-
 def _cross_attend(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                   enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
     """x [B, Sq, d]; enc_k, enc_v [B, Se, K, Dh] (already projected)."""
@@ -161,8 +152,8 @@ def encdec_forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
     # saturate at the learned table's last row (the reference's clamp)
     pos_idx = torch.clamp(torch.arange(s, device=enc_out.device),
                           max=_MAX_DECODE_POS - 1)
-    x = _take(params.embed, tokens, compute) \
-        + _take(params.dec_pos, pos_idx, compute)[None]
+    x = take_rows(params.embed, tokens, compute) \
+        + take_rows(params.dec_pos, pos_idx, compute)[None]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     for blk in params.dec_blocks:
@@ -237,7 +228,7 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDec, cache,
     compute = getattr(torch, cfg.compute_dtype)
     pos = int(pos)
     pos_emb = params.dec_pos[min(pos, _MAX_DECODE_POS - 1)].to(compute)
-    x = _take(params.embed, tokens[:, None], compute) + pos_emb[None, None]
+    x = take_rows(params.embed, tokens[:, None], compute) + pos_emb[None, None]
     for blk, cache_l in zip(params.dec_blocks, cache):
         h = norm_apply(cfg, blk.norm1, x)
         attn, _, _ = attention_decode(cfg, blk.attn, h, cache_l["k"],

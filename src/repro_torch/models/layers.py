@@ -33,7 +33,8 @@ from ..kernels.flash_attention import flash_attention_autograd as \
 NEG_INF = -1e30
 
 __all__ = [
-    "dense_init", "embed_init", "param", "Norm", "Attention", "MLP",
+    "dense_init", "embed_init", "param", "take_rows", "Norm", "Attention",
+    "MLP",
     "norm_apply", "rms_head_norm", "apply_rope", "attention_apply",
     "assemble_kv_cache", "attention_decode", "mlp_apply",
 ]
@@ -63,6 +64,16 @@ def param(t: torch.Tensor) -> nn.Parameter:
     """A frozen parameter: the serving path takes no gradients (training
     turns them on for the whole module, ``models.model.build_model``)."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows ``idx`` of an embedding table in ``dtype``.  Under a gradient the
+    table is cast, then gathered, as the reference does, so that a repeated
+    row's gradient sums in ``dtype`` as there; otherwise only the rows taken
+    are cast (the same values)."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return table.to(dtype)[idx]
+    return table[idx].to(dtype)
 
 
 # ---------------------------------------------------------------------------

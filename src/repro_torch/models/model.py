@@ -72,7 +72,6 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False
             use_kernel=True: encdec.encdec_decode_step(
                 cfg, params, cache, tokens, pos, dist, use_kernel=use_kernel),
         )
-    transformer.layer_kinds(cfg)  # raises for a malformed block pattern
     return Model(
         cfg=cfg,
         init=lambda gen: transformer.init_lm(gen, cfg, dev, train),

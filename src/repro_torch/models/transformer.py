@@ -52,6 +52,7 @@ from .layers import (
     mlp_apply,
     norm_apply,
     param,
+    take_rows,
 )
 from .moe import MoE, moe_apply
 from .ssm import (
@@ -288,13 +289,7 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
 def _embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
                   extras) -> torch.Tensor:
     compute = getattr(torch, cfg.compute_dtype)
-    # Under a gradient, cast the table, then gather, as the reference does:
-    # a repeated token's gradient then sums in the compute dtype, as there.
-    # The values are the same either way, so serving casts only its rows.
-    if torch.is_grad_enabled() and params.embed.requires_grad:
-        x = params.embed.to(compute)[tokens]
-    else:
-        x = params.embed[tokens].to(compute)
+    x = take_rows(params.embed, tokens, compute)
     if cfg.frontend == "vision_stub" and extras is not None:
         fl = cfg.frontend_len
         patch = torch.as_tensor(extras["patch_embeds"],

@@ -27,7 +27,7 @@ import torch
 from repro.configs import smoke_config as ref_smoke_config
 from repro.models import encdec as ref_encdec
 from repro_torch.configs import smoke_config
-from repro_torch.convert import from_jax_params
+from repro_torch.convert import _flatten, from_jax_params
 from repro_torch.models import build_model, encdec
 
 ARCH = "whisper-tiny"
@@ -43,19 +43,6 @@ def _rel(a, b):
 def _rel_norm(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
-
-
-def _flatten(tree, prefix="", out=None):
-    out = {} if out is None else out
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _flatten(v, f"{prefix}{k}.", out)
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _flatten(v, f"{prefix}{i}.", out)
-    else:
-        out[prefix[:-1]] = np.asarray(tree)
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +105,8 @@ def test_loss_and_gradients_match_reference(setup):
     assert metrics["loss"].item() == metrics["nll"].item()
     assert _rel(loss.item(), float(ref_loss)) < 1e-5
     assert _rel(metrics["ppl_proxy"].item(), float(ref_m["ppl_proxy"])) < 1e-4
-    ref_flat = _flatten(ref_grads)
+    ref_flat = {}
+    _flatten(ref_grads, "", ref_flat)
     assert set(named) == set(ref_flat)
     errs = {k: _rel_norm(g.numpy(), ref_flat[k])
             for k, g in zip(named, grads)}

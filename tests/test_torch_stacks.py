@@ -31,7 +31,7 @@ from repro.models import build_model as ref_build_model
 from repro.models.transformer import init_lm as ref_init_lm
 from repro.models.transformer import lm_prefill as ref_lm_prefill
 from repro_torch.configs import list_archs, smoke_config
-from repro_torch.convert import from_jax_params
+from repro_torch.convert import _flatten, from_jax_params
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch import serve, train
 from repro_torch.models import build_model
@@ -53,20 +53,6 @@ def _rel(a, b):
 def _rel_norm(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
-
-
-def _flatten(tree, prefix="", out=None):
-    """The reference pytree's leaves by the port's parameter names."""
-    out = {} if out is None else out
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _flatten(v, f"{prefix}{k}.", out)
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _flatten(v, f"{prefix}{i}.", out)
-    else:
-        out[prefix[:-1]] = np.asarray(tree)
-    return out
 
 
 def _unstack(tree, n_layers):
@@ -154,7 +140,8 @@ def test_train_loss_and_gradients_match_reference(case):
     (ref_loss, _), ref_grads = jax.jit(jax.value_and_grad(
         lambda p: ref_model.loss(p, ref_batch), has_aux=True))(
             case["ref_params"])
-    ref_flat = _flatten(_unstack(ref_grads, cfg.n_layers))
+    ref_flat = {}
+    _flatten(_unstack(ref_grads, cfg.n_layers), "", ref_flat)
 
     params = from_jax_params(
         jax.tree.map(np.asarray, case["ref_params"]), cfg, device="cpu",
