@@ -1,9 +1,9 @@
-"""All-to-All schedules on a local mesh, and the one registry that selects
-them.
+"""All-to-All schedules on a mesh, and the one registry that selects them.
 
 Counterpart of ``src/repro/comm/all_to_all.py``.  Every impl takes a stacked
-``x [R, n_shards, ...]`` (rank-major, see ``launch/mesh.py``) and returns,
-per rank, exactly
+``x [R, n_shards, ...]`` (rank-major, see ``launch/mesh.py``; ``R`` is the
+mesh's ``local_size``: every rank on a ``LocalMesh``, one on a
+``ProcessMesh``) and returns, per rank, exactly
 
     out[src_shard] = chunk that shard ``src_shard`` addressed to this rank
 
@@ -16,8 +16,9 @@ schedule: an intra-pod all-to-all aligns each block with its rail, then one
 same rotations with the intra-pod redistribution after the slow hop) and
 ``plan`` (``comm/plan_exec.py``).  ``rotation_all_to_all`` is the schedule for
 EP over the slow axis alone; ``fast_only_all_to_all`` the degenerate case with
-no slow traffic.  On one card every ``ppermute`` and all-to-all is a
-device-side copy, so the schedules differ only in the order of the copies.
+no slow traffic.  On a ``LocalMesh`` every ``ppermute`` and all-to-all is a
+device-side copy, so the schedules differ only in the order of the copies;
+on a ``ProcessMesh`` they are the process groups' collectives.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..launch.mesh import LocalMesh, all_to_all, ppermute
+from ..launch.mesh import LocalMesh, ProcessMesh, all_to_all, ppermute
 
 __all__ = [
     "ALL_TO_ALL_IMPLS",
@@ -45,6 +46,7 @@ __all__ = [
 ]
 
 AxisNames = Union[str, Tuple[str, ...]]
+Mesh = Union[LocalMesh, ProcessMesh]
 
 # name -> fn(x, slow_axis, fast_axes, *, mesh)
 ALL_TO_ALL_IMPLS: dict = {}
@@ -86,32 +88,34 @@ def all_to_all_by_name(name: str):
 
 @register_all_to_all_impl("direct")
 def direct_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
-                      *, mesh: LocalMesh) -> torch.Tensor:
+                      *, mesh: Mesh) -> torch.Tensor:
     """One flat all-to-all over the combined (slow, fast...) axes."""
     axes = (slow_axis, *_as_tuple(fast_axes))
     return all_to_all(mesh, x, axes)
 
 
 def intra_all_to_all(x: torch.Tensor, fast_axes: AxisNames, *,
-                     mesh: LocalMesh) -> torch.Tensor:
+                     mesh: Mesh) -> torch.Tensor:
     """All-to-all restricted to the fast (intra-pod) axes."""
     return all_to_all(mesh, x, _as_tuple(fast_axes))
 
 
-def _ranks(mesh: LocalMesh, device) -> torch.Tensor:
-    return mesh.cached_index(("ranks",), device, lambda: np.arange(mesh.size))
+def _ranks(mesh: Mesh, device) -> torch.Tensor:
+    return mesh.cached_index(("ranks",), device,
+                             lambda: np.arange(mesh.local_size))
 
 
-def _shifted(mesh: LocalMesh, axis: str, shift: int, device) -> torch.Tensor:
-    """``[R]``: each rank's coordinate along ``axis`` plus ``shift``, modulo
-    the axis size (the reference's ``lax.rem(my + shift, p)``)."""
+def _shifted(mesh: Mesh, axis: str, shift: int, device) -> torch.Tensor:
+    """``[local_size]``: each held rank's coordinate along ``axis`` plus
+    ``shift``, modulo the axis size (the reference's ``lax.rem(my + shift,
+    p)``)."""
     a = mesh.axis_names.index(axis)
     return mesh.cached_index(
         ("shifted", axis, shift), device,
-        lambda: (mesh.coords()[:, a] + shift) % mesh.shape[a])
+        lambda: (mesh.local_coords()[:, a] + shift) % mesh.shape[a])
 
 
-def _rotations(x: torch.Tensor, axis: str, mesh: LocalMesh,
+def _rotations(x: torch.Tensor, axis: str, mesh: Mesh,
                before=None, after=None) -> torch.Tensor:
     """The balanced Birkhoff rotation schedule over ``axis`` on stacked
     ``x [R, p, ...]``: stage ``shift`` sends each rank's block for
@@ -139,7 +143,7 @@ def _rotations(x: torch.Tensor, axis: str, mesh: LocalMesh,
 
 
 def _two_tier(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
-              mesh: LocalMesh, intra_first: bool) -> torch.Tensor:
+              mesh: Mesh, intra_first: bool) -> torch.Tensor:
     fast = _as_tuple(fast_axes)
     p = mesh.axis_size(slow_axis)
     i = mesh.axis_size(fast)
@@ -155,7 +159,7 @@ def _two_tier(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
 
 @register_all_to_all_impl("flash")
 def flash_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
-                     *, mesh: LocalMesh) -> torch.Tensor:
+                     *, mesh: Mesh) -> torch.Tensor:
     """FLASH two-tier All-to-All: per rotation, load balance first (the
     intra-pod all-to-all hands local rank ``i`` every block bound for fast
     index ``i`` of the destination pod), then one contiguous transfer to the
@@ -166,7 +170,7 @@ def flash_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
 @register_all_to_all_impl("hierarchical")
 def hierarchical_all_to_all(x: torch.Tensor, slow_axis: str,
                             fast_axes: AxisNames, *,
-                            mesh: LocalMesh) -> torch.Tensor:
+                            mesh: Mesh) -> torch.Tensor:
     """MSCCL-style baseline: the same rotations, each rank shipping its own
     block over the slow axis first and the receiving pod redistributing it
     over the fast axes after."""
@@ -175,14 +179,14 @@ def hierarchical_all_to_all(x: torch.Tensor, slow_axis: str,
 
 def fast_only_all_to_all(x: torch.Tensor, slow_axis: str,
                          fast_axes: AxisNames, *,
-                         mesh: LocalMesh) -> torch.Tensor:
+                         mesh: Mesh) -> torch.Tensor:
     """Degenerate case: EP axis entirely inside one pod (no slow traffic)."""
     del slow_axis
     return intra_all_to_all(x, fast_axes, mesh=mesh)
 
 
 def rotation_all_to_all(x: torch.Tensor, axis: str, *,
-                        mesh: LocalMesh) -> torch.Tensor:
+                        mesh: Mesh) -> torch.Tensor:
     """All-to-all over one axis as ``p - 1`` ppermute rotations: the FLASH
     form of a slow-axis-only exchange (mixtral: EP over ``pod``)."""
     return _rotations(x, axis, mesh)
@@ -191,7 +195,7 @@ def rotation_all_to_all(x: torch.Tensor, axis: str, *,
 def resolve_all_to_all(
     dist=None,
     *,
-    mesh: Optional[LocalMesh] = None,
+    mesh: Optional[Mesh] = None,
     slow_axis: Optional[str] = None,
     ep_axes: Optional[Sequence[str]] = None,
     impl: str = "flash",
@@ -239,7 +243,7 @@ def resolve_all_to_all(
     if not ep:
         return None
     if mesh is None:
-        raise ValueError("resolve_all_to_all needs the local mesh")
+        raise ValueError("resolve_all_to_all needs the mesh")
     if slow_axis in ep and len(ep) > 1:
         fast = tuple(a for a in ep if a != slow_axis)
         return partial(two_tier, slow_axis=slow_axis, fast_axes=fast,

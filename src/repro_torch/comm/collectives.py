@@ -1,9 +1,12 @@
-"""Distributed-optimization collectives beyond the paper, on the local mesh.
+"""Distributed-optimization collectives beyond the paper, on either mesh.
 
 Counterpart of ``src/repro/comm/collectives.py``.  The reference calls these
 inside ``shard_map`` on each rank's value; here a per-rank value is a
-stacked tensor ``[R, ...]`` over a ``LocalMesh`` (``launch/mesh.py``), and
-each function returns, per rank, what the reference returns.
+stacked tensor ``[R, ...]`` over a ``LocalMesh`` or, with ``R = 1``, a
+``ProcessMesh`` (``launch/mesh.py``), and each function returns, per rank,
+what the reference returns.  On a ``ProcessMesh`` each gathers every group
+member's payload over the axis's process group and sums it in member order,
+as the ``LocalMesh`` forms do, so the two agree bit for bit.
 
 * ``ef_compressed_psum``: int8 error-feedback gradient sum over one axis:
   quantize (grad + error carry) per tensor to int8, gather every group
@@ -19,7 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..launch.mesh import LocalMesh, _group
+from ..launch.mesh import ProcessMesh, _group, all_gather
 
 __all__ = ["ef_compressed_psum", "psum_bf16", "tree_ef_state"]
 
@@ -33,7 +36,7 @@ def _quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.reshape(x.shape), scale
 
 
-def ef_compressed_psum(mesh: LocalMesh, grad: torch.Tensor, axis_name: str,
+def ef_compressed_psum(mesh, grad: torch.Tensor, axis_name: str,
                        error: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Error-feedback int8 gradient sum over ``axis_name`` of stacked
@@ -42,24 +45,33 @@ def ef_compressed_psum(mesh: LocalMesh, grad: torch.Tensor, axis_name: str,
     tensor."""
     carry = grad if error is None else grad + error
     q, scale = _quantize_int8(carry)
-    members = mesh.cached_index(("a2a_members", (axis_name,)), grad.device,
-                                lambda: _group(mesh, (axis_name,))[1])
     ones = (1,) * (grad.dim() - 1)
+    if isinstance(mesh, ProcessMesh):
+        qs = all_gather(mesh, q, axis_name)            # [1, n, ...]
+        scales = all_gather(mesh, scale, axis_name)    # [1, n]
+        parts = [(qs[:, j], scales[:, j]) for j in range(qs.shape[1])]
+    else:
+        members = mesh.cached_index(("a2a_members", (axis_name,)),
+                                    grad.device,
+                                    lambda: _group(mesh, (axis_name,))[1])
+        parts = [(q.index_select(0, members[:, j]),
+                  scale.index_select(0, members[:, j]))
+                 for j in range(members.shape[1])]
     total = None
-    for j in range(members.shape[1]):     # the gathered members, in order
-        src = members[:, j]
-        deq = q.index_select(0, src).to(grad.dtype) \
-            * scale.index_select(0, src).reshape(-1, *ones).to(grad.dtype)
+    for qj, sj in parts:                  # the gathered members, in order
+        deq = qj.to(grad.dtype) * sj.reshape(-1, *ones).to(grad.dtype)
         total = deq if total is None else total + deq
     new_error = carry - q.to(grad.dtype) \
         * scale.reshape(-1, *ones).to(grad.dtype)
     return total, new_error
 
 
-def psum_bf16(mesh: LocalMesh, grad: torch.Tensor,
-              axis_name: str) -> torch.Tensor:
+def psum_bf16(mesh, grad: torch.Tensor, axis_name: str) -> torch.Tensor:
     """The sum over ``axis_name`` of stacked ``grad [R, ...]`` in bf16 (half
     the bytes of f32), returned in ``grad``'s dtype on every rank."""
+    if isinstance(mesh, ProcessMesh):
+        parts = all_gather(mesh, grad.to(torch.bfloat16), axis_name)
+        return parts.sum(dim=1, dtype=torch.bfloat16).to(grad.dtype)
     dim = mesh.axis_names.index(axis_name)
     xm = grad.to(torch.bfloat16).reshape(*mesh.shape, *grad.shape[1:])
     total = xm.sum(dim=dim, keepdim=True, dtype=torch.bfloat16)

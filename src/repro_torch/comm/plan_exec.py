@@ -1,5 +1,5 @@
-"""Plan-driven All-to-All on a local mesh: lower a synthesized Plan and run
-it as pack -> intra-pod all-to-all -> one ppermute per stage -> unpack.
+"""Plan-driven All-to-All on a mesh: lower a synthesized Plan and run it as
+pack -> intra-pod all-to-all -> one ppermute per stage -> unpack.
 
 Counterpart of ``src/repro/comm/plan_exec.py``.  ``lower_plan`` is the same
 pure-Python lowering (a ``Plan``'s Birkhoff permutation stages, first
@@ -7,13 +7,15 @@ occurrence of each pod pair, then rotation stages for pairs the plan never
 names), memoized on the plan object under its own attribute so a plan
 lowered by both packages never hands one package the other's type.
 
-``plan_all_to_all`` runs every rank of the stacked mesh at once: the
+``plan_all_to_all`` runs every rank the mesh holds here at once (all of
+them on a ``LocalMesh``, this process's own on a ``ProcessMesh``): the
 per-rank ``dst_idx`` / ``src_idx`` rows are built on the host from the
-static stage tables and offset into global block indices over all ranks'
-rows, so ONE ``a2a_pack`` launch packs every rank and ONE ``a2a_unpack``
-launch scatters every rank into its own ``p + 1`` output blocks (the last
-one a per-rank trash block for idle stages, sliced off at the end).  The
-result is bit-identical to ``direct_all_to_all``.
+static stage tables and offset into global block indices over the held
+ranks' rows, so ONE ``a2a_pack`` launch packs them all and ONE
+``a2a_unpack`` launch scatters each into its own ``p + 1`` output blocks
+(the last one a per-rank trash block for idle stages, sliced off at the
+end; one per process on a ``ProcessMesh``).  The result is bit-identical
+to ``direct_all_to_all``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from ..kernels.a2a_pack.a2a_pack import a2a_pack, a2a_unpack
 from ..kernels.a2a_pack.ref import a2a_pack_ref, a2a_unpack_ref
-from ..launch.mesh import LocalMesh, all_to_all, ppermute
+from ..launch.mesh import all_to_all, ppermute
 from .all_to_all import _as_tuple, register_all_to_all_impl
 
 __all__ = ["DeviceSchedule", "lower_plan", "is_lowered", "plan_all_to_all"]
@@ -166,13 +168,14 @@ def is_lowered(plan_or_schedule, n_pods: Optional[int] = None) -> bool:
     return p in plan.__dict__.get(_MEMO_ATTR, {})
 
 
-def _global_rows(mesh: LocalMesh, sched: DeviceSchedule,
+def _global_rows(mesh, sched: DeviceSchedule,
                  pods: Tuple[int, ...], blocks_per_rank: int, table: str,
                  idle: Optional[int], device) -> torch.Tensor:
-    """Every rank's pack (``table="dst_of"``) or unpack (``"src_of"``) index
-    row -- its own pod first, then its role in each stage, ``idle`` (or its
-    own pod when None) where it has none -- offset by ``rank *
-    blocks_per_rank`` into global block indices, flattened to int32.  Built
+    """Every held rank's pack (``table="dst_of"``) or unpack (``"src_of"``)
+    index row -- its own pod first, then its role in each stage, ``idle``
+    (or its own pod when None) where it has none -- offset by ``rank *
+    blocks_per_rank`` (``rank`` counting the held ranks) into global block
+    indices, flattened to int32.  Built
     once per schedule and mesh, on the host from the static stage tables."""
     def build():
         tab = getattr(sched, table)
@@ -190,7 +193,7 @@ def _global_rows(mesh: LocalMesh, sched: DeviceSchedule,
 
 @register_all_to_all_impl("plan")
 def plan_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes, *,
-                    mesh: LocalMesh, plan=None, schedule=None,
+                    mesh, plan=None, schedule=None,
                     use_kernel: bool = True) -> torch.Tensor:
     """Execute a lowered plan as the two-tier All-to-All on stacked
     ``x [R, n_shards, ...]``.
@@ -208,7 +211,7 @@ def plan_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes, *,
     fast = _as_tuple(fast_axes) if fast_axes else ()
     p = mesh.axis_size(slow_axis)
     i = mesh.axis_size(fast) if fast else 1
-    r = mesh.size
+    r = mesh.local_size
     if x.shape[0] != r:
         raise ValueError(f"leading dim {x.shape[0]} != {r} ranks")
     n, rest = x.shape[1], tuple(x.shape[2:])
@@ -216,7 +219,8 @@ def plan_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes, *,
         raise ValueError(f"leading dim {n} != slow*fast = {p}*{i}")
     sched = lower_plan(src, n_pods=p)
     s = sched.n_stages
-    pods = tuple(mesh.coords()[:, mesh.axis_names.index(slow_axis)].tolist())
+    pods = tuple(mesh.local_coords()[
+        :, mesh.axis_names.index(slow_axis)].tolist())
     pack = a2a_pack if use_kernel else a2a_pack_ref
     unpack = a2a_unpack if use_kernel else a2a_unpack_ref
 

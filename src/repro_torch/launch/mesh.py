@@ -1,13 +1,23 @@
-"""The local mesh: every rank of a ``("pod", "data", "model")`` mesh stacked
-on one device.
+"""The meshes of the port: every rank of a ``("pod", "data", "model")`` mesh
+stacked on one device (``LocalMesh``), or one OS process per rank
+(``ProcessMesh``).
 
 The JAX package runs its expert-parallel program under ``shard_map`` on a
-mesh of devices.  Here one card holds all ranks: a per-rank tensor of shape
-``[...]`` becomes a stacked tensor ``[R, ...]`` whose leading index is the
-rank, ranks in row-major order over the mesh axes (slow axis major), the
-same order as the JAX mesh's devices.  The collectives below act on stacked
-tensors and are device-side copies; they compute what ``lax.all_to_all``,
-``lax.ppermute``, ``lax.axis_index`` and ``lax.pmean`` compute per rank.
+mesh of devices.  On a ``LocalMesh`` one device holds all ranks: a per-rank
+tensor of shape ``[...]`` becomes a stacked tensor ``[R, ...]`` whose
+leading index is the rank, ranks in row-major order over the mesh axes (slow
+axis major), the same order as the JAX mesh's devices.  On a ``ProcessMesh``
+(``launch/procs.py`` starts it) each process holds its own rank, as a stack
+of one, ``[1, ...]``, so the code above the mesh runs unchanged on either.
+The collectives below compute what ``lax.all_to_all``, ``lax.ppermute``,
+``lax.axis_index`` and ``lax.pmean`` compute per rank: device-side copies on
+a ``LocalMesh``, ``torch.distributed`` calls on a ``ProcessMesh``'s process
+groups.
+
+``size`` is the number of ranks of the mesh and ``coords()`` their
+coordinates; ``local_size`` and ``local_coords()`` are those of the ranks
+this process holds (all of them on a ``LocalMesh``, its own on a
+``ProcessMesh``).
 """
 
 from __future__ import annotations
@@ -17,9 +27,11 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
 
-__all__ = ["LocalMesh", "make_mesh", "resolve_device", "dp_axes",
-           "slow_axis", "all_to_all", "ppermute", "axis_index", "pmean"]
+__all__ = ["LocalMesh", "ProcessMesh", "make_mesh", "make_production_mesh",
+           "resolve_device", "dp_axes", "slow_axis", "all_to_all",
+           "ppermute", "axis_index", "pmean", "all_gather"]
 
 AxisNames = Union[str, Tuple[str, ...]]
 
@@ -69,6 +81,15 @@ class LocalMesh:
     def size(self) -> int:
         return int(np.prod(self.shape)) if self.shape else 1
 
+    @property
+    def local_size(self) -> int:
+        """Ranks held by this process: all of them."""
+        return self.size
+
+    def local_coords(self) -> np.ndarray:
+        """``[local_size, n_axes]`` coordinates of the ranks held here."""
+        return self.coords()
+
     def axis_size(self, axes: AxisNames) -> int:
         sizes = dict(zip(self.axis_names, self.shape))
         return int(np.prod([sizes[a] for a in _as_tuple(axes)]))
@@ -94,6 +115,112 @@ class LocalMesh:
         return sub
 
 
+def _ravel(coords: Sequence[int], shape: Sequence[int]) -> int:
+    r = 0
+    for c, n in zip(coords, shape):
+        r = r * n + int(c)
+    return r
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProcessMesh:
+    """Named axes over ``R = prod(shape)`` ranks, one OS process each; this
+    process holds rank ``rank`` (row-major over the axes, as a
+    ``LocalMesh``), at coordinates ``rank_coords``.
+
+    A per-rank tensor is a stack of one, ``[1, ...]``.  Exchanges go over
+    ``torch.distributed`` process groups, one per set of axes: the ranks
+    that share every other coordinate (``launch/procs.py`` creates them all
+    at start-up, in the same order on every rank, since creating a group is
+    collective over the world).  ``backend`` is ``"gloo"`` or ``"nccl"``;
+    under gloo a CUDA tensor is staged through pinned host memory inside
+    each collective (gloo's transport is the host), under NCCL it stays on
+    the card.  A sub-mesh (``sub``) is the ranks that share this process's
+    coordinates on the axes left out; it reuses the root's groups.
+    """
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    device: torch.device
+    rank: int
+    backend: str
+    # the root mesh (the world): its shape, axis names and this process's
+    # coordinates there; sorted member world ranks -> process group
+    root_shape: Tuple[int, ...]
+    root_axes: Tuple[str, ...]
+    root_coords: Tuple[int, ...]
+    groups: dict = dataclasses.field(repr=False)
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    cached_index = LocalMesh.cached_index
+    size = LocalMesh.size
+    axis_size = LocalMesh.axis_size
+    coords = LocalMesh.coords
+
+    @property
+    def local_size(self) -> int:
+        """Ranks held by this process: its own."""
+        return 1
+
+    @property
+    def rank_coords(self) -> Tuple[int, ...]:
+        """This process's coordinates on this mesh's axes."""
+        return tuple(self.root_coords[self.root_axes.index(a)]
+                     for a in self.axis_names)
+
+    def local_coords(self) -> np.ndarray:
+        """``[1, n_axes]``: this process's coordinates."""
+        return np.asarray([self.rank_coords], np.int64).reshape(
+            1, len(self.axis_names))
+
+    def sub(self, axes: Sequence[str]) -> "ProcessMesh":
+        """The mesh of ``axes`` alone: the ranks sharing this process's
+        coordinates on every other axis."""
+        axes = tuple(axes)
+        sub = self._cache.get(("sub", axes))
+        if sub is None:
+            if [a for a in self.axis_names if a in axes] != list(axes):
+                raise ValueError(f"axes {axes} must be mesh axes in mesh "
+                                 f"order {self.axis_names}")
+            shape = tuple(self.axis_size(a) for a in axes)
+            mine = [self.root_coords[self.root_axes.index(a)] for a in axes]
+            sub = dataclasses.replace(
+                self, shape=shape, axis_names=axes, rank=_ravel(mine, shape),
+                _cache={})
+            self._cache[("sub", axes)] = sub
+        return sub
+
+    def members(self, axes: AxisNames) -> Tuple[int, ...]:
+        """World ranks of this process's group over ``axes``, by combined
+        index over ``axes`` (first axis major)."""
+        axes = _as_tuple(axes)
+        key = ("members", axes)
+        out = self._cache.get(key)
+        if out is None:
+            pos = [self.root_axes.index(a) for a in axes]
+            sizes = [self.root_shape[q] for q in pos]
+            out = []
+            for j in range(int(np.prod(sizes)) if sizes else 1):
+                c = list(self.root_coords)
+                for q, v in zip(pos, np.unravel_index(j, sizes)
+                                if sizes else ()):
+                    c[q] = int(v)
+                out.append(_ravel(c, self.root_shape))
+            out = tuple(out)
+            self._cache[key] = out
+        return out
+
+    def group(self, axes: AxisNames):
+        """The process group over ``axes``; None for a group of one rank
+        in a larger world (its collectives are local)."""
+        key = tuple(sorted(self.members(axes)))
+        if key in self.groups:
+            return self.groups[key]
+        if len(key) == 1:
+            return None
+        raise KeyError(f"no process group for ranks {key}")
+
+
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
               device: Union[str, torch.device] = "cuda") -> LocalMesh:
     """A ``LocalMesh`` of ``shape`` named ``axes`` on ``device``."""
@@ -104,12 +231,34 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     return LocalMesh(shape, axes, resolve_device(device))
 
 
-def dp_axes(mesh: LocalMesh) -> Tuple[str, ...]:
+def make_production_mesh(*, multi_pod: bool = False, process: bool = False,
+                         device: Union[str, torch.device] = "cuda",
+                         backend: Optional[str] = None,
+                         init_method: Optional[str] = None):
+    """The reference's production shapes: ``(pod 2, data 16, model 16)``
+    with ``multi_pod``, else ``(data 16, model 16)``.  ``process=False``
+    stacks them on ``device`` as a ``LocalMesh``; ``process=True`` joins
+    this process to a world of one process per rank
+    (``procs.init_process_mesh``, which needs ``backend`` and reads the
+    rank from the environment) and returns its ``ProcessMesh``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not process:
+        return make_mesh(shape, axes, device)
+    if backend is None:
+        raise ValueError("a ProcessMesh needs an explicit backend "
+                         "('gloo' or 'nccl')")
+    from .procs import init_process_mesh
+
+    return init_process_mesh(shape, axes, backend, device, init_method)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
     """Axes the batch shards over (everything except the TP axis)."""
     return tuple(a for a in mesh.axis_names if a != "model")
 
 
-def slow_axis(mesh: LocalMesh) -> Optional[str]:
+def slow_axis(mesh) -> Optional[str]:
     return "pod" if "pod" in mesh.axis_names else None
 
 
@@ -136,16 +285,16 @@ def _group(mesh: LocalMesh, axes: Tuple[str, ...]):
     return combined, members
 
 
-def axis_index(mesh: LocalMesh, axis: str) -> torch.Tensor:
-    """``[R]`` int64: each rank's coordinate along ``axis``."""
+def axis_index(mesh, axis: str) -> torch.Tensor:
+    """``[local_size]`` int64: each held rank's coordinate along ``axis``."""
     return mesh.cached_index(
         ("axis_index", axis), mesh.device,
-        lambda: mesh.coords()[:, mesh.axis_names.index(axis)])
+        lambda: mesh.local_coords()[:, mesh.axis_names.index(axis)])
 
 
-def all_to_all(mesh: LocalMesh, x: torch.Tensor, axes: AxisNames,
+def all_to_all(mesh, x: torch.Tensor, axes: AxisNames,
                axis: int = 0) -> torch.Tensor:
-    """Tiled all-to-all over ``axes`` on a stacked ``x [R, ...]``.
+    """Tiled all-to-all over ``axes`` on a stacked ``x [local_size, ...]``.
 
     ``axis`` is the per-rank split (= concat) dimension, whose size must be
     a multiple of ``n = prod(sizes of axes)``.  Per rank it is
@@ -154,7 +303,7 @@ def all_to_all(mesh: LocalMesh, x: torch.Tensor, axes: AxisNames,
     member ``j`` lands at position ``j``.
     """
     axes = _as_tuple(axes)
-    r = mesh.size
+    r = mesh.local_size
     if x.shape[0] != r:
         raise ValueError(f"leading dim {x.shape[0]} != {r} ranks")
     n = mesh.axis_size(axes) if axes else 1
@@ -162,6 +311,8 @@ def all_to_all(mesh: LocalMesh, x: torch.Tensor, axes: AxisNames,
     size = x.shape[k]
     if size % n:
         raise ValueError(f"dim {axis} of size {size} does not split {n} ways")
+    if isinstance(mesh, ProcessMesh):
+        return _proc_all_to_all(mesh, x, axes, k, n)
     # out[rank, ..., j, ...] = x[members[rank, j], ..., combined[rank], ...]
     xv = x.reshape(*x.shape[:k], n, size // n, *x.shape[k + 1:])
     src_rank = mesh.cached_index(("a2a_members", axes), x.device,
@@ -176,13 +327,25 @@ def all_to_all(mesh: LocalMesh, x: torch.Tensor, axes: AxisNames,
     return out.reshape(x.shape)
 
 
-def ppermute(mesh: LocalMesh, x: torch.Tensor, axis: str,
+def all_gather(mesh, x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
+    """``[local_size, n, ...]``: for each held rank, the ``x`` of every
+    member of its group over ``axes``, by combined index (an all-to-all of
+    ``n`` copies)."""
+    axes = _as_tuple(axes)
+    n = mesh.axis_size(axes) if axes else 1
+    rep = x.unsqueeze(1).expand(x.shape[0], n, *x.shape[1:]).contiguous()
+    return all_to_all(mesh, rep, axes, axis=0)
+
+
+def ppermute(mesh, x: torch.Tensor, axis: str,
              pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """``lax.ppermute`` over ``axis`` on a stacked ``x [R, ...]``: the rank
-    at coordinate ``d`` receives from the rank at ``s`` for each ``(s, d)``
-    (same coordinates on every other axis); ranks that receive nothing get
-    zeros."""
+    """``lax.ppermute`` over ``axis`` on a stacked ``x [local_size, ...]``:
+    the rank at coordinate ``d`` receives from the rank at ``s`` for each
+    ``(s, d)`` (same coordinates on every other axis); ranks that receive
+    nothing get zeros."""
     pairs = tuple((int(s), int(d)) for s, d in pairs)
+    if isinstance(mesh, ProcessMesh):
+        return _proc_ppermute(mesh, x, axis, pairs)
 
     def routes() -> np.ndarray:
         """``[2, n]``: receiving ranks, then the rank each receives from."""
@@ -205,9 +368,112 @@ def ppermute(mesh: LocalMesh, x: torch.Tensor, axis: str,
     return out
 
 
-def pmean(mesh: LocalMesh, x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
-    """``lax.pmean`` over ``axes`` on a stacked ``x [R, ...]``."""
+def pmean(mesh, x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
+    """``lax.pmean`` over ``axes`` on a stacked ``x [local_size, ...]``.
+
+    On a ``ProcessMesh`` it is an ``all_reduce`` sum over the group divided
+    by the group's size; its summation order is the backend's, so it may
+    differ from the ``LocalMesh``'s ``mean`` in the last bits (within a
+    relative 1e-6 in f32)."""
     axes = _as_tuple(axes)
+    if isinstance(mesh, ProcessMesh):
+        return _proc_pmean(mesh, x, axes)
     dims = [mesh.axis_names.index(a) for a in axes]
     xm = x.reshape(*mesh.shape, *x.shape[1:])
     return xm.mean(dim=dims, keepdim=True).expand_as(xm).reshape(x.shape)
+
+
+# -- the process forms ----------------------------------------------------------
+#
+# Each runs inside a profiler range named ``procmesh.<collective>`` (host
+# staging included), which reads the exchange's share of a traced step.
+
+def _staged(mesh: ProcessMesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` where the backend can move it: under gloo a CUDA tensor is
+    copied to pinned host memory (gloo's transport is the host)."""
+    if mesh.backend == "gloo" and x.is_cuda:
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host
+    return x.contiguous()
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes (the transport moves them unchanged,
+    whatever the dtype)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _proc_all_to_all(mesh: ProcessMesh, x: torch.Tensor,
+                     axes: Tuple[str, ...], k: int, n: int) -> torch.Tensor:
+    with torch.profiler.record_function("procmesh.all_to_all"):
+        group = mesh.group(axes)
+        if group is None:
+            return x.clone()
+        members = mesh.members(axes)
+        size = x.shape[k]
+        # [n, ...]: chunk j (for member j) leading
+        xv = x.reshape(*x.shape[:k], n, size // n, *x.shape[k + 1:]) \
+            .movedim(k, 0)
+        # the group's ranks are its sorted world ranks
+        order = sorted(range(n), key=lambda j: members[j])
+        if order != list(range(n)):
+            xv = xv[order]
+        send = _staged(mesh, xv)
+        recv = torch.empty_like(send)
+        torch_dist.all_to_all_single(_bytes(recv), _bytes(send), group=group)
+        if order != list(range(n)):
+            back = torch.empty_like(recv)
+            back[order] = recv
+            recv = back
+        out = recv.to(x.device, non_blocking=False).movedim(0, k)
+        return out.reshape(x.shape)
+
+
+def _proc_ppermute(mesh: ProcessMesh, x: torch.Tensor, axis: str,
+                   pairs: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+    with torch.profiler.record_function("procmesh.ppermute"):
+        a = mesh.axis_names.index(axis)
+        me = mesh.rank_coords[a]
+        peers = mesh.members((axis,))        # world rank at each coordinate
+        dst = {s: d for s, d in pairs}.get(me)
+        src = {d: s for s, d in pairs}.get(me)
+        # the world's group (its ranks are the world ranks), created with
+        # the mesh's collective timeout
+        world = mesh.groups.get(tuple(range(int(np.prod(mesh.root_shape)))))
+        out = torch.zeros_like(x)
+        if src == me:
+            out.copy_(x)
+        ops = []
+        if dst is not None and dst != me:
+            send = _staged(mesh, x)
+            ops.append(torch_dist.P2POp(torch_dist.isend, _bytes(send),
+                                        peers[dst], group=world))
+        recv = None
+        if src is not None and src != me:
+            recv = torch.empty(x.shape, dtype=x.dtype,
+                               device="cpu" if mesh.backend == "gloo"
+                               else x.device,
+                               pin_memory=mesh.backend == "gloo"
+                               and x.is_cuda)
+            ops.append(torch_dist.P2POp(torch_dist.irecv, _bytes(recv),
+                                        peers[src], group=world))
+        if ops:
+            for req in torch_dist.batch_isend_irecv(ops):
+                req.wait()
+        if recv is not None:
+            out.copy_(recv)
+        return out
+
+
+def _proc_pmean(mesh: ProcessMesh, x: torch.Tensor,
+                axes: Tuple[str, ...]) -> torch.Tensor:
+    with torch.profiler.record_function("procmesh.pmean"):
+        group = mesh.group(axes)
+        if group is None:
+            return x.clone()
+        buf = _staged(mesh, x)
+        if buf is x:
+            buf = x.clone()
+        torch_dist.all_reduce(buf, torch_dist.ReduceOp.SUM, group=group)
+        return (buf.to(x.device) / mesh.axis_size(axes)).to(x.dtype)

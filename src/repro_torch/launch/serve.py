@@ -2,8 +2,11 @@
 
 Counterpart of ``src/repro/launch/serve.py``.  ``make_prefill_step`` builds
 the prompt pass and ``make_serve_step`` the one-token decode step, on a
-``LocalMesh`` (all ranks of the JAX mesh stacked on one device) or with no
-mesh.  Run directly for a batched-serving demo on the card:
+``LocalMesh`` (all ranks of the JAX mesh stacked on one device), on a
+``ProcessMesh`` (this process's rank: its batch rows and its shard of the
+parameters, ``serve_procs``) or with no mesh.  ``serve_state_shapes`` gives
+the parameters' and cache's shapes (meta tensors) and specs.  Run directly
+for a batched-serving demo on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch megatron-moe-32e --n-layers 4 --mesh 2,16 --a2a plan
@@ -14,7 +17,14 @@ mesh.  Run directly for a batched-serving demo on the card:
         --arch xlstm-125m --smoke --device cpu --plan-server
 
 ``--mesh POD,DATA`` is the one-card counterpart of the JAX ``mesh``
-argument; ``--device cpu`` runs on the CPU.
+argument; ``--device cpu`` runs on the CPU.  ``--procs`` serves on one
+process per rank instead (``--backend`` gloo or nccl; under gloo the ranks
+may share one card and exchange through host memory), rank 0 printing the
+gathered tokens:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 2,2 --procs \\
+        --backend gloo
 """
 
 from __future__ import annotations
@@ -29,20 +39,38 @@ import torch
 
 from ..configs import ModelConfig, get_config, smoke_config
 from ..models import build_model
-from .mesh import LocalMesh, make_mesh, resolve_device
+from .mesh import make_mesh, resolve_device
 from .train import make_dist_context
 
 __all__ = ["make_dist_context", "make_serve_step", "make_prefill_step",
-           "flash_plan"]
+           "flash_plan", "serve_state_shapes", "serve_procs"]
+
+AXES = ("pod", "data", "model")
 
 
-def _device(mesh: Optional[LocalMesh], device) -> torch.device:
+def serve_state_shapes(cfg: ModelConfig, mesh, batch: int, seq_len: int):
+    """(params_shape, param specs, cache_shape, cache specs) in the
+    reference's layout, meta tensors (no memory); the specs are None
+    without a mesh.  The serving parameters keep the expert stacks in the
+    compute dtype (``models/moe.py``); their shapes are the reference's."""
+    from .shardings import cache_specs, cache_tree, param_specs, param_tree
+
+    model = build_model(cfg, "meta")
+    params = param_tree(model.init(torch.Generator()), cfg)
+    cache = cache_tree(model.init_cache(batch, seq_len), cfg)
+    if mesh is None:
+        return params, None, cache, None
+    return (params, param_specs(cfg, mesh, params), cache,
+            cache_specs(cfg, mesh, cache))
+
+
+def _device(mesh, device) -> torch.device:
     if device is not None:
         return resolve_device(device)
     return mesh.device if mesh is not None else resolve_device("cuda")
 
 
-def make_serve_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
+def make_serve_step(cfg: ModelConfig, mesh,
                     a2a_impl: Optional[str] = None, plan=None, *,
                     use_kernel: bool = True, device=None):
     """(params, cache, tokens [B], pos) -> (logits [B, V], cache).
@@ -51,7 +79,8 @@ def make_serve_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
     ``"auto"``), ``plan`` is the synthesized Plan/ExecutableSchedule behind
     ``"plan"``.  ``use_kernel=False`` runs the plain versions of the kernels,
     with or without a mesh.  The cache is updated in place.  ``device``
-    defaults to the mesh's, else the card.
+    defaults to the mesh's, else the card.  On a ``ProcessMesh`` the
+    parameters, cache and tokens are this process's (``serve_procs``).
     """
     model = build_model(cfg, _device(mesh, device))
     dist = make_dist_context(cfg, mesh, a2a_impl, plan, use_kernel) \
@@ -65,7 +94,7 @@ def make_serve_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
+def make_prefill_step(cfg: ModelConfig, mesh,
                       a2a_impl: Optional[str] = None, plan=None, *,
                       cache_len: Optional[int] = None,
                       use_kernel: bool = True, device=None):
@@ -96,6 +125,59 @@ def flash_plan(n_pods: int, gpus_per_pod: int, seed: int = 0):
     w = moe_workload(ClusterSpec(n_pods, gpus_per_pod), tokens_per_gpu=2048,
                      bytes_per_token=2, seed=seed)
     return get_scheduler("flash").synthesize(w)
+
+
+def _serve_rank(mesh, cfg: ModelConfig, params, prompts: torch.Tensor,
+                impl: Optional[str], plan, gen_len: int) -> dict:
+    """One rank of ``serve_procs``: cut this process's shard of the
+    parameters and its rows of the prompts, prefill and decode greedily,
+    and gather each step's logits and the tokens (returned on rank 0)."""
+    from ..convert import shard_module
+    from .shardings import batch_specs, gather_tensor, shard_tensor
+
+    shard = shard_module(params, cfg, mesh)
+    del params
+    spec = batch_specs(mesh, {"tokens": prompts})["tokens"]
+    tokens = shard_tensor(prompts, spec, mesh).to(mesh.device)
+    prompt = prompts.shape[1]
+    total = prompt + gen_len
+    prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total)
+    step = make_serve_step(cfg, mesh, impl, plan)
+    logits, cache = prefill(shard, {"tokens": tokens})
+    steps = [gather_tensor(logits, spec, mesh)]
+    toks = logits.argmax(-1)
+    out = [toks]
+    for t in range(prompt, total - 1):
+        logits, cache = step(shard, cache, toks, t)
+        steps.append(gather_tensor(logits, spec, mesh))
+        toks = logits.argmax(-1)
+        out.append(toks)
+    gen = gather_tensor(torch.stack(out, dim=1), spec, mesh)
+    if mesh.rank:
+        return {}
+    return {"logits": [lg.cpu() for lg in steps], "tokens": gen.cpu()}
+
+
+def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
+                mesh_shape, backend: str, device="cuda",
+                a2a_impl: Optional[str] = None, plan=None,
+                gen_len: int = 16, **spawn_kw) -> dict:
+    """Serve ``prompts [B, S]`` on one process per rank of ``mesh_shape``
+    (pod, data, model): each process takes its shard of ``params`` (a
+    module or ``{name: tensor}``, shared with it without a copy: CUDA IPC
+    on the card) and its ``B / (pod * data)`` rows, prefills and decodes
+    ``gen_len`` greedy tokens.  Returns rank 0's gather: ``logits`` (the
+    prefill's, then each decode step's, ``[B, V]``) and ``tokens [B,
+    gen_len]``; under ``torchrun`` (this process one rank) the other ranks
+    get ``{}``.  ``spawn_kw`` reaches ``procs.spawn`` (``init_method``,
+    ``timeout``, ``join_timeout``)."""
+    from .procs import spawn
+    from .shardings import named_params
+
+    named = {k: v.detach() for k, v in named_params(params).items()}
+    out = spawn(_serve_rank, tuple(mesh_shape), AXES, backend, device, cfg,
+                named, prompts, a2a_impl, plan, gen_len, **spawn_kw)
+    return out[0]
 
 
 # -- batched-serving demo -----------------------------------------------------
@@ -187,6 +269,13 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="POD,DATA",
                     help="serve on a local (POD, DATA, 1) mesh stacked on "
                          "the device; default: no mesh")
+    ap.add_argument("--procs", action="store_true",
+                    help="serve the --mesh on one process per rank")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="the process groups' backend (with --procs): "
+                         "gloo moves the exchange through host memory and "
+                         "lets ranks share one card; nccl needs a card per "
+                         "rank")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="override the config's depth")
@@ -206,10 +295,13 @@ def main(argv=None):
         over["n_layers"] = args.n_layers
     cfg = dataclasses.replace(cfg, **over) if over else cfg
     device = resolve_device(args.device)
+    if args.procs and not (args.mesh and args.backend):
+        ap.error("--procs needs --mesh and --backend")
     mesh = plan = None
     if args.mesh:
         pod, data = (int(v) for v in args.mesh.split(","))
-        mesh = make_mesh((pod, data, 1), ("pod", "data", "model"), device)
+        if not args.procs:
+            mesh = make_mesh((pod, data, 1), AXES, device)
         if cfg.a2a_impl in ("plan", "auto"):
             plan = flash_plan(pod, data, args.seed)
             sched = lower_plan(plan, n_pods=pod)
@@ -223,6 +315,23 @@ def main(argv=None):
         0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int64)) \
         .to(device)
     total = args.prompt_len + args.gen_len
+
+    if args.procs:
+        _sync(device)
+        t0 = time.perf_counter()
+        res = serve_procs(cfg, params, prompts, (pod, data, 1), args.backend,
+                          device, cfg.a2a_impl, plan, args.gen_len)
+        dt = time.perf_counter() - t0
+        if not res:  # a rank other than 0 under torchrun
+            return
+        gen = res["tokens"].numpy()
+        print(f"arch={cfg.name} layers={cfg.n_layers} batch={args.batch} "
+              f"generated={gen.shape[1]} tokens/req on {pod * data} "
+              f"processes ({args.backend}, {device}); {dt:.3f} s with the "
+              f"processes' start-up")
+        print("sample:", gen[0][:16])
+        _plan_dispatch_schedules(args.gen_len, args.plan_server)
+        return
 
     prefill = make_prefill_step(cfg, mesh, cfg.a2a_impl, plan,
                                 cache_len=total, device=device)

@@ -1,0 +1,458 @@
+"""Parameter / state / batch / cache specs (path-based, MaxText-style), and
+the cut of one process's shard.
+
+Counterpart of ``src/repro/launch/shardings.py``: the same tables and
+rules, returning for every leaf of a tree a spec (a tuple of axis entries,
+the entries of the reference's ``PartitionSpec``) where the reference
+returns a ``NamedSharding``.  ``param_specs``, ``cache_specs``,
+``batch_specs`` and ``state_specs`` are the counterparts of
+``param_shardings``, ``cache_shardings``, ``batch_shardings`` and
+``state_shardings``.
+
+Conventions (production mesh: pod x data x model):
+  * TP over "model": attention heads / FFN hidden / vocab.
+  * DP over ("pod", "data"): batch dim of activations, caches, token inputs.
+  * EP over choose_ep_axes(cfg, mesh): expert-stacked MoE weight dim.
+  * KV caches shard head_dim over "model" and batch over DP.
+
+A tree is nested dicts, lists and named tuples of tensors (``meta`` ones
+stand in for the reference's ``ShapeDtypeStruct``), in the reference's
+layout: under ``cfg.scan_layers`` the blocks are one dict of ``[L, ...]``
+stacks (``param_tree`` / ``cache_tree`` build it from the port's per-layer
+modules and caches; ``module_specs`` maps the specs back to a module's
+parameter names).
+
+``shard_tensor`` cuts the slice a rank holds under a spec and
+``gather_tensor`` puts the slices back together (on a ``ProcessMesh``, over
+its process groups).  TP over "model" is not ported: the model code runs
+whole weights, so a process mesh for serving has a "model" axis of 1.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.registry import ModelConfig
+from ..models.dist import choose_ep_axes
+from .mesh import ProcessMesh, all_gather
+
+__all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
+           "spec_tree", "param_tree", "cache_tree", "module_specs",
+           "shard_tensor", "gather_tensor", "tree_map_with_path",
+           "flatten_with_path", "named_params"]
+
+Spec = Tuple[Any, ...]
+
+
+# trees --------------------------------------------------------------------
+
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` over the tensors of a tree of dicts, lists and
+    named tuples; a path holds dict keys (str), list indices (int) and
+    named-tuple field names (str)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[tree_map_with_path(fn, getattr(tree, f),
+                                               path + (f,))
+                            for f in tree._fields])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def flatten_with_path(tree: Any) -> Dict[tuple, Any]:
+    """``{path: leaf}`` of a tree, leaves in tree order.  A spec (a tuple
+    of axis entries) is a leaf."""
+    out: Dict[tuple, Any] = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for f in t._fields:
+                walk(getattr(t, f), path + (f,))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            out[path] = t
+
+    walk(tree, ())
+    return out
+
+
+def _meta(t: torch.Tensor, shape=None) -> torch.Tensor:
+    return torch.empty(tuple(t.shape) if shape is None else shape,
+                       dtype=t.dtype, device="meta")
+
+
+def _nest(named: Dict[str, torch.Tensor]) -> Any:
+    """Dotted names -> nested dicts, digit components as list indices."""
+    root: dict = {}
+    for name, t in named.items():
+        node = root
+        parts = name.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def _stack(layers: list) -> Any:
+    """Per-layer trees of equal structure -> one tree of ``[L, ...]`` meta
+    stacks (the reference's scanned layout)."""
+    first = layers[0]
+
+    def one(path, leaf):
+        shapes = {tuple(flatten_with_path(lay)[path].shape)
+                  for lay in layers}
+        if len(shapes) != 1:
+            raise ValueError(f"layer leaf {path} differs in shape across "
+                             f"layers {sorted(shapes)}: cannot stack")
+        return _meta(leaf, (len(layers),) + tuple(leaf.shape))
+
+    return tree_map_with_path(one, first)
+
+
+def named_params(params) -> Dict[str, torch.Tensor]:
+    """``{name: tensor}`` of a module's parameters (or the mapping
+    itself)."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def param_tree(params, cfg: ModelConfig) -> Any:
+    """The parameters of a port module (or its ``{name: tensor}``) as the
+    reference's pytree of meta tensors (``jax.eval_shape(model.init)``):
+    nested by attribute names, the blocks stacked ``[L, ...]`` under
+    ``cfg.scan_layers``."""
+    tree = _nest({k: _meta(v) for k, v in named_params(params).items()})
+    if cfg.scan_layers and isinstance(tree.get("blocks"), list):
+        tree["blocks"] = _stack(tree["blocks"])
+    return tree
+
+
+def cache_tree(cache: list, cfg: ModelConfig) -> Any:
+    """A port decode cache (one dict per layer) as the reference's
+    (stacked ``[L, ...]`` under ``cfg.scan_layers``), meta tensors."""
+    layers = tree_map_with_path(lambda _, t: _meta(t), list(cache))
+    return _stack(layers) if cfg.scan_layers else layers
+
+
+# the reference's tables -----------------------------------------------------
+
+_MOE_TABLE = {
+    "router": (None, None),
+    "w_gate": ("__ep__", None, "model"),
+    "w_up": ("__ep__", None, "model"),
+    "w_down": ("__ep__", "model", None),
+}
+
+_PARAM_TABLE = {
+    # embeddings / heads
+    "embed": ("model", None),
+    "lm_head": (None, "model"),
+    "enc_pos": (None, None),
+    "dec_pos": (None, None),
+    # attention
+    "wq": (None, "model"),
+    "wk": (None, "model"),
+    "wv": (None, "model"),
+    "wo": ("model", None),
+    "q_norm": (None,),
+    "k_norm": (None,),
+    # dense mlp
+    "w_gate": (None, "model"),
+    "w_up": (None, "model"),
+    "w_down": ("model", None),
+    "b_up": ("model",),
+    "b_down": (None,),
+    # xlstm
+    "wif": (None, "model"),
+    "wz": (None, "model"),
+    "w": (None, "model"),
+    "r": (None, "model"),
+    # mamba
+    "in_proj": (None, "model"),
+    "out_proj": ("model", None),
+    "conv_w": (None, "model"),
+    "a_log": ("model", None),
+    "d_skip": ("model",),
+    "wb": ("model", None),
+    "wc": ("model", None),
+    "w_dt": ("model", None),
+    "w_dt2": (None, "model"),
+    "dt_bias": ("model",),
+    # norms
+    "scale": (None,),
+    "bias": (None,),
+}
+
+_CACHE_TABLE = {
+    # [*, B, phys, K, dh]
+    "k": ("__dp__", None, None, "model"),
+    "v": ("__dp__", None, None, "model"),
+    "xk": ("__dp__", None, None, "model"),
+    "xv": ("__dp__", None, None, "model"),
+    # mlstm state
+    "C": ("__dp__", None, None, "model"),
+    "n": ("__dp__", None, "model"),
+    "m": ("__dp__", None),
+    # slstm state
+    "c": ("__dp__", "model"),
+    "h": ("__dp__", "model", None),   # also mamba h [B, d_in, N]
+    # mamba conv window [B, K-1, d_in]
+    "conv": ("__dp__", None, "model"),
+}
+
+# slstm n/h/m collide with mlstm names at different ranks; rank disambiguates.
+_CACHE_BY_RANK = {
+    ("n", 2): ("__dp__", "model"),
+    ("h", 2): ("__dp__", "model"),
+    ("m", 1): ("__dp__",),
+    ("m", 2): ("__dp__", None),
+}
+
+
+def _resolve(entry, ep, dp):
+    return tuple(ep if e == "__ep__" else dp if e == "__dp__" else e
+                 for e in entry)
+
+
+def _axis_size(mesh, entry) -> int:
+    return 1 if entry is None else mesh.axis_size(entry)
+
+
+def _drop_uneven(mesh, entry: tuple, shape: tuple) -> tuple:
+    """Replicate dims that the assigned axes do not divide (odd vocab
+    sizes, batch=1 decode, 14-head attention on a 16-way TP axis, ...), as
+    the reference does for jit's even-divisibility rule."""
+    return tuple(None if e is not None and dim % _axis_size(mesh, e)
+                 else e for dim, e in zip(shape, entry))
+
+
+def _name(path: tuple) -> str:
+    """The last dict key of a path (the reference skips list indices)."""
+    for part in reversed(path):
+        if isinstance(part, str):
+            return part
+    return ""
+
+
+def _path_str(path: tuple) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _trailing_spec(name: str, ndim: int, path: str, ep, dp) -> Spec:
+    in_moe = "/moe/" in path or path.endswith("moe")
+    table = dict(_PARAM_TABLE)
+    if in_moe:
+        table.update(_MOE_TABLE)
+    entry = table.get(name)
+    if entry is None:
+        return ()  # replicate unknown leaves
+    entry = _resolve(entry, ep, dp)
+    if len(entry) > ndim:
+        entry = entry[len(entry) - ndim:]
+    return (None,) * (ndim - len(entry)) + tuple(entry)
+
+
+def param_specs(cfg: ModelConfig, mesh, params_shape) -> Any:
+    """Tree of specs matching a params tree (the reference's
+    ``param_shardings``)."""
+    ep_axes = choose_ep_axes(cfg, mesh)
+    ep = None if ep_axes is None else \
+        (ep_axes if len(ep_axes) > 1 else ep_axes[0])
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        entry = _trailing_spec(_name(path), len(shape), _path_str(path),
+                               ep, dp)
+        if cfg.pure_dp:  # small models: replicate weights, no TP
+            entry = tuple(None if e == "model" else e for e in entry)
+        if cfg.fsdp and len(shape) >= 2:
+            # ZeRO-3 over the intra-pod DP axes on the first free, evenly
+            # divisible dim; never over the pod axis (the reference's rule)
+            fsdp_dp = tuple(a for a in mesh.axis_names if a != "pod") \
+                if cfg.pure_dp else (tuple(a for a in dp if a != "pod")
+                                     or dp)
+            fsdp_entry = fsdp_dp if len(fsdp_dp) > 1 else fsdp_dp[0]
+            used = {a for e in entry if e
+                    for a in ((e,) if isinstance(e, str) else e)}
+            if not used & set(fsdp_dp):
+                for i, (e, dim) in enumerate(zip(entry, shape)):
+                    if e is None and dim % _axis_size(mesh, fsdp_entry) == 0:
+                        entry = entry[:i] + (fsdp_entry,) + entry[i + 1:]
+                        break
+        return _drop_uneven(mesh, entry, shape)
+
+    return tree_map_with_path(one, params_shape)
+
+
+def cache_specs(cfg: ModelConfig, mesh, cache_shape) -> Any:
+    """Tree of specs matching a decode-cache tree (the reference's
+    ``cache_shardings``)."""
+    del cfg
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    dp_entry = dp if len(dp) > 1 else dp[0]
+
+    def one(path, leaf):
+        name, ndim = _name(path), len(leaf.shape)
+        # strip the scan-stacked layer dim if present
+        entry = _CACHE_BY_RANK.get((name, ndim)) \
+            or _CACHE_BY_RANK.get((name, ndim - 1)) \
+            or _CACHE_TABLE.get(name)
+        if entry is None:
+            return ()
+        entry = _resolve(entry, None, dp_entry)
+        if len(entry) > ndim:
+            entry = entry[len(entry) - ndim:]
+        pad = (None,) * (ndim - len(entry))
+        return _drop_uneven(mesh, pad + tuple(entry), tuple(leaf.shape))
+
+    return tree_map_with_path(one, cache_shape)
+
+
+def batch_specs(mesh, batch_shape, pure_dp: bool = False) -> Any:
+    """Tree of specs matching a batch tree (the reference's
+    ``batch_shardings``): the leading dim over the DP axes."""
+    dp = tuple(mesh.axis_names) if pure_dp \
+        else tuple(a for a in mesh.axis_names if a != "model")
+    dp_entry = dp if len(dp) > 1 else dp[0]
+
+    def one(path, leaf):
+        ndim = len(leaf.shape)
+        if ndim == 0:
+            return ()
+        return _drop_uneven(mesh, (dp_entry,) + (None,) * (ndim - 1),
+                            tuple(leaf.shape))
+
+    return tree_map_with_path(one, batch_shape)
+
+
+def state_specs(cfg: ModelConfig, mesh, state_shape) -> Any:
+    """TrainState = {params, opt(m, v, count), step}: moments follow params
+    (the reference's ``state_shardings``)."""
+    opt = state_shape["opt"]
+    return {"params": param_specs(cfg, mesh, state_shape["params"]),
+            "opt": type(opt)(m=param_specs(cfg, mesh, opt.m),
+                             v=param_specs(cfg, mesh, opt.v), count=()),
+            "step": ()}
+
+
+def spec_tree(specs: Any) -> Any:
+    """The reference's ``spec_tree`` maps shardings to their specs; the
+    port's spec trees are already that, so this returns its argument."""
+    return specs
+
+
+def module_specs(cfg: ModelConfig, mesh, params) -> Dict[str, Spec]:
+    """``{parameter name: spec}`` for a port module's own (per-layer)
+    parameters (or its ``{name: tensor}``): ``param_specs`` of its
+    reference-layout tree, a scanned
+    stack's spec without its layer entry.  Raises where the reference
+    shards the layer axis (FSDP on a stack), which per-layer modules
+    cannot hold."""
+    flat = flatten_with_path(param_specs(cfg, mesh, param_tree(params, cfg)))
+    out = {}
+    for name in named_params(params):
+        path = tuple(int(p) if p.isdigit() else p for p in name.split("."))
+        if cfg.scan_layers and path[0] == "blocks":
+            spec = flat[("blocks",) + path[2:]]
+            if spec and spec[0] is not None:
+                raise ValueError(f"{name}: the reference shards the layer "
+                                 f"axis ({spec}); per-layer modules cannot")
+            spec = spec[1:]
+        else:
+            spec = flat[path]
+        out[name] = spec
+    return out
+
+
+# shards ---------------------------------------------------------------------
+
+def _axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else \
+        ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def _slices(shape, spec: Spec, mesh, coords) -> tuple:
+    """Per dim, the slice that the rank at ``coords`` (one coordinate per
+    mesh axis) holds under ``spec``."""
+    where = dict(zip(mesh.axis_names, (int(c) for c in coords)))
+    out = []
+    for i, dim in enumerate(shape):
+        axes = _axes(spec[i] if i < len(spec) else None)
+        if not axes:
+            out.append(slice(None))
+            continue
+        n = mesh.axis_size(axes)
+        if dim % n:
+            raise ValueError(f"dim {i} of size {dim} does not split {n} "
+                             f"ways over {axes}")
+        j = 0
+        for a in axes:
+            j = j * mesh.axis_size(a) + where[a]
+        step = dim // n
+        out.append(slice(j * step, (j + 1) * step))
+    return tuple(out)
+
+
+def shard_tensor(full, spec: Spec, mesh, coords=None):
+    """The slice of ``full`` (a tensor or numpy array) held by the rank at
+    ``coords`` (one coordinate per mesh axis; default: this process's, on a
+    ``ProcessMesh``).  A view: ``clone`` it to drop the whole."""
+    if coords is None:
+        if not isinstance(mesh, ProcessMesh):
+            raise ValueError("shard_tensor on a LocalMesh needs coords")
+        coords = mesh.rank_coords
+    return full[_slices(tuple(full.shape), spec, mesh, coords)]
+
+
+def gather_tensor(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole tensor from the shards of ``spec``, the inverse of
+    ``shard_tensor``.  On a ``ProcessMesh`` ``local`` is this process's
+    shard and the call is collective over the spec's axes' group (every
+    member gets the whole); on a ``LocalMesh`` it is every rank's shard
+    stacked ``[R, ...]``."""
+    used = [a for a in mesh.axis_names
+            if any(a in _axes(e) for e in spec)]
+    if isinstance(mesh, ProcessMesh):
+        if not used:
+            return local
+        parts = all_gather(mesh, local[None], tuple(used))[0]
+        sizes = [mesh.axis_size(a) for a in used]
+        mine = dict(zip(mesh.axis_names, mesh.rank_coords))
+        coords = []
+        for j in range(parts.shape[0]):
+            c = dict(mine, **{a: int(v) for a, v in
+                              zip(used, np.unravel_index(j, sizes))})
+            coords.append([c[a] for a in mesh.axis_names])
+    else:
+        parts = local
+        coords = mesh.coords().tolist()
+    shape = list(parts.shape[1:])
+    for i, e in enumerate(spec):
+        shape[i] *= _axis_size(mesh, e) if e is not None else 1
+    out = parts.new_empty(shape)
+    for part, c in zip(parts, coords):
+        out[_slices(shape, spec, mesh, c)] = part
+    return out

@@ -36,12 +36,14 @@ import torch
 
 from ..configs import ModelConfig, get_config, smoke_config
 from ..models import DistContext, build_model, choose_ep_axes
-from ..optim import AdamWConfig, adamw_update, cosine_schedule, \
+from ..models.sharding import MeshRules
+from ..optim import AdamWConfig, OptState, adamw_update, cosine_schedule, \
     init_opt_state
-from .mesh import LocalMesh, dp_axes, make_mesh, resolve_device, slow_axis
+from .mesh import (LocalMesh, ProcessMesh, dp_axes, make_mesh,
+                   resolve_device, slow_axis)
 
 __all__ = ["TrainOptions", "make_dist_context", "make_train_step",
-           "init_train_state"]
+           "init_train_state", "make_rules", "make_train_state_shapes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +58,7 @@ class TrainOptions:
                                      # activation memory, same math
 
 
-def make_dist_context(cfg: ModelConfig, mesh: LocalMesh,
+def make_dist_context(cfg: ModelConfig, mesh,
                       a2a_impl: Optional[str] = None, plan=None,
                       use_kernel: bool = True) -> DistContext:
     """Build the DistContext; ``a2a_impl`` overrides the config's choice.
@@ -82,6 +84,45 @@ def make_dist_context(cfg: ModelConfig, mesh: LocalMesh,
         plan=plan,
         use_kernel=use_kernel,
     )
+
+
+def make_rules(cfg: ModelConfig, mesh) -> MeshRules:
+    """The logical-axis rules of ``cfg`` on ``mesh`` (the reference's)."""
+    act_seq = "model" if cfg.seq_shard_activations else None
+    if cfg.pure_dp:
+        # no TP: weights replicated (or FSDP-stored); batch over every axis
+        # unless FSDP needs the model axis for parameter storage
+        batch = dp_axes(mesh) if cfg.fsdp else tuple(mesh.axis_names)
+        return MeshRules(mesh=mesh, batch=batch,
+                         act_seq=None, heads=None, kv_heads=None,
+                         head_dim=None, ff=None, vocab=None,
+                         expert_ff=None, model_dim=None, kv_feature=None)
+    return MeshRules(mesh=mesh, batch=dp_axes(mesh), act_seq=act_seq)
+
+
+def make_train_state_shapes(cfg: ModelConfig, mesh):
+    """(state tree of meta tensors in the reference's layout, its specs or
+    None without a mesh): ``{"params", "opt": OptState(m, v, count),
+    "step"}``, the moments f32 beside each parameter.  Specs only: a
+    training step over processes is not ported yet."""
+    from .shardings import param_tree, state_specs
+    from .shardings import tree_map_with_path
+
+    module = build_model(cfg, "meta", train=True).init(torch.Generator())
+    params = param_tree(module, cfg)
+
+    def f32(_, t):
+        return torch.empty(t.shape, dtype=torch.float32, device="meta")
+
+    scalar = torch.empty((), dtype=torch.int32, device="meta")
+    state = {"params": params,
+             "opt": OptState(m=tree_map_with_path(f32, params),
+                             v=tree_map_with_path(f32, params),
+                             count=scalar),
+             "step": scalar}
+    if mesh is None:
+        return state, None
+    return state, state_specs(cfg, mesh, state)
 
 
 def init_train_state(params: torch.nn.Module) -> Dict[str, Any]:
@@ -129,6 +170,9 @@ def make_train_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
     versions of every kernel.  ``device`` defaults to the mesh's, else the
     card.
     """
+    if isinstance(mesh, ProcessMesh):
+        raise ValueError("a training step over processes is not ported: "
+                         "train on a LocalMesh")
     if device is not None:
         dev = resolve_device(device)
     else:

@@ -1,25 +1,27 @@
-"""Distribution context: which axes of the local mesh play which role.
+"""Distribution context: which axes of the mesh play which role.
 
-Counterpart of ``src/repro/models/dist.py`` over a ``LocalMesh``
-(``launch/mesh.py``).  ``None`` in place of a context means the
-single-device path, the correctness oracle for the distributed one.
+Counterpart of ``src/repro/models/dist.py`` over a ``LocalMesh`` or a
+``ProcessMesh`` (``launch/mesh.py``); ``ep_size`` and ``choose_ep_axes``
+read the whole mesh's shape, whichever ranks this process holds.  ``None``
+in place of a context means the single-device path, the correctness oracle
+for the distributed one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 from ..configs.registry import ModelConfig
 from ..core.topology import Topology
-from ..launch.mesh import LocalMesh
+from ..launch.mesh import LocalMesh, ProcessMesh
 
 __all__ = ["DistContext", "choose_ep_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
 class DistContext:
-    mesh: LocalMesh
+    mesh: Union[LocalMesh, ProcessMesh]
     dp_axes: Tuple[str, ...]            # batch-sharded axes (the MoE island)
     slow_axis: Optional[str]            # inter-pod axis ("pod"), if present
     ep_axes: Optional[Tuple[str, ...]]  # expert-parallel axes, slow-major
@@ -41,7 +43,7 @@ class DistContext:
         return self.mesh.axis_size(self.ep_axes)
 
 
-def choose_ep_axes(cfg: ModelConfig, mesh: LocalMesh
+def choose_ep_axes(cfg: ModelConfig, mesh
                    ) -> Optional[Tuple[str, ...]]:
     """Pick EP axes for an arch on a mesh: the largest slow-major prefix of
     the DP axes whose size divides num_experts.

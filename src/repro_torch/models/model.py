@@ -28,7 +28,7 @@ from ..configs.registry import ModelConfig
 from ..launch.mesh import resolve_device
 from . import encdec, transformer
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +87,32 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False
         use_kernel=True: transformer.lm_decode_step(
             cfg, params, cache, tokens, pos, dist, use_kernel=use_kernel),
     )
+
+
+def input_specs(cfg: ModelConfig, kind: str, seq_len: int,
+                global_batch: int) -> dict:
+    """Meta-tensor stand-ins for every model input of a shape cell (the
+    reference's ``ShapeDtypeStruct`` ones): shapes and dtypes, no memory.
+    ``decode`` kinds return the *step* inputs (tokens + pos); the cache is
+    built separately with ``Model.init_cache`` (on ``device="meta"`` for
+    its shapes alone)."""
+    compute = getattr(torch, cfg.compute_dtype)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    b, s = global_batch, seq_len
+    if kind in ("train", "prefill"):
+        batch = {"tokens": meta((b, s), torch.int32),
+                 "labels": meta((b, s), torch.int32)}
+        if cfg.frontend == "vision_stub":
+            batch["patch_embeds"] = meta((b, cfg.frontend_len, cfg.d_model),
+                                         compute)
+        if cfg.frontend == "audio_stub":
+            batch["frames"] = meta((b, cfg.encoder_len, cfg.d_model),
+                                   compute)
+        return batch
+    if kind == "decode":
+        return {"tokens": meta((b,), torch.int32),
+                "pos": meta((), torch.int32)}
+    raise ValueError(f"unknown shape kind {kind!r}")

@@ -5,20 +5,26 @@ dispatch into capacity-padded ``[E * C, d]`` buffers, the grouped SwiGLU
 expert FFN and the weighted combine are the reference's math; the FFN's three
 products run on the ``grouped_matmul`` kernel.
 
-The expert-parallel island runs every rank of the local mesh at once: the
+The expert-parallel island runs every rank the mesh holds at once: the
 batch is split over the DP axes slow-axis major (rank ``r`` holds rows
 ``[r*B/R, (r+1)*B/R)``, as ``P(("pod", "data"))`` shards it), routing and
 dispatch run batched over the rank axis, and dispatch and combine go through
 ``comm.resolve_all_to_all`` (``direct`` or the plan).  EP axes equal DP axes
 here, so rank ``r``'s local expert ``e`` is global expert ``r*E_loc + e`` and
-one kernel launch per product serves every rank.
+one kernel launch per product serves every held rank.  On a ``LocalMesh``
+that is all ``R`` ranks, and ``x [B, S, d]`` and the ``[E, ...]`` expert
+stacks are the whole model's; on a ``ProcessMesh`` it is this process's
+rank alone, ``x [B_loc, S, d]`` is its batch rows and the stacks hold its
+``E_loc`` experts (``launch/shardings.py``), and the aux loss's mean goes
+over the process group.
 
 EP over one mesh axis or none (``_moe_pod_ep``: mixtral's 8 experts over
 ``pod``, dbrx's over ``data``, or experts replicated) runs the reference's
 split-island form: routing, dispatch and the exchange per rank, then one
 grouped FFN over all ranks' tokens, then the return exchange and the combine.
 Over the slow axis the exchange may be int8 with a per-row f32 scale
-(``cfg.quantized_dispatch``).
+(``cfg.quantized_dispatch``).  It runs on a ``LocalMesh`` only; on a
+``ProcessMesh`` it raises.
 
 ``dist=None`` runs the same math with one rank and no exchange; it is the
 correctness oracle for the island.  ``use_kernel=False`` runs the plain
@@ -50,7 +56,7 @@ from ..kernels.grouped_matmul import grouped_matmul_ref
 # plain wrapper call
 from ..kernels.grouped_matmul import grouped_matmul_autograd as \
     grouped_matmul
-from ..launch.mesh import LocalMesh, pmean
+from ..launch.mesh import LocalMesh, ProcessMesh, pmean
 from .dist import DistContext
 from .layers import dense_init, param
 
@@ -175,7 +181,9 @@ def _expert_ffn(cfg: ModelConfig, w_gate, w_up, w_down,
 
 def _moe_island(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
                 p: MoE) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every (pod, data) rank at once.  x: [R, B_loc, S, d] stacked."""
+    """Every held (pod, data) rank at once.  x: [R, B_loc, S, d] stacked
+    (``R = 1`` on a ``ProcessMesh``); the expert stacks hold ``R * E_loc``
+    experts."""
     r, b, s, d = x.shape
     e = cfg.moe.num_experts
     g = dist.ep_size
@@ -202,7 +210,8 @@ def _moe_island(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     y = a2a(y)                                        # return trip
     out = _combine(y.reshape(r, e * cap, d), slot, keep, gates, t,
                    cfg.moe.top_k)
-    # Aux loss averaged over all ranks, as the reference's pmean.
+    # Aux loss averaged over all ranks, as the reference's pmean (over the
+    # process group on a ProcessMesh).
     aux = pmean(dist.mesh.sub(dist.dp_axes), aux, dist.dp_axes)[0]
     return out.reshape(r, b, s, d), aux
 
@@ -243,8 +252,15 @@ def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     ``c`` names its experts ``c * E_loc + e``, so the ranks' tokens are laid
     out as ``[E, R * C, d]`` (group ``e`` = global expert ``e``) and one
     grouped-FFN launch per product serves them all.  The return trip runs
-    the inverse.  x: [B, S, d] with B divisible by the DP size.
+    the inverse.  x: [B, S, d] with B divisible by the DP size.  On a
+    ``ProcessMesh`` it raises: this form is not ported to processes.
     """
+    if isinstance(dist.mesh, ProcessMesh):
+        raise ValueError(
+            "EP over one mesh axis or none (_moe_pod_ep: mixtral over pod, "
+            "dbrx over data, replicated experts) and int8 dispatch run on a "
+            "LocalMesh only; on a ProcessMesh the MoE needs EP over the "
+            f"DP axes {dist.dp_axes}, got {dist.ep_axes}")
     mesh = dist.mesh.sub(dist.dp_axes)
     ep_axis = dist.ep_axes[0] if dist.ep_axes else None
     p_pods = mesh.axis_size(ep_axis) if ep_axis else 1
@@ -284,8 +300,10 @@ def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     return out.reshape(b, s, d), aux
 
 
-def _dp_size(dist: DistContext) -> int:
-    return dist.mesh.axis_size(dist.dp_axes)
+def _held_ranks(dist: DistContext) -> int:
+    """DP ranks this process holds: all on a LocalMesh, one on a
+    ProcessMesh (where ``x`` is already this rank's batch rows)."""
+    return dist.mesh.sub(dist.dp_axes).local_size
 
 
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
@@ -299,7 +317,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
         if not use_kernel and dist.use_kernel:
             dist = dataclasses.replace(dist, use_kernel=False)
         use_kernel = dist.use_kernel
-        if x.shape[0] % _dp_size(dist) != 0:
+        if x.shape[0] % _held_ranks(dist) != 0:
             # batch does not divide the DP shards: run the local path
             dist = None
     if dist is not None and (
@@ -324,7 +342,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     if tuple(dist.ep_axes) != tuple(dist.dp_axes):
         raise ValueError(f"the island needs EP axes {dist.ep_axes} equal to "
                          f"the DP axes {dist.dp_axes}")
-    r = _dp_size(dist)
+    r = _held_ranks(dist)
     b, s, d = x.shape
     out, aux = _moe_island(cfg, dist, x.reshape(r, b // r, s, d), p)
     return out.reshape(b, s, d), aux
