@@ -3223,7 +3223,7 @@ def phase_procs(torch, kernels):
             f"host staging included); peak {o['peak_gb']:.2f} GB "
             f"(shard {o['shard_gb']:.2f} GB, cut in {o['shard_s']:.2f} s); "
             f"{PROC_LABEL}")
-    card = {k: v for k, v in summary["used_gb"].items()}
+    card = dict(summary["used_gb"])
     for o in outs:
         for k, v in o["used_gb"].items():
             card[f"{k} (rank {o['rank']})"] = v
