@@ -4,9 +4,10 @@ Counterpart of ``src/repro/comm/collectives.py``.  The reference calls these
 inside ``shard_map`` on each rank's value; here a per-rank value is a
 stacked tensor ``[R, ...]`` over a ``LocalMesh`` or, with ``R = 1``, a
 ``ProcessMesh`` (``launch/mesh.py``), and each function returns, per rank,
-what the reference returns.  On a ``ProcessMesh`` each gathers every group
-member's payload over the axis's process group and sums it in member order,
-as the ``LocalMesh`` forms do, so the two agree bit for bit.
+what the reference returns.  Each gathers every group member's payload
+(``launch/mesh.all_gather``, an index copy on a ``LocalMesh`` and the axis's
+process group on a ``ProcessMesh``) and sums it in member order, so the two
+meshes agree bit for bit.
 
 * ``ef_compressed_psum``: int8 error-feedback gradient sum over one axis:
   quantize (grad + error carry) per tensor to int8, gather every group
@@ -22,7 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..launch.mesh import ProcessMesh, _group, all_gather
+from ..launch.mesh import all_gather
 
 __all__ = ["ef_compressed_psum", "psum_bf16", "tree_ef_state"]
 
@@ -46,20 +47,12 @@ def ef_compressed_psum(mesh, grad: torch.Tensor, axis_name: str,
     carry = grad if error is None else grad + error
     q, scale = _quantize_int8(carry)
     ones = (1,) * (grad.dim() - 1)
-    if isinstance(mesh, ProcessMesh):
-        qs = all_gather(mesh, q, axis_name)            # [1, n, ...]
-        scales = all_gather(mesh, scale, axis_name)    # [1, n]
-        parts = [(qs[:, j], scales[:, j]) for j in range(qs.shape[1])]
-    else:
-        members = mesh.cached_index(("a2a_members", (axis_name,)),
-                                    grad.device,
-                                    lambda: _group(mesh, (axis_name,))[1])
-        parts = [(q.index_select(0, members[:, j]),
-                  scale.index_select(0, members[:, j]))
-                 for j in range(members.shape[1])]
+    qs = all_gather(mesh, q, axis_name)            # [R, n, ...]
+    scales = all_gather(mesh, scale, axis_name)    # [R, n]
     total = None
-    for qj, sj in parts:                  # the gathered members, in order
-        deq = qj.to(grad.dtype) * sj.reshape(-1, *ones).to(grad.dtype)
+    for j in range(qs.shape[1]):          # the group's members, in order
+        deq = qs[:, j].to(grad.dtype) \
+            * scales[:, j].reshape(-1, *ones).to(grad.dtype)
         total = deq if total is None else total + deq
     new_error = carry - q.to(grad.dtype) \
         * scale.reshape(-1, *ones).to(grad.dtype)
@@ -69,13 +62,8 @@ def ef_compressed_psum(mesh, grad: torch.Tensor, axis_name: str,
 def psum_bf16(mesh, grad: torch.Tensor, axis_name: str) -> torch.Tensor:
     """The sum over ``axis_name`` of stacked ``grad [R, ...]`` in bf16 (half
     the bytes of f32), returned in ``grad``'s dtype on every rank."""
-    if isinstance(mesh, ProcessMesh):
-        parts = all_gather(mesh, grad.to(torch.bfloat16), axis_name)
-        return parts.sum(dim=1, dtype=torch.bfloat16).to(grad.dtype)
-    dim = mesh.axis_names.index(axis_name)
-    xm = grad.to(torch.bfloat16).reshape(*mesh.shape, *grad.shape[1:])
-    total = xm.sum(dim=dim, keepdim=True, dtype=torch.bfloat16)
-    return total.expand_as(xm).reshape(grad.shape).to(grad.dtype)
+    parts = all_gather(mesh, grad.to(torch.bfloat16), axis_name)
+    return parts.sum(dim=1, dtype=torch.bfloat16).to(grad.dtype)
 
 
 def tree_ef_state(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -32,11 +32,13 @@ and runs the function in this process.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
 import os
 import pickle
-import socket
+import shutil
+import tempfile
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
@@ -46,8 +48,8 @@ import torch.distributed as torch_dist
 
 from .mesh import ProcessMesh, resolve_device
 
-__all__ = ["DEFAULT_TIMEOUT_S", "init_process_mesh", "spawn",
-           "free_tcp_address"]
+__all__ = ["DEFAULT_TIMEOUT_S", "RENDEZVOUS_TIMEOUT_S", "init_process_mesh",
+           "spawn", "file_rendezvous", "under_torchrun"]
 
 DEFAULT_TIMEOUT_S = 60.0
 # the processes' rendezvous may wait longer than a collective: a rank can be
@@ -55,11 +57,22 @@ DEFAULT_TIMEOUT_S = 60.0
 RENDEZVOUS_TIMEOUT_S = 300.0
 
 
-def free_tcp_address() -> str:
-    """``tcp://127.0.0.1:<port>`` on a port that was free a moment ago."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return f"tcp://127.0.0.1:{s.getsockname()[1]}"
+@contextlib.contextmanager
+def file_rendezvous():
+    """A ``file://`` init method in a fresh temporary directory, removed on
+    exit: unlike a TCP port picked ahead of time, no other process on the
+    host can take it before the world binds it."""
+    root = tempfile.mkdtemp(prefix="procs-rdv-")
+    try:
+        yield f"file://{os.path.join(root, 'store')}"
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def under_torchrun() -> bool:
+    """Whether ``torchrun`` started this process as one rank (``RANK`` and
+    ``WORLD_SIZE`` in the environment)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
 def _member_sets(shape: Tuple[int, ...]):
@@ -172,28 +185,32 @@ def spawn(fn: Callable[..., Any], shape: Sequence[int], axes: Sequence[str],
     CUDA), so ``fn`` must be importable and ``args`` picklable; CUDA
     tensors among them reach the children through CUDA IPC and CPU tensors
     through shared memory, without a copy.  A result is pickled by value:
-    return host tensors or numpy.  ``init_method`` defaults to a free TCP
-    port on this host.  A child that raises or exits non-zero fails the
-    call (its traceback in the exception), and so does a run past
-    ``join_timeout`` seconds.  Under ``torchrun`` (``RANK`` and
+    return host tensors or numpy.  ``init_method`` defaults to a ``file://``
+    store in a fresh temporary directory (``file_rendezvous``).  A child
+    that raises or exits non-zero fails the call (its traceback in the
+    exception), and so does a run past ``join_timeout`` seconds.  Under ``torchrun`` (``RANK`` and
     ``WORLD_SIZE`` set) it runs ``fn`` in this process only and returns
     ``[its result]``."""
     shape = tuple(int(v) for v in shape)
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+    if under_torchrun():
         mesh = init_process_mesh(shape, axes, backend, device, init_method,
                                  timeout=timeout)
         try:
             return [fn(mesh, *args)]
         finally:
             torch_dist.destroy_process_group()
+    if init_method is None:
+        with file_rendezvous() as rdv:
+            return spawn(fn, shape, axes, backend, device, *args,
+                         init_method=rdv, timeout=timeout,
+                         join_timeout=join_timeout)
     import torch.multiprocessing as tmp
 
     world = int(np.prod(shape))
     queue = tmp.get_context("spawn").SimpleQueue()
     ctx = tmp.start_processes(
-        _child, args=(fn, shape, tuple(axes), backend, device,
-                      init_method or free_tcp_address(), timeout, args,
-                      queue),
+        _child, args=(fn, shape, tuple(axes), backend, device, init_method,
+                      timeout, args, queue),
         nprocs=world, join=False, start_method="spawn")
     results = {}
     deadline = None if join_timeout is None else \

@@ -19,8 +19,8 @@ for a batched-serving demo on the card:
 ``--mesh POD,DATA`` is the one-card counterpart of the JAX ``mesh``
 argument; ``--device cpu`` runs on the CPU.  ``--procs`` serves on one
 process per rank instead (``--backend`` gloo or nccl; under gloo the ranks
-may share one card and exchange through host memory), rank 0 printing the
-gathered tokens:
+may share one card and exchange through host memory; ``--init-method``
+names the rendezvous), rank 0 printing the gathered tokens:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,2 --procs \\
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import time
 from typing import Optional
 
@@ -127,28 +128,23 @@ def flash_plan(n_pods: int, gpus_per_pod: int, seed: int = 0):
     return get_scheduler("flash").synthesize(w)
 
 
-def _serve_rank(mesh, cfg: ModelConfig, params, prompts: torch.Tensor,
-                impl: Optional[str], plan, gen_len: int) -> dict:
-    """One rank of ``serve_procs``: cut this process's shard of the
-    parameters and its rows of the prompts, prefill and decode greedily,
-    and gather each step's logits and the tokens (returned on rank 0)."""
-    from ..convert import shard_module
-    from .shardings import batch_specs, gather_tensor, shard_tensor
+def _greedy(mesh, cfg: ModelConfig, params, rows: torch.Tensor, spec,
+            impl: Optional[str], plan, gen_len: int) -> dict:
+    """Prefill this rank's ``rows`` and decode greedily to ``gen_len``
+    tokens, gathering each step's logits and the tokens (returned on rank
+    0; ``{}`` on the others)."""
+    from .shardings import gather_tensor
 
-    shard = shard_module(params, cfg, mesh)
-    del params
-    spec = batch_specs(mesh, {"tokens": prompts})["tokens"]
-    tokens = shard_tensor(prompts, spec, mesh).to(mesh.device)
-    prompt = prompts.shape[1]
+    prompt = rows.shape[1]
     total = prompt + gen_len
     prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total)
     step = make_serve_step(cfg, mesh, impl, plan)
-    logits, cache = prefill(shard, {"tokens": tokens})
+    logits, cache = prefill(params, {"tokens": rows})
     steps = [gather_tensor(logits, spec, mesh)]
     toks = logits.argmax(-1)
     out = [toks]
     for t in range(prompt, total - 1):
-        logits, cache = step(shard, cache, toks, t)
+        logits, cache = step(params, cache, toks, t)
         steps.append(gather_tensor(logits, spec, mesh))
         toks = logits.argmax(-1)
         out.append(toks)
@@ -158,26 +154,135 @@ def _serve_rank(mesh, cfg: ModelConfig, params, prompts: torch.Tensor,
     return {"logits": [lg.cpu() for lg in steps], "tokens": gen.cpu()}
 
 
+def _serve_rank(mesh, cfg: ModelConfig, holder: list, prompts: torch.Tensor,
+                impl: Optional[str], plan, gen_len: int, handoff=None,
+                hook=None) -> dict:
+    """One rank of ``serve_procs``: cut this process's shard of the
+    parameters in ``holder`` (emptied) and its rows of the prompts; with
+    ``handoff`` (a barrier shared with the parent) wait until every rank
+    holds its shard and again until the parent has dropped the whole; then
+    serve (``_greedy``).  ``hook(mesh, cfg, shards, rows, serve)``, when
+    given, runs in place of the serve: ``shards`` is a list holding the
+    shard (pop it to free it), and ``serve()`` is the serve, which the hook
+    must call once; its result goes back under ``"hook"``."""
+    from ..convert import shard_module
+    from .procs import RENDEZVOUS_TIMEOUT_S
+    from .shardings import batch_specs, shard_tensor
+
+    shards = [shard_module(holder.pop(), cfg, mesh)]
+    gc.collect()
+    if handoff is not None:
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # every rank holds its own
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # the parent dropped all
+    spec = batch_specs(mesh, {"tokens": prompts})["tokens"]
+    rows = shard_tensor(prompts, spec, mesh).to(mesh.device)
+    if hook is None:
+        return _greedy(mesh, cfg, shards[0], rows, spec, impl, plan, gen_len)
+    served = []
+
+    def serve() -> dict:
+        served.append(_greedy(mesh, cfg, shards[0], rows, spec, impl, plan,
+                              gen_len))
+        return served[-1]
+
+    extra = hook(mesh, cfg, shards, rows, serve)
+    if len(served) != 1:
+        raise RuntimeError(f"serve_procs: the hook served {len(served)} "
+                           f"times, not once")
+    return {**served[0], "hook": extra}
+
+
+def _card_used_gb(device: torch.device) -> float:
+    """Memory in use on the card by every process (``cudaMemGetInfo``)."""
+    free_b, total = torch.cuda.mem_get_info(device)
+    return (total - free_b) / 1e9
+
+
 def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
                 mesh_shape, backend: str, device="cuda",
                 a2a_impl: Optional[str] = None, plan=None,
-                gen_len: int = 16, **spawn_kw) -> dict:
+                gen_len: int = 16, hook=None, **spawn_kw) -> dict:
     """Serve ``prompts [B, S]`` on one process per rank of ``mesh_shape``
     (pod, data, model): each process takes its shard of ``params`` (a
     module or ``{name: tensor}``, shared with it without a copy: CUDA IPC
     on the card) and its ``B / (pod * data)`` rows, prefills and decodes
-    ``gen_len`` greedy tokens.  Returns rank 0's gather: ``logits`` (the
-    prefill's, then each decode step's, ``[B, V]``) and ``tokens [B,
-    gen_len]``; under ``torchrun`` (this process one rank) the other ranks
-    get ``{}``.  ``spawn_kw`` reaches ``procs.spawn`` (``init_method``,
-    ``timeout``, ``join_timeout``)."""
-    from .procs import spawn
+    ``gen_len`` greedy tokens.
+
+    ``params`` may come in a one-element list, which is emptied: once every
+    process holds its shard, the parent drops its own references to the
+    whole and frees what the children no longer map, before any process
+    serves.  A caller that keeps no other reference so frees the card of
+    the whole model (on the card ``card_used_gb`` reports the memory in use
+    before and after that drop).
+
+    Returns rank 0's gather: ``logits`` (the prefill's, then each decode
+    step's, ``[B, V]``) and ``tokens [B, gen_len]``; under ``torchrun``
+    (this process one rank) the other ranks get ``{}``.  With ``hook``
+    (``_serve_rank``), ``ranks`` holds each rank's hook result.
+    ``spawn_kw`` reaches ``procs.spawn`` (``init_method``, ``timeout``,
+    ``join_timeout``)."""
+    import threading
+
+    import torch.multiprocessing as tmp
+
+    from .procs import RENDEZVOUS_TIMEOUT_S, spawn, under_torchrun
     from .shardings import named_params
 
-    named = {k: v.detach() for k, v in named_params(params).items()}
-    out = spawn(_serve_rank, tuple(mesh_shape), AXES, backend, device, cfg,
-                named, prompts, a2a_impl, plan, gen_len, **spawn_kw)
-    return out[0]
+    holder = params if isinstance(params, list) else [params]
+    # the list the children unpickle; the spawned Process objects keep it
+    named = [{k: v.detach() for k, v in named_params(holder.pop()).items()}]
+    shape, dev = tuple(mesh_shape), resolve_device(device)
+    # the prompts go by value: a child holds its rows to its end, and CUDA
+    # IPC wants every child to release a shared tensor before the parent
+    # exits
+    args = (shape, AXES, backend, device, cfg, named, prompts.cpu(),
+            a2a_impl, plan, gen_len)
+    if under_torchrun():
+        out = spawn(_serve_rank, *args, None, hook, **spawn_kw)
+        return _rank0(out, hook)
+    handoff = tmp.get_context("spawn").Barrier(1 + int(np.prod(shape)))
+    result, used = {}, {}
+
+    def run():
+        try:
+            result["out"] = spawn(_serve_rank, *args, handoff, hook,
+                                  **spawn_kw)
+        except BaseException as e:  # re-raised below, in this thread
+            result["err"] = e
+            handoff.abort()
+
+    th = threading.Thread(target=run)
+    th.start()
+    try:
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)
+        if dev.type == "cuda":
+            used["parent and every shard"] = _card_used_gb(dev)
+        named.clear()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.ipc_collect()  # what the children no longer map
+            used["shards alone"] = _card_used_gb(dev)
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)
+    except threading.BrokenBarrierError:
+        pass  # a child failed: its error is raised below
+    finally:
+        th.join()
+    if "err" in result:
+        raise result["err"]
+    if "out" not in result:
+        raise RuntimeError("serve_procs: the hand-off barrier broke")
+    res = _rank0(result["out"], hook)
+    if used:
+        res["card_used_gb"] = used
+    return res
+
+
+def _rank0(out: list, hook) -> dict:
+    res = {k: v for k, v in out[0].items() if k != "hook"}
+    if hook is not None:
+        res["ranks"] = [o["hook"] for o in out]
+    return res
 
 
 # -- batched-serving demo -----------------------------------------------------
@@ -276,6 +381,10 @@ def main(argv=None):
                          "gloo moves the exchange through host memory and "
                          "lets ranks share one card; nccl needs a card per "
                          "rank")
+    ap.add_argument("--init-method", default=None,
+                    help="the process world's rendezvous (with --procs), "
+                         "e.g. file:///tmp/store; default: a file store in "
+                         "a fresh temporary directory")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="override the config's depth")
@@ -317,10 +426,13 @@ def main(argv=None):
     total = args.prompt_len + args.gen_len
 
     if args.procs:
+        holder = [params]
+        del params  # serve_procs drops the whole once every rank has its own
         _sync(device)
         t0 = time.perf_counter()
-        res = serve_procs(cfg, params, prompts, (pod, data, 1), args.backend,
-                          device, cfg.a2a_impl, plan, args.gen_len)
+        res = serve_procs(cfg, holder, prompts, (pod, data, 1), args.backend,
+                          args.device, cfg.a2a_impl, plan, args.gen_len,
+                          init_method=args.init_method)
         dt = time.perf_counter() - t0
         if not res:  # a rank other than 0 under torchrun
             return
@@ -330,6 +442,9 @@ def main(argv=None):
               f"processes ({args.backend}, {device}); {dt:.3f} s with the "
               f"processes' start-up")
         print("sample:", gen[0][:16])
+        if "card_used_gb" in res:
+            print("card memory in use (GB): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in res["card_used_gb"].items()))
         _plan_dispatch_schedules(args.gen_len, args.plan_server)
         return
 

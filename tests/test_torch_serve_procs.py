@@ -9,6 +9,8 @@ model 1) mesh, each holding its batch rows and its shard of the parameters.
 * ``shard_params`` (the reference's parameters cut for one process) and
   ``shard_module`` (a port module's) give every process the same shard:
   its experts ``[E_loc, ...]`` and the replicated rest.
+* ``serve_procs`` takes the model from the list it is given (the parent's
+  hand-off) and runs the per-rank hook on each process's own shard and rows.
 * The ``--procs`` command line serves the same tokens as ``--mesh`` on one
   process.
 """
@@ -146,13 +148,24 @@ def local_run(ref, cfg, plan, module):
     return {"logits": out, "tokens": torch.stack(toks, 1)}
 
 
+def _rank_hook(mesh, cfg, shards, rows, serve_rows):
+    """Serve, then report what this process held."""
+    serve_rows()
+    w = shards.pop().blocks[0].moe.w_gate
+    return {"rank": mesh.rank, "experts": int(w.shape[0]),
+            "rows": int(rows.shape[0])}
+
+
 @pytest.fixture(scope="module")
 def procs_run(ref, cfg, plan, module, tmp_path_factory):
     rdv = tmp_path_factory.mktemp("rdv") / "store"
-    return serve.serve_procs(cfg, module, torch.from_numpy(ref["prompts"]),
-                             SHAPE, "gloo", "cpu", "plan", plan,
-                             gen_len=STEPS + 1, init_method=f"file://{rdv}",
-                             timeout=30.0, join_timeout=180)
+    holder = [module]
+    out = serve.serve_procs(cfg, holder, torch.from_numpy(ref["prompts"]),
+                            SHAPE, "gloo", "cpu", "plan", plan,
+                            gen_len=STEPS + 1, hook=_rank_hook,
+                            init_method=f"file://{rdv}", timeout=30.0,
+                            join_timeout=180)
+    return {**out, "holder": holder}
 
 
 @pytest.mark.parametrize("step", range(STEPS + 1))
@@ -168,6 +181,14 @@ def test_greedy_tokens_equal(ref, local_run, procs_run):
     assert torch.equal(procs_run["tokens"], local_run["tokens"])
     want = np.stack([lg.argmax(-1) for lg in ref["logits"]], 1)
     assert np.array_equal(procs_run["tokens"].numpy(), want)
+
+
+def test_serve_procs_hands_off_the_model(procs_run):
+    """The list that carried the model comes back empty, and each process
+    served on its one expert of the 4 and its B / 4 rows."""
+    assert procs_run["holder"] == []
+    assert procs_run["ranks"] == [{"rank": r, "experts": 1, "rows": B // 4}
+                                  for r in range(4)]
 
 
 @pytest.mark.parametrize("rank", range(4))
@@ -196,14 +217,15 @@ def test_shard_params_equals_shard_module(ref, cfg, module, rank):
     assert specs["blocks.0.moe.w_gate"][0] == ("pod", "data")
 
 
-def test_procs_cli_serves_the_local_mesh_tokens():
+def test_procs_cli_serves_the_local_mesh_tokens(tmp_path):
     args = ["--arch", ARCH, "--smoke", "--device", "cpu", "--mesh", "2,2",
             "--batch", "4", "--prompt-len", "8", "--gen-len", "4"]
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *args, "--procs",
-         "--backend", "gloo"], capture_output=True, text=True, env=env,
-        cwd=REPO, timeout=300)
+         "--backend", "gloo", "--init-method",
+         f"file://{tmp_path / 'store'}"], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "on 4 processes (gloo, cpu)" in proc.stdout
     buf = io.StringIO()
