@@ -128,6 +128,42 @@ Phases (each raises on failure; none is caught):
    one process on NCCL (a world of one) against ``LocalMesh((1, 1, 1))``,
    and ``backend="nccl"`` with two ranks on one card must raise.
 
+9. training on one process per rank, on the same (pod 2, data 2, model 1)
+   ``ProcessMesh`` of 4 gloo processes sharing the card (no time here is a
+   4-GPU time): (a) megatron-moe-32e at its published widths (2 of 24
+   layers, f32 masters, bf16 compute, remat, the config's ``flash``
+   exchange), 32 x 512 tokens a step (8 x 512 a process), 3 AdamW steps
+   through ``launch/train.train_procs``, the path of ``train --procs``: the
+   parent builds the f32 model once and hands it to the processes through
+   CUDA IPC, each cuts its shard (its 8 of the 32 experts), the parent
+   drops the whole, and each process runs the CLI's own loop under a
+   per-rank hook; the oracle is the same 3 steps on ``LocalMesh((2, 2,
+   1))``, run first in the parent and freed.  Gated: each process's
+   launches every step equal to the oracle's (grouped_matmul on TMA alone,
+   the attention backward on wgmma alone, no pack or unpack), step losses
+   within 2e-2 of the oracle's; reported: routing decisions that differ,
+   step ms and tokens/s per process and for the oracle, each process's peak
+   GB and the card's GB in use, and from the last step, traced, the shares
+   of the forward's and backward's collectives (the exchange and the aux
+   loss's mean, their ``procmesh.*`` ranges, host staging included) and of
+   the gradient sync (``train.grad_sync``).  (b) The f32 gate: 1 layer, 32
+   x 128 tokens, 2 steps on the 4 processes against the stacked oracle:
+   metrics within a relative 1e-5, every gradient (each process's slice
+   against the oracle's, combined over the processes) within a relative
+   norm of 1e-4, every parameter after step 2 within 1e-5 of its tensor's
+   largest value (an element whose oracle gradients lie at the f32 noise
+   floor of the sums, within ``NOISE_GRAD`` of its slice's largest, within
+   4 x the peak rate: Adam's step of such an element follows the noise),
+   a routing difference only at a near tie (``NEAR_TIE``),
+   launches equal; a planted fault, ``pmean``'s backward replaced by a
+   local ``1 / n``, must fail the gradient gate.  (c) The ``Trainer`` on
+   the 4 processes at smoke size (f32): 6 steps unbroken against 3, a
+   checkpoint written by the 4 processes and a resume, within 1e-6; that
+   checkpoint restored on ``LocalMesh((2, 2, 1))`` bit for bit, and
+   trained there to step 6: its last loss within a relative 1e-5 of the
+   processes' unbroken run, its parameters within a relative norm of
+   1e-5.
+
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
 attention backward on wgmma alone, and serving pack and unpack
@@ -141,8 +177,8 @@ results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
 megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
 and flash_attention_bwd, mixtral's plan run for pack and unpack;
-``launches_by_path`` lists every path's counts, phases 7's and 8's too
-(phase 8's are rank 0's, equal in every process).  It exits non-zero,
+``launches_by_path`` lists every path's counts, phases 7's, 8's and 9's
+too (phases 8's and 9's are rank 0's, equal in every process).  It exits non-zero,
 printing no result, without a CUDA device or outside a checkout of the
 repository.
 """
@@ -207,6 +243,17 @@ PROC_BF16_APART_MAX = 4
 PROC_PATH = "megatron-moe-32e procs (2,2,1)"
 PROC_LABEL = ("4 processes sharing one GPU's SMs, exchanging through pinned "
               "host memory over gloo: not a 4-GPU time")
+# phase 9: training on one process per rank of the same mesh
+TRAIN_PROC_STEPS, F32_PROC_STEPS = 3, 2
+TRAIN_PROC_PATH = "megatron-moe-32e train procs (2,2,1)"
+TRAINER_PROC_STEPS = 6
+# phase 9's f32 gate: an element whose oracle gradient stays within this
+# share of its tensor slice's largest, every step, lies at the f32 noise
+# floor of the gradient sums (the processes' and the stacked mesh's differ
+# by about 1e-7 of the largest, PERF.md): Adam's update of it may move by
+# up to its step size, so it is held within 4 x the peak rate (the gc
+# rule of tests/test_torch_train.py); every other element within 1e-5
+NOISE_GRAD = 1e-4
 # the serving shapes' flash_attention device ms before the forward kernel
 # could write lse (PERF.md, section 6), for the check that serving, which
 # asks for none, kept its time
@@ -2946,16 +2993,9 @@ def proc_child(mesh, cfg32, shards, rows, serve_cli, plan):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.convert import recast
-    from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
-    from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.launch.serve import make_prefill_step
 
-    kernels = {"a2a_pack": a2a_pack, "a2a_unpack": a2a_unpack,
-               "grouped_matmul": grouped_matmul,
-               "flash_attention": flash_attention,
-               "flash_attention_bwd": flash_attention_bwd}
+    kernels = proc_kernels()
     cfg = serve_config()
     r = mesh.rank
     out = {"rank": r, "device": str(mesh.device), "used_gb": {}}
@@ -3251,6 +3291,592 @@ def phase_procs(torch, kernels):
     return counts, summary
 
 
+# -- 9. training on one process per rank -------------------------------------
+
+def proc_kernels():
+    """The kernel wrappers (each keeps its launch count), in a process."""
+    from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+
+    return {"a2a_pack": a2a_pack, "a2a_unpack": a2a_unpack,
+            "grouped_matmul": grouped_matmul,
+            "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd}
+
+
+def proc_train_options(steps):
+    """Phase 6's schedule: a warm-up step at rate 0, then the peak."""
+    from repro_torch.launch.train import TrainOptions
+
+    return TrainOptions(peak_lr=3e-4, warmup_steps=1, total_steps=steps)
+
+
+def proc_data(cfg, batch, seq):
+    """The ``SyntheticLM`` stream of ``train_batches`` (the same batches)."""
+    from repro_torch.data import DataConfig
+
+    return DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=SEED)
+
+
+class GradSpy:
+    """While active, each gradient dictionary ``make_train_step`` hands to
+    AdamW is kept (copies), or with ``on_grads`` what ``on_grads(i,
+    grads)`` makes of the ``i``-th; with ``update=False`` the update is
+    skipped (parameters and moments stay as they were)."""
+
+    def __init__(self, update=True, on_grads=None):
+        from repro_torch.launch import train
+        self.train, self.real, self.update, self.grads = \
+            train, train.adamw_update, update, []
+        self.on_grads = on_grads or (lambda i, grads: {
+            k: g.detach().clone() for k, g in grads.items()})
+
+    def __enter__(self):
+        import torch
+
+        def spy(grads, opt, params, lr, cfg, *rest):
+            self.grads.append(self.on_grads(len(self.grads), grads))
+            if self.update:
+                return self.real(grads, opt, params, lr, cfg, *rest)
+            return params, opt, torch.zeros(())
+        self.train.adamw_update = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.train.adamw_update = self.real
+
+
+def local_oracle(torch, cfg, batch, seq, steps, kernels, keep=False):
+    """Phase 9's oracle: ``steps`` AdamW steps of fresh parameters from the
+    seed on ``LocalMesh((2, 2, 1))``, every rank stacked in this process;
+    counts set to 0 just before each step and read just after.  With
+    ``keep`` the gradients of each step, the final parameters and the
+    routing margins stay (on the card)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import init_train_state, make_train_step
+
+    mesh = make_mesh(PROC_MESH, AXES, torch.device(DEVICE))
+    params = stack_params(torch, cfg, train=True)
+    state = init_train_state(params)
+    step = make_train_step(cfg, mesh, proc_train_options(steps),
+                           device=DEVICE)
+    out = {"metrics": [], "step_ms": [], "launches": [], "variants": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spy = GradSpy(on_grads=None if keep else lambda i, grads: None)
+    with spy, RouteRecorder(margins=keep) as rec:
+        for b in train_batches(cfg, batch, seq, steps):
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["launches"].append(read_launches(kernels))
+            out["variants"].append(read_variants(kernels))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["routes"] = [e.cpu() for e in rec.eids]
+    if keep:
+        out["margins"] = [m.cpu() for m in rec.margins]
+        out["grads"] = spy.grads
+        out["final"] = {k: p.detach() for k, p in params.named_parameters()}
+    del state, step, params, spy
+    free(torch)
+    return out
+
+
+def traced_step(torch, run):
+    """One training step ``run()`` under torch.profiler (host activity):
+    the shares of its host time inside the process mesh's collectives of
+    the forward and backward (the MoE exchange and the aux loss's mean,
+    their ``procmesh.*`` ranges inside ``train.forward_backward``, the
+    backward's ``.bwd`` ones included) and inside the gradient sync
+    (``train.grad_sync``), host staging included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+
+    def spans(pred):
+        return [e for e in events if pred(e.name)]
+
+    fb = spans(lambda n: n == "train.forward_backward")
+    sync = spans(lambda n: n == "train.grad_sync")
+    inside = [e for e in spans(lambda n: n.startswith("procmesh."))
+              if any(r.time_range.start <= e.time_range.start
+                     and e.time_range.end <= r.time_range.end for r in fb)]
+    ex_us = busy_us([(e.time_range.start, e.time_range.end) for e in inside])
+    sync_us = sum(e.time_range.elapsed_us() for e in sync)
+    return res, {"host_ms": host_us / 1e3, "exchange_share": ex_us / host_us,
+                 "sync_share": sync_us / host_us,
+                 "collectives": len(inside),
+                 "backward_collectives": sum(e.name.endswith(".bwd")
+                                             for e in inside)}
+
+
+def train_proc_child(mesh, cfg, shards, train):
+    """One rank of phase 9 (a), the per-rank hook of ``train_procs``: the
+    CLI's own training loop (``train()``) on this process's shard, each
+    step's launches counted (the counts set to 0 just before the step and
+    read just after), its routing recorded, the last step traced; the
+    card's memory in use after each step."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = proc_kernels()
+    out = {"rank": mesh.rank, "shard_gb": param_gb(shards[0]),
+           "used_gb": {"after the parent's drop": card_used_gb(torch)},
+           "launches": [], "variants": [], "card_gb": []}
+    torch.cuda.reset_peak_memory_stats()
+
+    def each(i, run):
+        reset_launches(kernels)
+        if i == TRAIN_PROC_STEPS - 1:
+            res, out["trace"] = traced_step(torch, run)
+        else:
+            res = run()
+            torch.cuda.synchronize()
+        out["launches"].append(read_launches(kernels))
+        out["variants"].append(read_variants(kernels))
+        out["card_gb"].append(card_used_gb(torch))
+        return res
+
+    with RouteRecorder() as rec:
+        out["train"] = train(each_step=each)
+    out["routes"] = [e.cpu() for e in rec.eids]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def check_proc_launches(outs, oracle, n_layers, label):
+    """Every process's launches each step equal to the oracle's (every rank
+    stacked: one launch serves them all, as one serves a process's rank),
+    grouped_matmul on TMA alone, the attention backward on wgmma alone, no
+    pack or unpack."""
+    check_train_launches(oracle, n_layers, f"{label}[local oracle]")
+    for o in outs:
+        check_train_launches(o, n_layers, f"{label}[rank {o['rank']}]")
+        if o["launches"] != oracle["launches"]:
+            raise AssertionError(f"{label}: rank {o['rank']} launched "
+                                 f"{o['launches']}; the oracle "
+                                 f"{oracle['launches']}")
+
+
+def phase_train_procs(torch, kernels):
+    """Phase 9 (a): megatron-moe-32e trained on 4 processes through
+    ``train_procs`` against the same steps on the stacked mesh; then (b)
+    the f32 gate and (c) the Trainer.  Returns rank 0's launches over its
+    steps and a summary."""
+    from repro_torch.launch.train import train_procs
+
+    cfg = train_config()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train-procs: {cfg.name} layers={cfg.n_layers}/24 at its published "
+        f"widths on a {PROC_MESH} mesh of {int(np.prod(PROC_MESH))} "
+        f"processes ({PROC_BACKEND}) on the one card through train_procs; "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step ({TRAIN_BATCH // 4} x "
+        f"{TRAIN_SEQ} a process), {TRAIN_PROC_STEPS} AdamW steps, "
+        f"{cfg.param_dtype} masters, {cfg.compute_dtype} compute, "
+        f"remat={cfg.remat}, exchange {cfg.a2a_impl!r}; {PROC_LABEL}")
+    oracle = local_oracle(torch, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                          TRAIN_PROC_STEPS, kernels)
+    summary = {"label": PROC_LABEL, "oracle": {
+        "step_ms": oracle["step_ms"], "peak_gb": oracle["peak_gb"],
+        "tokens_per_s": tokens / statistics.median(oracle["step_ms"][1:])
+        * 1e3}}
+    log(f"train-procs[local oracle]: step ms "
+        f"{[round(x, 3) for x in oracle['step_ms']]} "
+        f"({summary['oracle']['tokens_per_s']:.1f} tokens/s at the median of "
+        f"steps 1 to {TRAIN_PROC_STEPS - 1}); peak {oracle['peak_gb']:.2f} "
+        f"GB; losses {[round(m['loss'], 6) for m in oracle['metrics']]}")
+
+    params = stack_params(torch, cfg, train=True)
+    holder = [params]
+    del params
+    # the 4 processes' states fill the card to within about 10 GB: their
+    # allocators grow segments in place rather than leave gaps
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    res = train_procs(cfg, holder, proc_data(cfg, TRAIN_BATCH, TRAIN_SEQ),
+                      PROC_MESH, PROC_BACKEND, DEVICE,
+                      proc_train_options(TRAIN_PROC_STEPS), TRAIN_PROC_STEPS,
+                      hook=train_proc_child, timeout=PROC_TIMEOUT_S,
+                      join_timeout=PROC_JOIN_S)
+    summary["processes_s"] = time.perf_counter() - t0
+    outs = res["ranks"]
+    check_proc_launches(outs, oracle, cfg.n_layers, "train-procs")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(res["metrics"], oracle["metrics"])]
+    routes = [torch.cat([o["routes"][i] for o in outs])
+              for i in range(len(oracle["routes"]))]
+    n_flip, n_dec, per_layer, per_seq = route_flips(
+        torch, oracle["routes"], routes, TRAIN_BATCH)
+    log(f"train-procs: every process launched each kernel as often as the "
+        f"oracle each step ({oracle['launches'][0]}), grouped_matmul on TMA "
+        f"and the attention backward on wgmma alone; step losses "
+        f"{[round(m['loss'], 6) for m in res['metrics']]} against the "
+        f"oracle's, relative differences {[f'{d:.3e}' for d in diffs]} "
+        f"(limit 2e-2); {n_flip} of {n_dec} routing decisions differ (per "
+        f"forward {per_layer}), in {int(per_seq.sum())} of {TRAIN_BATCH} "
+        f"sequences")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"train-procs: step losses against the oracle "
+                             f"{diffs}")
+    summary.update(loss_diffs=diffs, routing_differs=n_flip,
+                   sequences_routed_apart=int(per_seq.sum()),
+                   card_used_gb=res.get("card_used_gb", {}), ranks=[])
+    for o in outs:
+        ms = o["train"]["step_ms"]
+        r = {"rank": o["rank"], "step_ms": ms,
+             "tokens_per_s": tokens / 4 / ms[1] * 1e3,
+             "peak_gb": o["peak_gb"], "card_gb": max(o["card_gb"]),
+             "shard_gb": o["shard_gb"], **o["trace"]}
+        summary["ranks"].append(r)
+        log(f"train-procs[rank {o['rank']}]: step ms "
+            f"{[round(x, 3) for x in ms]} (step {TRAIN_PROC_STEPS - 1} "
+            f"traced); {r['tokens_per_s']:.1f} tokens/s of its rows at step "
+            f"1 ({tokens / ms[1] * 1e3:.1f} for the 4 processes); peak "
+            f"{o['peak_gb']:.2f} GB (f32 shard {o['shard_gb']:.2f} GB); the "
+            f"card {r['card_gb']:.2f} GB in use; traced step "
+            f"{r['host_ms']:.3f} ms: exchange share {r['exchange_share']:.4f} "
+            f"({r['collectives']} collectives, {r['backward_collectives']} "
+            f"of them the backward's), gradient sync share "
+            f"{r['sync_share']:.4f}; {PROC_LABEL}")
+    log(f"train-procs: card memory in use (GB): "
+        f"{json.dumps({k: round(v, 2) for k, v in summary['card_used_gb'].items()})}")
+    counts = {k: sum(step[k] for step in outs[0]["launches"])
+              for k in outs[0]["launches"][0]}
+    summary["f32"] = train_procs_f32_gate(torch, kernels)
+    summary["trainer"] = train_procs_trainer_gate(torch)
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    return counts, summary
+
+
+def grad_stats(torch, mesh, specs, got, want):
+    """Per gradient: (squared norm of got - want's slice, squared norm of
+    want's slice, whether the slices differ between processes)."""
+    from repro_torch.launch.shardings import shard_tensor, sharded_axes
+
+    out = {}
+    for k, g in got.items():
+        w = shard_tensor(want[k], specs[k], mesh).float()
+        out[k] = (float((g.float() - w).square().sum()),
+                  float(w.square().sum()),
+                  bool(sharded_axes(mesh, specs[k])))
+    return out
+
+
+def f32_proc_child(mesh, cfg, shards, train, want):
+    """One rank of phase 9 (b): the first step's gradients with ``pmean``'s
+    backward replaced by a local ``1 / n`` (the planted fault, no update),
+    then the sound steps through ``train()``; each step's gradients and the
+    final parameters against the oracle's slices (``want``, shared from the
+    parent through CUDA IPC)."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.train import (init_train_state, make_train_step,
+                                          train_specs)
+    from repro_torch.launch.shardings import shard_tensor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = proc_kernels()
+    specs = train_specs(cfg, mesh)
+    module = shards[0]
+    real = M._pmean_backward
+    M._pmean_backward = lambda mesh_, g, axes: g / mesh_.axis_size(axes)
+    try:
+        state = init_train_state(module)
+        step = make_train_step(cfg, mesh, proc_train_options(F32_PROC_STEPS),
+                               device=DEVICE)
+        with GradSpy(update=False, on_grads=lambda i, g: grad_stats(
+                torch, mesh, specs, g, want["grads"][0])) as spy:
+            step(state, train_batches(cfg, TRAIN_BATCH, F32_TRAIN_SEQ, 1)[0])
+        fault = spy.grads[0]
+        del state, step, spy
+    finally:
+        M._pmean_backward = real
+    free(torch)
+    launches = []
+
+    def each(i, run):
+        reset_launches(kernels)
+        res = run()
+        torch.cuda.synchronize()
+        launches.append(read_launches(kernels))
+        return res
+
+    with GradSpy(on_grads=lambda i, g: grad_stats(
+            torch, mesh, specs, g, want["grads"][i])) as spy, \
+            RouteRecorder() as rec:
+        res = train(each_step=each)
+    grads = spy.grads
+    params = {}
+    for k, p in module.named_parameters():
+        w = shard_tensor(want["final"][k], specs[k], mesh)
+        d = (p.detach() - w).abs()
+        noise = torch.ones_like(d, dtype=torch.bool)
+        for g in want["grads"]:
+            g = shard_tensor(g[k], specs[k], mesh).abs()
+            noise &= g <= NOISE_GRAD * g.max()
+        params[k] = (float(d[~noise].max()) if not noise.all() else 0.0,
+                     float(w.abs().max()),
+                     float(d[noise].max()) if noise.any() else 0.0,
+                     int(noise.sum()), d.numel())
+        del d, noise
+    # release the parent's tensors now, not at this process's exit, so the
+    # parent sees them released before it exits
+    want.clear()
+    del w, g
+    gc.collect()
+    return {"rank": mesh.rank, "metrics": res["metrics"], "grads": grads,
+            "fault": fault, "params": params, "launches": launches,
+            "routes": [e.cpu() for e in rec.eids]}
+
+
+def rel_norms(stats):
+    """Each gradient's relative norm from every process's ``grad_stats``:
+    sharded gradients summed over the processes, replicated ones rank
+    0's."""
+    out = {}
+    for k, (d, w, sharded) in stats[0].items():
+        if sharded:
+            d, w = (sum(s[k][i] for s in stats) for i in (0, 1))
+        out[k] = (d ** 0.5) / (w ** 0.5 + 1e-30)
+    return out
+
+
+def train_procs_f32_gate(torch, kernels):
+    """Phase 9 (b): 1 layer in f32, TRAIN_BATCH x F32_TRAIN_SEQ tokens,
+    F32_PROC_STEPS steps on the 4 processes against the stacked oracle:
+    metrics within a relative 1e-5, every gathered gradient within a
+    relative norm of 1e-4, every parameter after the last step within 1e-5
+    of its tensor's largest value (those at the gradients' noise floor,
+    ``NOISE_GRAD``, within 4 x the peak rate), a routing difference only at
+    a near tie; the planted fault must fail the gradient gate."""
+    from repro_torch.launch.train import train_procs
+
+    cfg = train_config(n_layers=1, compute_dtype="float32")
+    oracle = local_oracle(torch, cfg, TRAIN_BATCH, F32_TRAIN_SEQ,
+                          F32_PROC_STEPS, kernels, keep=True)
+    want = {"grads": oracle.pop("grads"), "final": oracle.pop("final")}
+    res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
+                      proc_data(cfg, TRAIN_BATCH, F32_TRAIN_SEQ), PROC_MESH,
+                      PROC_BACKEND, DEVICE,
+                      proc_train_options(F32_PROC_STEPS), F32_PROC_STEPS,
+                      hook=functools.partial(f32_proc_child, want=want),
+                      timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    del want
+    free(torch)
+    torch.cuda.ipc_collect()  # the oracle's tensors the processes mapped
+    outs = res["ranks"]
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                     for a, b in zip(res["metrics"], oracle["metrics"])
+                     for k in ("loss", "nll", "aux", "grad_norm", "lr"))
+    grad_errs = [rel_norms([o["grads"][i] for o in outs])
+                 for i in range(F32_PROC_STEPS)]
+    worst_grad = max(max(e.values()) for e in grad_errs)
+    worst_key = max(grad_errs[0], key=grad_errs[0].get)
+    fault = rel_norms([o["fault"] for o in outs])
+    fault_key = max(fault, key=fault.get)
+    param_err = max(max(o["params"][k][0] for o in outs)
+                    / max(o["params"][k][1] for o in outs)
+                    for k in outs[0]["params"])
+    noise_err = max(o["params"][k][2] for o in outs for k in o["params"])
+    n_noise = sum(o["params"][k][3] for o in outs for k in o["params"])
+    n_elems = sum(o["params"][k][4] for o in outs for k in o["params"])
+    rate = proc_train_options(F32_PROC_STEPS).peak_lr
+    routes = [torch.cat([o["routes"][i] for o in outs])
+              for i in range(len(oracle["routes"]))]
+    flips, n_dec, tie = near_tie_flips(torch, oracle["routes"], routes,
+                                       oracle["margins"], TRAIN_BATCH)
+    launches_equal = all(o["launches"] == oracle["launches"] for o in outs)
+    log(f"train-procs[f32]: 1 layer, {TRAIN_BATCH} x {F32_TRAIN_SEQ} tokens, "
+        f"{F32_PROC_STEPS} steps on 4 processes against the stacked oracle: "
+        f"metrics max rel diff {metric_err:.3e} (limit 1e-5); gradients, "
+        f"relative norm of the gathered whole, worst {worst_grad:.3e} "
+        f"(limit 1e-4; step 0's worst {worst_key} "
+        f"{grad_errs[0][worst_key]:.3e}); parameters after step "
+        f"{F32_PROC_STEPS} within {param_err:.3e} of each tensor's largest "
+        f"value (limit 1e-5), but the {n_noise} of {n_elems} elements "
+        f"whose oracle gradients stay within {NOISE_GRAD} of their slice's "
+        f"largest, within {noise_err:.3e} = {noise_err / rate:.3f} x the "
+        f"peak rate (limit 4); {flips} of {n_dec} routing decisions differ, "
+        f"each sequence's first at an oracle margin of at most {tie:.3e} "
+        f"(near-tie limit {NEAR_TIE}); launches equal to the oracle's "
+        f"{launches_equal}")
+    log(f"train-procs[f32 planted fault]: pmean's backward a local 1 / n: "
+        f"step 0's worst gradient {fault_key} at a relative norm of "
+        f"{fault[fault_key]:.3e}: the gate (1e-4) "
+        f"{'refuses' if fault[fault_key] > 1e-4 else 'PASSES'} it")
+    if not (metric_err <= 1e-5 and worst_grad <= 1e-4 and param_err <= 1e-5
+            and noise_err <= 4 * rate and tie <= NEAR_TIE
+            and launches_equal):
+        raise AssertionError(f"train-procs[f32]: metrics {metric_err}, "
+                             f"gradients {worst_grad}, parameters "
+                             f"{param_err} (at the noise floor {noise_err}), "
+                             f"routing tie {tie}, launches equal "
+                             f"{launches_equal}")
+    if not fault[fault_key] > 1e-4:
+        raise AssertionError("train-procs[f32]: the planted pmean fault "
+                             "passes the gradient gate")
+    return {"metric_err": metric_err, "grad_err": worst_grad,
+            "param_err": param_err, "noise_floor_param_err": noise_err,
+            "noise_floor_elements": n_noise, "routing_differs": flips,
+            "first_difference_margin": tie,
+            "planted_fault": {fault_key: fault[fault_key]}}
+
+
+def state_tensors(state):
+    """A train state's parameters and moments by ``params/``, ``m/`` and
+    ``v/`` + parameter name."""
+    out = {f"params/{k}": p for k, p in state["params"].named_parameters()}
+    out.update({f"m/{k}": t for k, t in state["opt"].m.items()})
+    out.update({f"v/{k}": t for k, t in state["opt"].v.items()})
+    return out
+
+
+def trainer_child(mesh, cfg, shards, train, root):
+    """One rank of phase 9 (c): ``train()`` is the Trainer's unbroken run
+    (``train_procs`` with a checkpoint directory); then the Trainer over
+    the processes for half the steps (its checkpoint written by the 4
+    processes) and a resume to the end, on a fresh shard of the same
+    initial parameters.  Returns the largest difference of the two runs'
+    parameters (over each slice's largest value) and, on rank 0, the
+    unbroken run's parameters gathered."""
+    from repro_torch.convert import recast
+    from repro_torch.launch.shardings import gather_tensor
+    from repro_torch.launch.train import (init_train_state, make_train_step,
+                                          train_specs)
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    specs = train_specs(cfg, mesh)
+    init = {k: v.detach().clone() for k, v in shards[0].named_parameters()}
+    unbroken = shards[0]
+    train()
+    step = make_train_step(cfg, mesh, proc_train_options(TRAINER_PROC_STEPS),
+                           device=DEVICE)
+    batches = train_batches(cfg, 8, 32, TRAINER_PROC_STEPS)
+
+    def init_state():
+        return init_train_state(recast({k: v.clone() for k, v in
+                                        init.items()}, cfg, train=True))
+
+    def gathered(state):
+        return {k: gather_tensor(t.detach(), specs[k.split("/", 1)[1]],
+                                 mesh).cpu()
+                for k, t in state_tensors(state).items()}
+
+    half = TRAINER_PROC_STEPS // 2
+    runs = [Trainer(TrainerConfig(total_steps=total, ckpt_dir=f"{root}/b",
+                                  ckpt_every=every), step, init_state,
+                    batches.__getitem__, mesh=mesh, specs=specs).run()
+            for total, every in ((half, half), (TRAINER_PROC_STEPS, 100))]
+    at_half, b = gathered(runs[0]["state"]), runs[1]
+    fa = {k: p.detach() for k, p in unbroken.named_parameters()}
+    errs = {k: float((p.detach() - fa[k]).abs().max() / fa[k].abs().max())
+            for k, p in b["state"]["params"].named_parameters()}
+    whole = {k: gather_tensor(p, specs[k], mesh).cpu() for k, p in fa.items()}
+    return {"rank": mesh.rank, "stopped": (b["stopped_at"],
+                                           int(b["state"]["step"])),
+            "resume_err": max(errs.values()),
+            "unbroken": whole if mesh.rank == 0 else None,
+            "at_half": at_half if mesh.rank == 0 else None}
+
+
+def train_procs_trainer_gate(torch):
+    """Phase 9 (c): the Trainer on 4 processes at smoke size (f32): a
+    checkpoint at half the steps, a resume, within 1e-6 of an unbroken run;
+    that checkpoint restored on a LocalMesh bit for bit (the processes'
+    state at half the steps, gathered) and trained to the end: its last
+    loss within a relative 1e-5 of the processes' unbroken run and its
+    parameters within a relative norm of 1e-5 (the meshes sum gradients in
+    other orders, and Adam moves an element whose gradient lies at that
+    noise floor by up to its step size)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (init_train_state, make_train_step,
+                                          train_procs)
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = smoke_config(ARCH, compute_dtype="float32")
+    half = TRAINER_PROC_STEPS // 2
+
+    def local_state():
+        return init_train_state(stack_params(torch, cfg, train=True))
+
+    with tempfile.TemporaryDirectory() as root:
+        res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
+                          proc_data(cfg, 8, 32), PROC_MESH, PROC_BACKEND,
+                          DEVICE, proc_train_options(TRAINER_PROC_STEPS),
+                          TRAINER_PROC_STEPS, ckpt_dir=f"{root}/a",
+                          hook=functools.partial(trainer_child, root=root),
+                          timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+        outs = res["ranks"]
+        src = os.path.join(root, "b", f"step_{half:09d}")
+        os.makedirs(f"{root}/c")
+        shutil.copytree(src, os.path.join(root, "c", f"step_{half:09d}"))
+        restored, at = restore_checkpoint(f"{root}/c", local_state())
+        same = at == half and all(
+            torch.equal(t.detach().cpu(), outs[0]["at_half"][k])
+            for k, t in state_tensors(restored).items())
+        del restored
+        mesh = make_mesh(PROC_MESH, AXES, torch.device(DEVICE))
+        step = make_train_step(cfg, mesh, proc_train_options(
+            TRAINER_PROC_STEPS), device=DEVICE)
+        batches = train_batches(cfg, 8, 32, TRAINER_PROC_STEPS)
+        local = Trainer(TrainerConfig(total_steps=TRAINER_PROC_STEPS,
+                                      ckpt_dir=f"{root}/c", ckpt_every=100),
+                        step, local_state, batches.__getitem__,
+                        mesh=mesh).run()
+    want = outs[0]["unbroken"]
+    got = {k: p.detach().cpu() for k, p in
+           local["state"]["params"].named_parameters()}
+    local_norm = max(float((got[k] - w).norm() / w.norm())
+                     for k, w in want.items())
+    local_max = max(float((got[k] - w).abs().max() / w.abs().max())
+                    for k, w in want.items())
+    loss_err = abs(local["metrics"]["loss"] - res["metrics"]["loss"]) \
+        / abs(res["metrics"]["loss"])
+    resume_err = max(o["resume_err"] for o in outs)
+    stopped = {o["stopped"] for o in outs}
+    log(f"train-procs[trainer]: smoke {cfg.name} (f32) on 4 processes, "
+        f"{TRAINER_PROC_STEPS} steps unbroken against {half} + the 4 "
+        f"processes' checkpoint + a resume: stopped at {sorted(stopped)} "
+        f"(step, state step); parameters within {resume_err:.3e} of each "
+        f"slice's largest value (limit 1e-6); that checkpoint restored on "
+        f"LocalMesh{PROC_MESH} bit for bit {same}, trained to step "
+        f"{local['stopped_at']}: last loss {local['metrics']['loss']:.6f} "
+        f"against the processes' {res['metrics']['loss']:.6f} (relative "
+        f"{loss_err:.3e}, limit 1e-5), parameters within a relative norm of "
+        f"{local_norm:.3e} (limit 1e-5; largest element difference "
+        f"{local_max:.3e} of its tensor's largest value)")
+    if not (stopped == {(TRAINER_PROC_STEPS, TRAINER_PROC_STEPS)}
+            and resume_err <= 1e-6 and same and loss_err <= 1e-5
+            and local_norm <= 1e-5
+            and local["stopped_at"] == TRAINER_PROC_STEPS):
+        raise AssertionError(f"train-procs[trainer]: stopped {stopped}, "
+                             f"resume {resume_err}, restored bit for bit "
+                             f"{same}, loss {loss_err}, parameters "
+                             f"{local_norm}")
+    return {"resume_err": resume_err, "restored_bit_identical": same,
+            "local_loss_err": loss_err, "local_param_norm_err": local_norm,
+            "local_param_max_err": local_max}
+
 # Ratios of the redesigned kernels to their library calls that the bf16
 # serving and training shapes should stay under (reported, not gated: a
 # card below its power limit moves them).  Pack and unpack: device time at most the
@@ -3388,6 +4014,13 @@ def main() -> int:
     log(f"phase procs: {time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(procs)}")
 
+    # 9. training on one process per rank on the card
+    t0 = time.perf_counter()
+    train_proc_launches, train_procs_summary = phase_train_procs(torch,
+                                                                 kernels)
+    log(f"phase train procs: {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(train_procs_summary)}")
+
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for
     # pack and unpack, which training does not launch: the main path of
@@ -3410,6 +4043,8 @@ def main() -> int:
                    for p, c in launches.items()}
         by_path[f"megatron-moe-32e train ({TRAIN_STEPS} steps)"] = \
             train_launches[name]
+        by_path[f"{TRAIN_PROC_PATH} ({TRAIN_PROC_STEPS} steps, each "
+                f"process)"] = train_proc_launches[name]
         for path, counts in stack_launches.items():
             if name in counts:
                 by_path[path] = counts[name]

@@ -28,10 +28,15 @@ from ..launch.mesh import all_gather
 __all__ = ["ef_compressed_psum", "psum_bf16", "tree_ef_state"]
 
 
-def _quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per rank of ``x [R, ...]``: int8 values and the f32 scale ``[R]``."""
+def _quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per rank of ``x [R, ...]``: int8 values and the f32 scale ``[R]``
+    (from ``amax [R]``, each rank's largest magnitude, when ``x`` is a slice
+    of the tensor the scale is of)."""
     flat = x.reshape(x.shape[0], -1)
-    scale = torch.clamp(flat.abs().amax(-1), min=1e-30) / 127.0
+    if amax is None:
+        amax = flat.abs().amax(-1)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(flat / scale[:, None]), -127, 127) \
         .to(torch.int8)
     return q.reshape(x.shape), scale

@@ -12,7 +12,11 @@ of one, ``[1, ...]``, so the code above the mesh runs unchanged on either.
 The collectives below compute what ``lax.all_to_all``, ``lax.ppermute``,
 ``lax.axis_index`` and ``lax.pmean`` compute per rank: device-side copies on
 a ``LocalMesh``, ``torch.distributed`` calls on a ``ProcessMesh``'s process
-groups.
+groups.  Both forms carry gradients, with ``lax``'s transpose rules: on a
+``LocalMesh`` autograd differentiates the index copies, on a ``ProcessMesh``
+each collective is an ``autograd.Function`` whose backward runs the
+transposed collective (the same tiled ``all_to_all``; ``ppermute`` with every
+pair reversed; ``pmean`` of the cotangents over the group).
 
 ``size`` is the number of ranks of the mesh and ``coords()`` their
 coordinates; ``local_size`` and ``local_coords()`` are those of the ranks
@@ -31,7 +35,7 @@ import torch.distributed as torch_dist
 
 __all__ = ["LocalMesh", "ProcessMesh", "make_mesh", "make_production_mesh",
            "resolve_device", "dp_axes", "slow_axis", "all_to_all",
-           "ppermute", "axis_index", "pmean", "all_gather"]
+           "ppermute", "axis_index", "pmean", "all_gather", "all_ranks"]
 
 AxisNames = Union[str, Tuple[str, ...]]
 
@@ -312,7 +316,7 @@ def all_to_all(mesh, x: torch.Tensor, axes: AxisNames,
     if size % n:
         raise ValueError(f"dim {axis} of size {size} does not split {n} ways")
     if isinstance(mesh, ProcessMesh):
-        return _proc_all_to_all(mesh, x, axes, k, n)
+        return _AllToAll.apply(mesh, x, axes, k, n)
     # out[rank, ..., j, ...] = x[members[rank, j], ..., combined[rank], ...]
     xv = x.reshape(*x.shape[:k], n, size // n, *x.shape[k + 1:])
     src_rank = mesh.cached_index(("a2a_members", axes), x.device,
@@ -337,6 +341,15 @@ def all_gather(mesh, x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
     return all_to_all(mesh, rep, axes, axis=0)
 
 
+def all_ranks(mesh: ProcessMesh, value: int) -> Tuple[int, ...]:
+    """Every process's integer ``value``, by world rank: collective over
+    the whole mesh, so it is also a barrier (no process returns before
+    every process has called it)."""
+    t = torch.tensor([[int(value)]], dtype=torch.int64, device=mesh.device)
+    with torch.no_grad():
+        return tuple(all_gather(mesh, t, mesh.axis_names)[0, :, 0].tolist())
+
+
 def ppermute(mesh, x: torch.Tensor, axis: str,
              pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """``lax.ppermute`` over ``axis`` on a stacked ``x [local_size, ...]``:
@@ -345,7 +358,7 @@ def ppermute(mesh, x: torch.Tensor, axis: str,
     nothing get zeros."""
     pairs = tuple((int(s), int(d)) for s, d in pairs)
     if isinstance(mesh, ProcessMesh):
-        return _proc_ppermute(mesh, x, axis, pairs)
+        return _PPermute.apply(mesh, x, axis, pairs)
 
     def routes() -> np.ndarray:
         """``[2, n]``: receiving ranks, then the rank each receives from."""
@@ -377,7 +390,7 @@ def pmean(mesh, x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
     relative 1e-6 in f32)."""
     axes = _as_tuple(axes)
     if isinstance(mesh, ProcessMesh):
-        return _proc_pmean(mesh, x, axes)
+        return _PMean.apply(mesh, x, axes)
     dims = [mesh.axis_names.index(a) for a in axes]
     xm = x.reshape(*mesh.shape, *x.shape[1:])
     return xm.mean(dim=dims, keepdim=True).expand_as(xm).reshape(x.shape)
@@ -386,7 +399,8 @@ def pmean(mesh, x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
 # -- the process forms ----------------------------------------------------------
 #
 # Each runs inside a profiler range named ``procmesh.<collective>`` (host
-# staging included), which reads the exchange's share of a traced step.
+# staging included), its backward inside ``procmesh.<collective>.bwd``; the
+# ranges read the exchange's and the gradient sync's share of a traced step.
 
 def _staged(mesh: ProcessMesh, x: torch.Tensor) -> torch.Tensor:
     """``x`` where the backend can move it: under gloo a CUDA tensor is
@@ -405,8 +419,9 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def _proc_all_to_all(mesh: ProcessMesh, x: torch.Tensor,
-                     axes: Tuple[str, ...], k: int, n: int) -> torch.Tensor:
-    with torch.profiler.record_function("procmesh.all_to_all"):
+                     axes: Tuple[str, ...], k: int, n: int,
+                     span: str = "procmesh.all_to_all") -> torch.Tensor:
+    with torch.profiler.record_function(span):
         group = mesh.group(axes)
         if group is None:
             return x.clone()
@@ -431,8 +446,9 @@ def _proc_all_to_all(mesh: ProcessMesh, x: torch.Tensor,
 
 
 def _proc_ppermute(mesh: ProcessMesh, x: torch.Tensor, axis: str,
-                   pairs: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
-    with torch.profiler.record_function("procmesh.ppermute"):
+                   pairs: Tuple[Tuple[int, int], ...],
+                   span: str = "procmesh.ppermute") -> torch.Tensor:
+    with torch.profiler.record_function(span):
         a = mesh.axis_names.index(axis)
         me = mesh.rank_coords[a]
         peers = mesh.members((axis,))        # world rank at each coordinate
@@ -467,8 +483,9 @@ def _proc_ppermute(mesh: ProcessMesh, x: torch.Tensor, axis: str,
 
 
 def _proc_pmean(mesh: ProcessMesh, x: torch.Tensor,
-                axes: Tuple[str, ...]) -> torch.Tensor:
-    with torch.profiler.record_function("procmesh.pmean"):
+                axes: Tuple[str, ...], span: str = "procmesh.pmean"
+                ) -> torch.Tensor:
+    with torch.profiler.record_function(span):
         group = mesh.group(axes)
         if group is None:
             return x.clone()
@@ -477,3 +494,56 @@ def _proc_pmean(mesh: ProcessMesh, x: torch.Tensor,
             buf = x.clone()
         torch_dist.all_reduce(buf, torch_dist.ReduceOp.SUM, group=group)
         return (buf.to(x.device) / mesh.axis_size(axes)).to(x.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled ``all_to_all`` over the same axes is its own transpose."""
+
+    @staticmethod
+    def forward(ctx, mesh, x, axes, k, n):
+        ctx.args = (mesh, axes, k, n)
+        return _proc_all_to_all(mesh, x, axes, k, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, k, n = ctx.args
+        return (None, _proc_all_to_all(mesh, g.contiguous(), axes, k, n,
+                                       "procmesh.all_to_all.bwd"),
+                None, None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    """``ppermute``'s transpose sends each cotangent back along its pair:
+    ``(s, d)`` becomes ``(d, s)``, and a rank that sent nothing gets
+    zeros."""
+
+    @staticmethod
+    def forward(ctx, mesh, x, axis, pairs):
+        ctx.args = (mesh, axis, tuple((d, s) for s, d in pairs))
+        return _proc_ppermute(mesh, x, axis, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, back = ctx.args
+        return (None, _proc_ppermute(mesh, g.contiguous(), axis, back,
+                                     "procmesh.ppermute.bwd"), None, None)
+
+
+def _pmean_backward(mesh: ProcessMesh, g: torch.Tensor,
+                    axes: Tuple[str, ...]) -> torch.Tensor:
+    """``pmean``'s transpose: the mean of the group's cotangents (every
+    member's loss depends on every member's input through the mean)."""
+    return _proc_pmean(mesh, g.contiguous(), axes, "procmesh.pmean.bwd")
+
+
+class _PMean(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, mesh, x, axes):
+        ctx.args = (mesh, axes)
+        return _proc_pmean(mesh, x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return None, _pmean_backward(mesh, g, axes), None

@@ -49,7 +49,8 @@ import torch.distributed as torch_dist
 from .mesh import ProcessMesh, resolve_device
 
 __all__ = ["DEFAULT_TIMEOUT_S", "RENDEZVOUS_TIMEOUT_S", "init_process_mesh",
-           "spawn", "file_rendezvous", "under_torchrun"]
+           "spawn", "spawn_with_handoff", "file_rendezvous",
+           "under_torchrun"]
 
 DEFAULT_TIMEOUT_S = 60.0
 # the processes' rendezvous may wait longer than a collective: a rank can be
@@ -237,3 +238,61 @@ def spawn(fn: Callable[..., Any], shape: Sequence[int], axes: Sequence[str],
     if missing:
         raise RuntimeError(f"spawn: ranks {missing} returned no result")
     return [results[i] for i in range(world)]
+
+
+def _card_used_gb(device: torch.device) -> float:
+    """Memory in use on the card by every process (``cudaMemGetInfo``)."""
+    free_b, total = torch.cuda.mem_get_info(device)
+    return (total - free_b) / 1e9
+
+
+def spawn_with_handoff(run: Callable[[Any], List[Any]], named: list,
+                       world: int, device: Union[str, torch.device]
+                       ) -> Tuple[List[Any], dict]:
+    """Run ``run(handoff)`` (a ``spawn`` of ``world`` ranks, each of which
+    takes its shard of the model in ``named``, a one-element list of
+    ``{name: tensor}`` shared with it, then waits on ``handoff`` twice) and
+    drop the parent's copy of the model in between: once every rank holds
+    its shard (the first wait), the list is emptied (the spawned
+    ``Process`` objects keep it alive otherwise) and what the children no
+    longer map is freed; then the ranks go on (the second wait).  Returns
+    the ranks' results and, on the card, the memory in use (GB) before and
+    after the drop."""
+    import gc
+    import threading
+
+    import torch.multiprocessing as tmp
+
+    dev = resolve_device(device)
+    handoff = tmp.get_context("spawn").Barrier(1 + world)
+    result, used = {}, {}
+
+    def ranks():
+        try:
+            result["out"] = run(handoff)
+        except BaseException as e:  # re-raised below, in this thread
+            result["err"] = e
+            handoff.abort()
+
+    th = threading.Thread(target=ranks)
+    th.start()
+    try:
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)
+        if dev.type == "cuda":
+            used["parent and every shard"] = _card_used_gb(dev)
+        named.clear()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.ipc_collect()  # what the children no longer map
+            used["shards alone"] = _card_used_gb(dev)
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)
+    except threading.BrokenBarrierError:
+        pass  # a child failed: its error is raised below
+    finally:
+        th.join()
+    if "err" in result:
+        raise result["err"]
+    if "out" not in result:
+        raise RuntimeError("the hand-off barrier broke")
+    return result["out"], used

@@ -192,12 +192,6 @@ def _serve_rank(mesh, cfg: ModelConfig, holder: list, prompts: torch.Tensor,
     return {**served[0], "hook": extra}
 
 
-def _card_used_gb(device: torch.device) -> float:
-    """Memory in use on the card by every process (``cudaMemGetInfo``)."""
-    free_b, total = torch.cuda.mem_get_info(device)
-    return (total - free_b) / 1e9
-
-
 def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
                 mesh_shape, backend: str, device="cuda",
                 a2a_impl: Optional[str] = None, plan=None,
@@ -221,11 +215,7 @@ def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
     (``_serve_rank``), ``ranks`` holds each rank's hook result.
     ``spawn_kw`` reaches ``procs.spawn`` (``init_method``, ``timeout``,
     ``join_timeout``)."""
-    import threading
-
-    import torch.multiprocessing as tmp
-
-    from .procs import RENDEZVOUS_TIMEOUT_S, spawn, under_torchrun
+    from .procs import spawn, spawn_with_handoff, under_torchrun
     from .shardings import named_params
 
     holder = params if isinstance(params, list) else [params]
@@ -240,39 +230,10 @@ def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
     if under_torchrun():
         out = spawn(_serve_rank, *args, None, hook, **spawn_kw)
         return _rank0(out, hook)
-    handoff = tmp.get_context("spawn").Barrier(1 + int(np.prod(shape)))
-    result, used = {}, {}
-
-    def run():
-        try:
-            result["out"] = spawn(_serve_rank, *args, handoff, hook,
-                                  **spawn_kw)
-        except BaseException as e:  # re-raised below, in this thread
-            result["err"] = e
-            handoff.abort()
-
-    th = threading.Thread(target=run)
-    th.start()
-    try:
-        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)
-        if dev.type == "cuda":
-            used["parent and every shard"] = _card_used_gb(dev)
-        named.clear()
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.ipc_collect()  # what the children no longer map
-            used["shards alone"] = _card_used_gb(dev)
-        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)
-    except threading.BrokenBarrierError:
-        pass  # a child failed: its error is raised below
-    finally:
-        th.join()
-    if "err" in result:
-        raise result["err"]
-    if "out" not in result:
-        raise RuntimeError("serve_procs: the hand-off barrier broke")
-    res = _rank0(result["out"], hook)
+    out, used = spawn_with_handoff(
+        lambda handoff: spawn(_serve_rank, *args, handoff, hook, **spawn_kw),
+        named, int(np.prod(shape)), dev)
+    res = _rank0(out, hook)
     if used:
         res["card_used_gb"] = used
     return res

@@ -42,7 +42,7 @@ from .mesh import ProcessMesh, all_gather
 __all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
            "spec_tree", "param_tree", "cache_tree", "module_specs",
            "shard_tensor", "gather_tensor", "tree_map_with_path",
-           "flatten_with_path", "named_params"]
+           "flatten_with_path", "named_params", "sharded_axes"]
 
 Spec = Tuple[Any, ...]
 
@@ -392,6 +392,14 @@ def module_specs(cfg: ModelConfig, mesh, params) -> Dict[str, Spec]:
 def _axes(entry) -> Tuple[str, ...]:
     return () if entry is None else \
         ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def sharded_axes(mesh, spec: Spec) -> Tuple[str, ...]:
+    """The axes of ``mesh`` (in mesh order, each of size above 1) that
+    ``spec`` shards over: the ranks along them hold different slices."""
+    used = {a for e in spec for a in _axes(e)}
+    return tuple(a for a in mesh.axis_names
+                 if a in used and mesh.axis_size(a) > 1)
 
 
 def _slices(shape, spec: Spec, mesh, coords) -> tuple:

@@ -9,7 +9,14 @@ OptState, "step": int32 scalar}`` (``init_train_state``) and is updated in
 place: the reference's functional update would need a second copy of the
 full-width state.  On a ``LocalMesh`` every rank's batch shard runs stacked
 on one device, so a gradient is one tensor per parameter, the same on every
-rank.
+rank.  On a ``ProcessMesh`` (one OS process per rank) the state is this
+process's shard (``convert.shard_module(..., train=True)``), the step takes
+the global batch and runs its own rows, and after the backward each
+gradient is summed over the DP axes its parameter is replicated on, then
+divided by the DP world size: the reference's gradient of the mean loss
+(``train_procs`` starts the processes).  The loss and its backward run
+inside a ``train.forward_backward`` profiler range, the sync inside
+``train.grad_sync``.
 
 Run directly to train on the card (or ``--device cpu``):
 
@@ -22,16 +29,26 @@ Run directly to train on the card (or ``--device cpu``):
 
 ``--ckpt-dir`` runs the steps through the fault-tolerant ``Trainer``
 (resume, preemption, checkpoints); without it no checkpoint is written (at
-full width one holds 55 GB).
+full width one holds 55 GB).  ``--procs`` trains the ``--mesh`` on one
+process per rank (``--backend`` gloo or nccl; under gloo the ranks may
+share one card and exchange through host memory, a rehearsal of the
+per-process program rather than a fabric), rank 0 printing the steps:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 2,2 --procs \\
+        --backend gloo --batch 8 --seq 32 --steps 4
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
+import itertools
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..configs import ModelConfig, get_config, smoke_config
@@ -39,11 +56,12 @@ from ..models import DistContext, build_model, choose_ep_axes
 from ..models.sharding import MeshRules
 from ..optim import AdamWConfig, OptState, adamw_update, cosine_schedule, \
     init_opt_state
-from .mesh import (LocalMesh, ProcessMesh, dp_axes, make_mesh,
+from .mesh import (ProcessMesh, all_gather, dp_axes, make_mesh,
                    resolve_device, slow_axis)
 
 __all__ = ["TrainOptions", "make_dist_context", "make_train_step",
-           "init_train_state", "make_rules", "make_train_state_shapes"]
+           "init_train_state", "make_rules", "make_train_state_shapes",
+           "train_specs", "train_procs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +121,7 @@ def make_rules(cfg: ModelConfig, mesh) -> MeshRules:
 def make_train_state_shapes(cfg: ModelConfig, mesh):
     """(state tree of meta tensors in the reference's layout, its specs or
     None without a mesh): ``{"params", "opt": OptState(m, v, count),
-    "step"}``, the moments f32 beside each parameter.  Specs only: a
-    training step over processes is not ported yet."""
+    "step"}``, the moments f32 beside each parameter."""
     from .shardings import param_tree, state_specs
     from .shardings import tree_map_with_path
 
@@ -125,6 +142,16 @@ def make_train_state_shapes(cfg: ModelConfig, mesh):
     return state, state_specs(cfg, mesh, state)
 
 
+def train_specs(cfg: ModelConfig, mesh) -> Dict[str, tuple]:
+    """``{parameter name: spec}`` of the trainable module of ``cfg`` on
+    ``mesh`` (``launch/shardings.module_specs`` of the whole's shapes, on
+    meta tensors): what a process's shard, gradients and moments hold."""
+    from .shardings import module_specs
+
+    module = build_model(cfg, "meta", train=True).init(torch.Generator())
+    return module_specs(cfg, mesh, module)
+
+
 def init_train_state(params: torch.nn.Module) -> Dict[str, Any]:
     """The train state around trainable parameters (``build_model(cfg,
     device, train=True).init(gen)``): zero moments, step 0."""
@@ -141,38 +168,142 @@ def _on(device: torch.device, batch: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _compress_pod_grads(grads: Dict[str, torch.Tensor], dist: DistContext):
+def _member_sum(parts: torch.Tensor, device=None) -> torch.Tensor:
+    """``parts [n, ...]`` added in member order on ``device`` (default:
+    theirs), one part moved there at a time: the same bits on every process
+    of the group that gathered them."""
+    acc = parts[0].to(device)
+    for j in range(1, parts.shape[0]):
+        acc = acc + parts[j].to(device)
+    return acc
+
+
+def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
+                specs: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """Each process's gradients (of its own loss, the mean over its rows)
+    as the gradient of the mean loss over every process's rows: summed over
+    the DP axes the parameter is replicated on (gathered, added in member
+    order), then divided by the DP world size.  An expert shard's gradient
+    already holds every process's tokens (the exchange's backward brought
+    them), so it is only divided.  ``grads`` is emptied as it goes: each
+    gradient is freed once its synced form exists."""
+    from .shardings import sharded_axes
+
+    dp = dp_axes(mesh)
+    n = mesh.axis_size(dp)
+    out = {}
+    for k in list(grads):
+        g = grads.pop(k)
+        held = sharded_axes(mesh, specs[k])
+        over = tuple(a for a in dp if a not in held and mesh.axis_size(a) > 1)
+        if over:
+            # under gloo the copies are gathered on the host (its transport)
+            # and added on the device one at a time: the card never holds
+            # the group's copies of a gradient at once
+            src = g.cpu() if mesh.backend == "gloo" else g
+            g = _member_sum(all_gather(mesh, src[None], over)[0], g.device)
+        out[k] = g / n
+    return out
+
+
+def _global_metrics(metricses: list, mesh: ProcessMesh) -> Dict:
+    """The reference's replicated metrics from each process's: per
+    microbatch, ``loss`` and ``nll`` averaged over the DP group (``aux`` is
+    the group's already) and ``ppl_proxy`` from that ``nll``; then the mean
+    over microbatches."""
+    dp = dp_axes(mesh)
+    local = torch.stack([torch.stack([m["loss"], m["nll"]]).float()
+                         for m in metricses])             # [n_mb, 2]
+    loss, nll = (_member_sum(all_gather(mesh, local[None], dp)[0])
+                 / mesh.axis_size(dp)).unbind(-1)
+    out = {"loss": loss, "nll": nll,
+           "aux": torch.stack([m["aux"] for m in metricses]),
+           "ppl_proxy": torch.exp(torch.clamp(nll, max=20.0))}
+    return {k: v.mean(0) for k, v in out.items()}
+
+
+def _process_rows(mesh: ProcessMesh, cfg: ModelConfig, batch: Dict,
+                  n_mb: int) -> Dict:
+    """This process's rows of the global host ``batch``: its rows
+    (``batch_specs``) of each of the ``n_mb`` microbatches, in order, so
+    that the accumulation's microbatch ``i`` holds what the reference's
+    rank holds of the global microbatch ``i``."""
+    from .shardings import batch_specs, shard_tensor
+
+    dp = mesh.axis_size(dp_axes(mesh))
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        if not v.dim():
+            out[k] = v
+            continue
+        if v.shape[0] % (n_mb * dp):
+            raise ValueError(f"batch {k} of {v.shape[0]} rows does not split "
+                             f"into {n_mb} microbatches over {dp} processes")
+        mbs = v.reshape(n_mb, v.shape[0] // n_mb, *v.shape[1:])
+        spec = batch_specs(mesh, {k: mbs[0]},
+                           pure_dp=cfg.pure_dp and not cfg.fsdp)[k]
+        out[k] = torch.cat([shard_tensor(mb, spec, mesh) for mb in mbs])
+    return out
+
+
+def _compress_pod_grads(grads: Dict[str, torch.Tensor], dist: DistContext,
+                        specs: Optional[Dict[str, tuple]] = None):
     """int8 error-feedback gradient sync over the pod axis (the stateless
     form: the residual is dropped).  Every rank holds the same gradient, so
     this is the reference's quantize, gather, dequantize, sum and divide by
-    the pod axis's size on the stacked copies."""
-    from ..comm.collectives import ef_compressed_psum
+    the pod axis's size on the stacked copies.
+
+    On a ``ProcessMesh`` it runs on the synced gradient (``specs``: each
+    parameter's): a replicated one crosses the pod axis's process group as
+    int8; a shard is quantized with the whole tensor's scale (its largest
+    magnitude over the processes that hold its slices), as the reference
+    quantizes the whole, and its pod's equal copies are summed in place,
+    since the pod's other members hold other slices."""
+    from ..comm.collectives import _quantize_int8, ef_compressed_psum
+    from .shardings import sharded_axes
 
     mesh = dist.mesh.sub((dist.slow_axis,))
     p = mesh.size
     out = {}
     for k, g in grads.items():
-        total, _ = ef_compressed_psum(mesh, g.expand(p, *g.shape),
-                                      dist.slow_axis)
-        out[k] = total[0] / p
+        held = sharded_axes(dist.mesh, specs[k]) \
+            if isinstance(dist.mesh, ProcessMesh) else ()
+        if not held:
+            total, _ = ef_compressed_psum(
+                mesh, g[None] if isinstance(mesh, ProcessMesh)
+                else g.expand(p, *g.shape), dist.slow_axis)
+            out[k] = total[0] / p
+            continue
+        amax = all_gather(dist.mesh, g.abs().amax().reshape(1, 1),
+                          held)[0].amax()
+        q, scale = _quantize_int8(g[None], amax[None])
+        deq = q[0].to(g.dtype) * scale[0].to(g.dtype)
+        out[k] = _member_sum(deq.expand(p, *deq.shape)) / p
     return out
 
 
-def make_train_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
-                    options: TrainOptions = TrainOptions(),
-                    use_kernel: bool = True, device=None):
+def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
+                    TrainOptions(), use_kernel: bool = True, device=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: {"tokens": [B, S], "labels": [B, S], extras...}, numpy or
-    tensors; moved to the device.  ``metrics``: the loss's (``loss``,
-    ``nll``, ``aux``, ``ppl_proxy``) plus ``grad_norm`` (before clipping)
-    and ``lr``, as 0-dim tensors.  ``use_kernel=False`` runs the plain
-    versions of every kernel.  ``device`` defaults to the mesh's, else the
-    card.
+    tensors, the global batch; moved to the device.  ``metrics``: the
+    loss's (``loss``, ``nll``, ``aux``, ``ppl_proxy``) plus ``grad_norm``
+    (before clipping) and ``lr``, as 0-dim tensors.  ``use_kernel=False``
+    runs the plain versions of every kernel.  ``device`` defaults to the
+    mesh's, else the card.
+
+    On a ``ProcessMesh`` the state holds this process's shard and the step
+    runs its rows of ``batch`` (of each microbatch); the gradients are
+    synced (``_sync_grads``) before compression and AdamW, and the metrics
+    and the gradient norm are the whole batch's and the whole tree's, the
+    same bits in every process.
     """
-    if isinstance(mesh, ProcessMesh):
-        raise ValueError("a training step over processes is not ported: "
-                         "train on a LocalMesh")
+    proc = isinstance(mesh, ProcessMesh)
+    if proc and cfg.fsdp:
+        raise ValueError("FSDP keeps every parameter sharded over the data "
+                         "axes; a process mesh runs whole replicated weights")
     if device is not None:
         dev = resolve_device(device)
     else:
@@ -180,22 +311,26 @@ def make_train_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
     model = build_model(cfg, dev, train=True)
     dist = make_dist_context(cfg, mesh, use_kernel=use_kernel) \
         if mesh is not None else None
+    specs = train_specs(cfg, mesh) if proc else None
     lr_fn = cosine_schedule(options.peak_lr, options.warmup_steps,
                             options.total_steps)
 
     def grads_of(params, named, batch):
-        loss, metrics = model.loss(params, batch, dist, use_kernel)
-        grads = torch.autograd.grad(loss, list(named.values()),
-                                    allow_unused=True,
-                                    materialize_grads=True)
+        with torch.profiler.record_function("train.forward_backward"):
+            loss, metrics = model.loss(params, batch, dist, use_kernel)
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return dict(zip(named, grads)), \
             {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state, batch):
         params = state["params"]
         named = dict(params.named_parameters())
-        batch = _on(dev, batch)
         n_mb = options.microbatches
+        if proc:
+            batch = _process_rows(mesh, cfg, batch, n_mb)
+        batch = _on(dev, batch)
         if n_mb > 1:
             # grad accumulation over sequential microbatches, in f32
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
@@ -211,16 +346,23 @@ def make_train_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
                     a.add_(g[k].float() / n_mb)
                 del g
                 metricses.append(m)
+        else:
+            grads, m = grads_of(params, named, batch)
+            metricses = [m]
+        if proc:
+            with torch.profiler.record_function("train.grad_sync"):
+                grads = _sync_grads(grads, mesh, specs)
+            metrics = _global_metrics(metricses, mesh)
+        else:
             metrics = {k: torch.stack([m[k] for m in metricses]).mean(0)
                        for k in metricses[0]}
-        else:
-            grads, metrics = grads_of(params, named, batch)
         if options.grad_compression and dist is not None \
                 and dist.slow_axis is not None:
-            grads = _compress_pod_grads(grads, dist)
+            grads = _compress_pod_grads(grads, dist, specs)
         lr = lr_fn(int(state["step"]))
         _, opt, gnorm = adamw_update(grads, state["opt"], named, lr,
-                                     options.adamw)
+                                     options.adamw, mesh if proc else None,
+                                     specs)
         del grads
         metrics["grad_norm"] = gnorm
         metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
@@ -230,7 +372,139 @@ def make_train_step(cfg: ModelConfig, mesh: Optional[LocalMesh],
     return train_step
 
 
+# -- one process per rank -------------------------------------------------------
+
+def _train_loop(mesh, cfg: ModelConfig, params, data_cfg, options,
+                steps: int, use_kernel: bool, ckpt_dir: Optional[str],
+                each_step=None) -> dict:
+    """The training steps of one process on its shard ``params``: the CLI's
+    loop (rank 0's metrics and step times), or with ``ckpt_dir`` the
+    ``Trainer`` over the process mesh.  ``each_step(i, run)``, when given,
+    wraps the ``i``-th step call ``run()`` and returns its result."""
+    from ..data import SyntheticLM
+
+    step_fn = make_train_step(cfg, mesh, options, use_kernel=use_kernel,
+                              device=mesh.device)
+    if each_step is not None:
+        calls, inner = itertools.count(), step_fn
+
+        def step_fn(state, batch):
+            return each_step(next(calls), lambda: inner(state, batch))
+
+    data = SyntheticLM(data_cfg, cfg)
+    if ckpt_dir:
+        from ..runtime import Trainer, TrainerConfig
+
+        result = Trainer(
+            TrainerConfig(total_steps=steps, ckpt_dir=ckpt_dir,
+                          ckpt_every=max(steps // 4, 1)),
+            train_step=step_fn, init_state=lambda: init_train_state(params),
+            batches=data.batch, mesh=mesh,
+            specs=train_specs(cfg, mesh)).run()
+        return {k: result[k] for k in ("stopped_at", "preempted",
+                                       "metrics")}
+    out = {"metrics": [], "step_ms": []}
+    state = init_train_state(params)
+    for i in range(steps):
+        batch = data.batch(i)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    return out
+
+
+def _train_rank(mesh, cfg: ModelConfig, holder: list, data_cfg,
+                options: TrainOptions, steps: int, use_kernel: bool,
+                ckpt_dir: Optional[str], handoff=None, hook=None) -> dict:
+    """One rank of ``train_procs``: cut this process's trainable shard of
+    the model in ``holder`` (emptied); with ``handoff`` wait until every
+    rank holds its own and again until the parent has dropped the whole;
+    then train (``_train_loop``).  ``hook(mesh, cfg, shards, train)``, when
+    given, runs in place of the training: ``shards`` is a list holding the
+    shard (the training takes it out), and ``train(each_step=None)`` is the
+    training, which the hook must call once; its result goes back under
+    ``"hook"``."""
+    from ..convert import shard_module
+    from .procs import RENDEZVOUS_TIMEOUT_S
+
+    shards = [shard_module(holder.pop(), cfg, mesh, train=True)]
+    gc.collect()
+    if handoff is not None:
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # every rank holds its own
+        handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # the parent dropped all
+    trained = []
+
+    def train(each_step=None) -> dict:
+        trained.append(_train_loop(mesh, cfg, shards.pop(), data_cfg, options,
+                                   steps, use_kernel, ckpt_dir, each_step))
+        return trained[-1]
+
+    if hook is None:
+        return train()
+    extra = hook(mesh, cfg, shards, train)
+    if len(trained) != 1:
+        raise RuntimeError(f"train_procs: the hook trained {len(trained)} "
+                           f"times, not once")
+    return {**trained[0], "hook": extra}
+
+
+def train_procs(cfg: ModelConfig, params, data_cfg, mesh_shape,
+                backend: str, device="cuda",
+                options: TrainOptions = TrainOptions(), steps: int = 1,
+                use_kernel: bool = True, ckpt_dir: Optional[str] = None,
+                hook=None, **spawn_kw) -> dict:
+    """Train on one process per rank of ``mesh_shape`` (pod, data, model):
+    each process takes its trainable shard of ``params`` (a module or
+    ``{name: tensor}`` of ``build_model(cfg, train=True)``, shared with it
+    without a copy: CUDA IPC on the card), builds its moments and runs
+    ``steps`` steps of ``SyntheticLM(data_cfg)``'s global batches, its rows
+    of each.  With ``ckpt_dir`` the steps run through the ``Trainer``
+    (resume, preemption and checkpoints over the processes).
+
+    ``params`` may come in a one-element list, which is emptied: once every
+    process holds its shard the parent drops the whole, as ``serve_procs``
+    does (on the card ``card_used_gb`` reports the memory in use before and
+    after).  Returns rank 0's ``metrics`` (one dict a step, the same in
+    every process) and ``step_ms``, or the ``Trainer``'s ``stopped_at``,
+    ``preempted`` and last ``metrics``; under ``torchrun`` (this process one
+    rank) the same for this rank.  With ``hook`` (``_train_rank``),
+    ``ranks`` holds each rank's hook result.  ``spawn_kw`` reaches
+    ``procs.spawn`` (``init_method``, ``timeout``, ``join_timeout``)."""
+    from .procs import spawn, spawn_with_handoff, under_torchrun
+    from .shardings import named_params
+
+    holder = params if isinstance(params, list) else [params]
+    # the list the children unpickle; the spawned Process objects keep it
+    named = [{k: v.detach() for k, v in named_params(holder.pop()).items()}]
+    shape = tuple(mesh_shape)
+    args = (shape, ("pod", "data", "model"), backend, device, cfg, named,
+            data_cfg, options, steps, use_kernel, ckpt_dir)
+    if under_torchrun():
+        out, used = spawn(_train_rank, *args, None, hook, **spawn_kw), {}
+    else:
+        out, used = spawn_with_handoff(
+            lambda handoff: spawn(_train_rank, *args, handoff, hook,
+                                  **spawn_kw),
+            named, int(np.prod(shape)), device)
+    res = {k: v for k, v in out[0].items() if k != "hook"}
+    if hook is not None:
+        res["ranks"] = [o["hook"] for o in out]
+    if used:
+        res["card_used_gb"] = used
+    return res
+
+
 # -- CLI ----------------------------------------------------------------------
+
+def _print_step(step: int, m: Dict[str, float], ms: float,
+                tokens: int) -> None:
+    print(f"step {step}: loss={m['loss']:.4f} nll={m['nll']:.4f} "
+          f"aux={m['aux']:.4f} grad_norm={m['grad_norm']:.4f} "
+          f"lr={m['lr']:.3e} {ms:.1f} ms ({tokens / ms * 1e3:.1f} tokens/s)")
+
 
 def main(argv=None):
     from ..data import DataConfig, SyntheticLM
@@ -246,6 +520,17 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="POD,DATA",
                     help="train on a local (POD, DATA, 1) mesh stacked on "
                          "the device; default: no mesh")
+    ap.add_argument("--procs", action="store_true",
+                    help="train the --mesh on one process per rank")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="the process groups' backend (with --procs): "
+                         "gloo moves the exchange and the gradient sync "
+                         "through host memory and lets ranks share one "
+                         "card; nccl needs a card per rank")
+    ap.add_argument("--init-method", default=None,
+                    help="the process world's rendezvous (with --procs), "
+                         "e.g. file:///tmp/store; default: a file store in "
+                         "a fresh temporary directory")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="override the config's depth")
@@ -259,26 +544,51 @@ def main(argv=None):
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     device = resolve_device(args.device)
+    if args.procs and not (args.mesh and args.backend):
+        ap.error("--procs needs --mesh and --backend")
     mesh = None
     if args.mesh:
         pod, data = (int(v) for v in args.mesh.split(","))
-        mesh = make_mesh((pod, data, 1), ("pod", "data", "model"), device)
+        if not args.procs:
+            mesh = make_mesh((pod, data, 1), ("pod", "data", "model"),
+                             device)
     opts = TrainOptions(peak_lr=args.lr,
                         warmup_steps=max(args.steps // 10, 1),
                         total_steps=args.steps,
                         microbatches=args.microbatches)
-    step_fn = make_train_step(cfg, mesh, opts, device=device)
     model = build_model(cfg, device, train=True)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                          global_batch=args.batch, seed=args.seed)
+    where = f"{pod * data} processes ({args.backend}, {device})" \
+        if args.procs else str(device)
+    print(f"arch={cfg.name} layers={cfg.n_layers} mesh="
+          f"{args.mesh and (pod, data, 1)} batch={args.batch} seq={args.seq}"
+          f" on {where}")
+    if args.procs:
+        holder = [model.init(torch.Generator(device=device).manual_seed(
+            args.seed))]
+        res = train_procs(cfg, holder, data_cfg, (pod, data, 1),
+                          args.backend, args.device, opts, args.steps,
+                          ckpt_dir=args.ckpt_dir,
+                          init_method=args.init_method)
+        if args.ckpt_dir:
+            print(f"finished at step {res['stopped_at']} "
+                  f"loss={res['metrics'].get('loss'):.4f} "
+                  f"preempted={res['preempted']}")
+            return
+        for step, (m, ms) in enumerate(zip(res["metrics"], res["step_ms"])):
+            _print_step(step, m, ms, args.batch * args.seq)
+        if "card_used_gb" in res:
+            print("card memory in use (GB): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in res["card_used_gb"].items()))
+        return
+    step_fn = make_train_step(cfg, mesh, opts, device=device)
 
     def init_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
         return init_train_state(model.init(gen))
 
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                  global_batch=args.batch, seed=args.seed),
-                       cfg)
-    print(f"arch={cfg.name} layers={cfg.n_layers} mesh={mesh and mesh.shape}"
-          f" batch={args.batch} seq={args.seq} on {device}")
+    data = SyntheticLM(data_cfg, cfg)
     if args.ckpt_dir:
         from ..runtime import Trainer, TrainerConfig
 
@@ -299,13 +609,8 @@ def main(argv=None):
         state, metrics = step_fn(state, data.batch(step))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        print(f"step {step}: loss={float(metrics['loss']):.4f} "
-              f"nll={float(metrics['nll']):.4f} "
-              f"aux={float(metrics['aux']):.4f} "
-              f"grad_norm={float(metrics['grad_norm']):.4f} "
-              f"lr={float(metrics['lr']):.3e} {dt * 1e3:.1f} ms "
-              f"({args.batch * args.seq / dt:.1f} tokens/s)")
+        _print_step(step, {k: float(v) for k, v in metrics.items()},
+                    (time.perf_counter() - t0) * 1e3, args.batch * args.seq)
     if device.type == "cuda":
         print(f"peak device memory "
               f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")

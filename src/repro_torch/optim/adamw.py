@@ -9,6 +9,11 @@ parameter at a time, because a functional update of megatron-moe-32e's
 full-width state would need another copy of it (41 GB at two layers).
 Parameters, gradients and moments are dictionaries keyed by parameter name
 (``dict(module.named_parameters())``).
+
+On a ``ProcessMesh`` each process holds its shard of every parameter, its
+gradient and its moments; the update is elementwise, so it runs on the
+shard unchanged, and the global norm (hence the clip scale) is the whole
+tree's: ``adamw_update`` takes the mesh and the parameters' specs for it.
 """
 
 from __future__ import annotations
@@ -56,27 +61,52 @@ def init_opt_state(params) -> OptState:
                     count=torch.zeros((), dtype=torch.int32))
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, mesh=None, specs: Optional[Dict] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in f32, keys in sorted
-    order (the order of a JAX dict pytree)."""
+    order (the order of a JAX dict pytree).
+
+    On a ``ProcessMesh`` (``mesh``, with ``specs`` the ``{name: spec}`` of
+    ``launch/shardings.module_specs``) ``tensors`` are this process's
+    shards: a sharded tensor's square sum is the sum of its group's shards'
+    (gathered, added in member order), a replicated one counts once, so
+    every process gets the same bits."""
+    from ..launch.mesh import ProcessMesh, all_gather
+    from ..launch.shardings import sharded_axes
+
     named = _named(tensors)
+    sums = {k: torch.sum(torch.square(named[k].float())) for k in named}
+    if isinstance(mesh, ProcessMesh):
+        groups: Dict[tuple, list] = {}
+        for k in sorted(named):
+            axes = sharded_axes(mesh, specs[k])
+            if axes:
+                groups.setdefault(axes, []).append(k)
+        for axes, keys in groups.items():
+            parts = all_gather(mesh, torch.stack([sums[k] for k in keys])[None],
+                               axes)[0]
+            acc = parts[0]
+            for j in range(1, parts.shape[0]):
+                acc = acc + parts[j]
+            sums.update(zip(keys, acc))
     total = None
     for k in sorted(named):
-        s = torch.sum(torch.square(named[k].float()))
-        total = s if total is None else total + s
+        total = sums[k] if total is None else total + sums[k]
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, lr: float,
-                 cfg: AdamWConfig = AdamWConfig()):
+                 cfg: AdamWConfig = AdamWConfig(), mesh=None,
+                 specs: Optional[Dict] = None):
     """Update ``params`` and ``state``'s moments in place from ``grads``.
 
     Returns (params, new state, grad norm before clipping); the new state
-    holds the same moment tensors and the incremented count."""
+    holds the same moment tensors and the incremented count.  ``mesh`` and
+    ``specs``: the norm over a ``ProcessMesh``'s shards (``global_norm``)."""
     named = _named(params)
     grads = _named(grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
