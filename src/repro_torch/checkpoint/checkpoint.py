@@ -89,15 +89,12 @@ def _spec(specs: Optional[Dict[str, tuple]], path: str) -> tuple:
 
 def _whole(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The whole of leaf ``t`` (this process's slice under ``spec``),
-    gathered over the processes that hold its slices: on the host under
-    gloo, else on the device."""
+    gathered on the host over the processes that hold its slices."""
     from ..launch.shardings import gather_tensor, sharded_axes
 
     if mesh is None or not sharded_axes(mesh, spec):
         return t
-    if mesh.backend == "gloo":
-        return gather_tensor(t.detach().cpu(), spec, mesh)
-    return gather_tensor(t.detach(), spec, mesh).cpu()
+    return gather_tensor(t.detach(), spec, mesh, out_device="cpu")
 
 
 @torch.no_grad()

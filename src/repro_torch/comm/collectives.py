@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..launch.mesh import all_gather
+from ..launch.mesh import all_gather, member_sum
 
 __all__ = ["ef_compressed_psum", "psum_bf16", "tree_ef_state"]
 
@@ -54,11 +54,9 @@ def ef_compressed_psum(mesh, grad: torch.Tensor, axis_name: str,
     ones = (1,) * (grad.dim() - 1)
     qs = all_gather(mesh, q, axis_name)            # [R, n, ...]
     scales = all_gather(mesh, scale, axis_name)    # [R, n]
-    total = None
-    for j in range(qs.shape[1]):          # the group's members, in order
-        deq = qs[:, j].to(grad.dtype) \
-            * scales[:, j].reshape(-1, *ones).to(grad.dtype)
-        total = deq if total is None else total + deq
+    total = member_sum(qs[:, j].to(grad.dtype)
+                       * scales[:, j].reshape(-1, *ones).to(grad.dtype)
+                       for j in range(qs.shape[1]))
     new_error = carry - q.to(grad.dtype) \
         * scale.reshape(-1, *ones).to(grad.dtype)
     return total, new_error

@@ -35,7 +35,8 @@ import torch.distributed as torch_dist
 
 __all__ = ["LocalMesh", "ProcessMesh", "make_mesh", "make_production_mesh",
            "resolve_device", "dp_axes", "slow_axis", "all_to_all",
-           "ppermute", "axis_index", "pmean", "all_gather", "all_ranks"]
+           "ppermute", "axis_index", "pmean", "all_gather", "member_sum",
+           "all_ranks"]
 
 AxisNames = Union[str, Tuple[str, ...]]
 
@@ -331,14 +332,36 @@ def all_to_all(mesh, x: torch.Tensor, axes: AxisNames,
     return out.reshape(x.shape)
 
 
-def all_gather(mesh, x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
+def all_gather(mesh, x: torch.Tensor, axes: AxisNames,
+               out_device=None) -> torch.Tensor:
     """``[local_size, n, ...]``: for each held rank, the ``x`` of every
     member of its group over ``axes``, by combined index (an all-to-all of
-    ``n`` copies)."""
+    ``n`` copies), on ``out_device`` (default: ``x``'s).  A gather to the
+    host under gloo, whose transport is host memory, never lands on the
+    card."""
     axes = _as_tuple(axes)
+    if out_device is not None:
+        out_device = torch.device(out_device)
+        if out_device.type == "cpu" and isinstance(mesh, ProcessMesh) \
+                and mesh.backend == "gloo":
+            x = x.to(out_device)
     n = mesh.axis_size(axes) if axes else 1
     rep = x.unsqueeze(1).expand(x.shape[0], n, *x.shape[1:]).contiguous()
-    return all_to_all(mesh, rep, axes, axis=0)
+    out = all_to_all(mesh, rep, axes, axis=0)
+    return out if out_device is None else out.to(out_device)
+
+
+def member_sum(parts, device=None) -> torch.Tensor:
+    """``parts`` (a tensor ``[n, ...]`` or an iterable of tensors, a
+    group's members in order, as ``all_gather`` gives them) added in that
+    order on ``device`` (default: theirs), one part moved there at a time:
+    every process of the group that gathered them gets the same bits."""
+    acc = None
+    for part in parts:
+        if device is not None:
+            part = part.to(device)
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def all_ranks(mesh: ProcessMesh, value: int) -> Tuple[int, ...]:

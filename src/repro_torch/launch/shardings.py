@@ -435,18 +435,20 @@ def shard_tensor(full, spec: Spec, mesh, coords=None):
     return full[_slices(tuple(full.shape), spec, mesh, coords)]
 
 
-def gather_tensor(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def gather_tensor(local: torch.Tensor, spec: Spec, mesh,
+                  out_device=None) -> torch.Tensor:
     """The whole tensor from the shards of ``spec``, the inverse of
-    ``shard_tensor``.  On a ``ProcessMesh`` ``local`` is this process's
-    shard and the call is collective over the spec's axes' group (every
-    member gets the whole); on a ``LocalMesh`` it is every rank's shard
-    stacked ``[R, ...]``."""
+    ``shard_tensor``, on ``out_device`` (default: ``local``'s).  On a
+    ``ProcessMesh`` ``local`` is this process's shard and the call is
+    collective over the spec's axes' group (every member gets the whole;
+    ``launch/mesh.all_gather``); on a ``LocalMesh`` it is every rank's
+    shard stacked ``[R, ...]``."""
     used = [a for a in mesh.axis_names
             if any(a in _axes(e) for e in spec)]
     if isinstance(mesh, ProcessMesh):
         if not used:
-            return local
-        parts = all_gather(mesh, local[None], tuple(used))[0]
+            return local if out_device is None else local.to(out_device)
+        parts = all_gather(mesh, local[None], tuple(used), out_device)[0]
         sizes = [mesh.axis_size(a) for a in used]
         mine = dict(zip(mesh.axis_names, mesh.rank_coords))
         coords = []
@@ -455,7 +457,7 @@ def gather_tensor(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
                               zip(used, np.unravel_index(j, sizes))})
             coords.append([c[a] for a in mesh.axis_names])
     else:
-        parts = local
+        parts = local if out_device is None else local.to(out_device)
         coords = mesh.coords().tolist()
     shape = list(parts.shape[1:])
     for i, e in enumerate(spec):

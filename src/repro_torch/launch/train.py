@@ -57,7 +57,7 @@ from ..models.sharding import MeshRules
 from ..optim import AdamWConfig, OptState, adamw_update, cosine_schedule, \
     init_opt_state
 from .mesh import (ProcessMesh, all_gather, dp_axes, make_mesh,
-                   resolve_device, slow_axis)
+                   member_sum, resolve_device, slow_axis)
 
 __all__ = ["TrainOptions", "make_dist_context", "make_train_step",
            "init_train_state", "make_rules", "make_train_state_shapes",
@@ -168,16 +168,6 @@ def _on(device: torch.device, batch: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _member_sum(parts: torch.Tensor, device=None) -> torch.Tensor:
-    """``parts [n, ...]`` added in member order on ``device`` (default:
-    theirs), one part moved there at a time: the same bits on every process
-    of the group that gathered them."""
-    acc = parts[0].to(device)
-    for j in range(1, parts.shape[0]):
-        acc = acc + parts[j].to(device)
-    return acc
-
-
 def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
                 specs: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
     """Each process's gradients (of its own loss, the mean over its rows)
@@ -197,11 +187,10 @@ def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
         held = sharded_axes(mesh, specs[k])
         over = tuple(a for a in dp if a not in held and mesh.axis_size(a) > 1)
         if over:
-            # under gloo the copies are gathered on the host (its transport)
-            # and added on the device one at a time: the card never holds
-            # the group's copies of a gradient at once
-            src = g.cpu() if mesh.backend == "gloo" else g
-            g = _member_sum(all_gather(mesh, src[None], over)[0], g.device)
+            # the copies land on the host and are added on the device one
+            # at a time: the card never holds the group's copies at once
+            g = member_sum(all_gather(mesh, g[None], over, "cpu")[0],
+                           g.device)
         out[k] = g / n
     return out
 
@@ -214,7 +203,7 @@ def _global_metrics(metricses: list, mesh: ProcessMesh) -> Dict:
     dp = dp_axes(mesh)
     local = torch.stack([torch.stack([m["loss"], m["nll"]]).float()
                          for m in metricses])             # [n_mb, 2]
-    loss, nll = (_member_sum(all_gather(mesh, local[None], dp)[0])
+    loss, nll = (member_sum(all_gather(mesh, local[None], dp)[0])
                  / mesh.axis_size(dp)).unbind(-1)
     out = {"loss": loss, "nll": nll,
            "aux": torch.stack([m["aux"] for m in metricses]),
@@ -250,36 +239,27 @@ def _process_rows(mesh: ProcessMesh, cfg: ModelConfig, batch: Dict,
 def _compress_pod_grads(grads: Dict[str, torch.Tensor], dist: DistContext,
                         specs: Optional[Dict[str, tuple]] = None):
     """int8 error-feedback gradient sync over the pod axis (the stateless
-    form: the residual is dropped).  Every rank holds the same gradient, so
-    this is the reference's quantize, gather, dequantize, sum and divide by
-    the pod axis's size on the stacked copies.
-
-    On a ``ProcessMesh`` it runs on the synced gradient (``specs``: each
-    parameter's): a replicated one crosses the pod axis's process group as
-    int8; a shard is quantized with the whole tensor's scale (its largest
-    magnitude over the processes that hold its slices), as the reference
-    quantizes the whole, and its pod's equal copies are summed in place,
-    since the pod's other members hold other slices."""
-    from ..comm.collectives import _quantize_int8, ef_compressed_psum
+    form: the residual is dropped).  The gradients come in synced, the same
+    on every member of a pod group, so the reference's quantize, gather,
+    dequantize, sum and divide by the pod axis's size ``p`` is, on either
+    mesh: quantize with the whole tensor's scale, dequantize, add ``p``
+    equal copies in member order and divide by ``p``; nothing crosses the
+    pod axis.  On a ``ProcessMesh`` (``specs``: each parameter's) a shard's
+    scale is its tensor's largest magnitude over the processes that hold
+    its slices, as the reference quantizes the whole."""
+    from ..comm.collectives import _quantize_int8
     from .shardings import sharded_axes
 
-    mesh = dist.mesh.sub((dist.slow_axis,))
-    p = mesh.size
+    p = dist.mesh.axis_size(dist.slow_axis)
     out = {}
     for k, g in grads.items():
-        held = sharded_axes(dist.mesh, specs[k]) \
-            if isinstance(dist.mesh, ProcessMesh) else ()
-        if not held:
-            total, _ = ef_compressed_psum(
-                mesh, g[None] if isinstance(mesh, ProcessMesh)
-                else g.expand(p, *g.shape), dist.slow_axis)
-            out[k] = total[0] / p
-            continue
-        amax = all_gather(dist.mesh, g.abs().amax().reshape(1, 1),
-                          held)[0].amax()
+        amax = g.abs().amax()
+        held = sharded_axes(dist.mesh, specs[k]) if specs is not None else ()
+        if held:
+            amax = all_gather(dist.mesh, amax.reshape(1, 1), held).amax()
         q, scale = _quantize_int8(g[None], amax[None])
         deq = q[0].to(g.dtype) * scale[0].to(g.dtype)
-        out[k] = _member_sum(deq.expand(p, *deq.shape)) / p
+        out[k] = member_sum(deq.expand(p, *deq.shape)) / p
     return out
 
 
@@ -372,19 +352,24 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
     return train_step
 
 
-# -- one process per rank -------------------------------------------------------
+# -- the training loop, on one process or one process per rank ------------------
 
 def _train_loop(mesh, cfg: ModelConfig, params, data_cfg, options,
                 steps: int, use_kernel: bool, ckpt_dir: Optional[str],
-                each_step=None) -> dict:
-    """The training steps of one process on its shard ``params``: the CLI's
-    loop (rank 0's metrics and step times), or with ``ckpt_dir`` the
-    ``Trainer`` over the process mesh.  ``each_step(i, run)``, when given,
-    wraps the ``i``-th step call ``run()`` and returns its result."""
+                each_step=None, device=None) -> dict:
+    """The CLI's training steps on ``params`` (the whole module with no
+    mesh or on a ``LocalMesh``, this process's shard on a ``ProcessMesh``)
+    on ``device`` (default: the mesh's): each step's metrics and
+    ``step_ms``, and on the card ``peak_gb``; or with ``ckpt_dir`` the
+    ``Trainer``'s ``stopped_at``, ``preempted`` and last ``metrics``.
+    ``each_step(i, run)``, when given, wraps the ``i``-th step call
+    ``run()`` and returns its result."""
     from ..data import SyntheticLM
 
+    dev = resolve_device(device) if device is not None else mesh.device
+    proc = isinstance(mesh, ProcessMesh)
     step_fn = make_train_step(cfg, mesh, options, use_kernel=use_kernel,
-                              device=mesh.device)
+                              device=dev)
     if each_step is not None:
         calls, inner = itertools.count(), step_fn
 
@@ -400,20 +385,27 @@ def _train_loop(mesh, cfg: ModelConfig, params, data_cfg, options,
                           ckpt_every=max(steps // 4, 1)),
             train_step=step_fn, init_state=lambda: init_train_state(params),
             batches=data.batch, mesh=mesh,
-            specs=train_specs(cfg, mesh)).run()
+            specs=train_specs(cfg, mesh) if proc else None).run()
         return {k: result[k] for k in ("stopped_at", "preempted",
                                        "metrics")}
     out = {"metrics": [], "step_ms": []}
     state = init_train_state(params)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     for i in range(steps):
         batch = data.batch(i)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize(mesh.device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
+
+
+# -- one process per rank -------------------------------------------------------
 
 
 def _train_rank(mesh, cfg: ModelConfig, holder: list, data_cfg,
@@ -507,7 +499,7 @@ def _print_step(step: int, m: Dict[str, float], ms: float,
 
 
 def main(argv=None):
-    from ..data import DataConfig, SyntheticLM
+    from ..data import DataConfig
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -556,7 +548,8 @@ def main(argv=None):
                         warmup_steps=max(args.steps // 10, 1),
                         total_steps=args.steps,
                         microbatches=args.microbatches)
-    model = build_model(cfg, device, train=True)
+    params = build_model(cfg, device, train=True).init(
+        torch.Generator(device=device).manual_seed(args.seed))
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
     where = f"{pod * data} processes ({args.backend}, {device})" \
@@ -565,55 +558,25 @@ def main(argv=None):
           f"{args.mesh and (pod, data, 1)} batch={args.batch} seq={args.seq}"
           f" on {where}")
     if args.procs:
-        holder = [model.init(torch.Generator(device=device).manual_seed(
-            args.seed))]
-        res = train_procs(cfg, holder, data_cfg, (pod, data, 1),
+        res = train_procs(cfg, [params], data_cfg, (pod, data, 1),
                           args.backend, args.device, opts, args.steps,
                           ckpt_dir=args.ckpt_dir,
                           init_method=args.init_method)
-        if args.ckpt_dir:
-            print(f"finished at step {res['stopped_at']} "
-                  f"loss={res['metrics'].get('loss'):.4f} "
-                  f"preempted={res['preempted']}")
-            return
-        for step, (m, ms) in enumerate(zip(res["metrics"], res["step_ms"])):
-            _print_step(step, m, ms, args.batch * args.seq)
-        if "card_used_gb" in res:
-            print("card memory in use (GB): " + ", ".join(
-                f"{k} {v:.2f}" for k, v in res["card_used_gb"].items()))
-        return
-    step_fn = make_train_step(cfg, mesh, opts, device=device)
-
-    def init_state():
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        return init_train_state(model.init(gen))
-
-    data = SyntheticLM(data_cfg, cfg)
+    else:
+        res = _train_loop(mesh, cfg, params, data_cfg, opts, args.steps,
+                          True, args.ckpt_dir, device=device)
     if args.ckpt_dir:
-        from ..runtime import Trainer, TrainerConfig
-
-        trainer = Trainer(
-            TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                          ckpt_every=max(args.steps // 4, 1)),
-            train_step=step_fn, init_state=init_state, batches=data.batch)
-        result = trainer.run()
-        print(f"finished at step {result['stopped_at']} "
-              f"loss={result['metrics'].get('loss'):.4f} "
-              f"preempted={result['preempted']}")
+        print(f"finished at step {res['stopped_at']} "
+              f"loss={res['metrics'].get('loss'):.4f} "
+              f"preempted={res['preempted']}")
         return
-    state = init_state()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    for step in range(args.steps):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, data.batch(step))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        _print_step(step, {k: float(v) for k, v in metrics.items()},
-                    (time.perf_counter() - t0) * 1e3, args.batch * args.seq)
-    if device.type == "cuda":
-        print(f"peak device memory "
-              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    for step, (m, ms) in enumerate(zip(res["metrics"], res["step_ms"])):
+        _print_step(step, m, ms, args.batch * args.seq)
+    if "card_used_gb" in res:
+        print("card memory in use (GB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in res["card_used_gb"].items()))
+    if "peak_gb" in res:
+        print(f"peak device memory {res['peak_gb']:.2f} GB")
 
 
 if __name__ == "__main__":

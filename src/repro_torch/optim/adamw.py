@@ -71,7 +71,7 @@ def global_norm(tensors, mesh=None, specs: Optional[Dict] = None
     shards: a sharded tensor's square sum is the sum of its group's shards'
     (gathered, added in member order), a replicated one counts once, so
     every process gets the same bits."""
-    from ..launch.mesh import ProcessMesh, all_gather
+    from ..launch.mesh import ProcessMesh, all_gather, member_sum
     from ..launch.shardings import sharded_axes
 
     named = _named(tensors)
@@ -85,10 +85,7 @@ def global_norm(tensors, mesh=None, specs: Optional[Dict] = None
         for axes, keys in groups.items():
             parts = all_gather(mesh, torch.stack([sums[k] for k in keys])[None],
                                axes)[0]
-            acc = parts[0]
-            for j in range(1, parts.shape[0]):
-                acc = acc + parts[j]
-            sums.update(zip(keys, acc))
+            sums.update(zip(keys, member_sum(parts)))
     total = None
     for k in sorted(named):
         total = sums[k] if total is None else total + sums[k]

@@ -15,6 +15,7 @@ over ranks.
   ``1 / n`` the gradient is off by far more, so the case fails.
 * ``all_gather`` (an ``all_to_all`` of copies, whose backward sums them):
   within a relative 1e-6.
+* ``member_sum`` adds a tensor's parts, or an iterable's, left to right.
 * The MoE island (smoke megatron-moe-32e, f32) through ``flash`` and
   ``direct``: the gradients of every process's rows and of its expert
   slice within a relative norm of 1e-5 of the stacked ones, and the
@@ -232,3 +233,17 @@ def test_moe_island_gradients_match_the_local_mesh(procs, local, impl):
     for g in ranks:
         assert abs(float(g["aux"]) - float(want["aux"])) \
             <= 1e-6 * abs(float(want["aux"]))
+
+
+@pytest.mark.parametrize("form", ["tensor", "iterable", "moved"])
+def test_member_sum_adds_in_member_order(form):
+    rng = np.random.default_rng(1)
+    parts = torch.from_numpy(
+        (rng.standard_normal((5, 64)) * 10.0 ** rng.integers(-6, 6, (5, 1)))
+        .astype(np.float32))
+    want = parts[0]
+    for j in range(1, 5):
+        want = want + parts[j]
+    arg, dev = {"tensor": (parts, None), "iterable": (iter(parts), None),
+                "moved": (list(parts), "cpu")}[form]
+    assert torch.equal(M.member_sum(arg, dev), want)

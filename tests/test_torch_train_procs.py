@@ -25,6 +25,8 @@ gradients and the final parameters on rank 0.
   written by one process restores bit for bit into every process's shard; a
   preemption that one process sees stops all four at the same step.
 * ``train --procs`` from the command line trains as ``train --mesh``.
+* The pod axis's int8 compression of synced gradients sends nothing and
+  gives, bit for bit, ``ef_compressed_psum`` over the stacked copies.
 """
 
 import dataclasses
@@ -411,3 +413,30 @@ def test_procs_cli_needs_a_backend():
     with pytest.raises(SystemExit):
         pt_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                        "--mesh", "2,2", "--procs"])
+
+
+def test_pod_compression_is_the_psum_of_equal_copies(monkeypatch):
+    """The gradients reach ``_compress_pod_grads`` synced, the same on every
+    member of a pod group, so it quantizes, dequantizes and adds the pod's
+    copies in place: bit for bit ``ef_compressed_psum`` over the stacked
+    copies, divided by the pod's size, with no gather."""
+    from repro_torch.comm.collectives import ef_compressed_psum
+
+    mesh = make_mesh(SHAPE, AXES, "cpu")
+    dist = pt_train.make_dist_context(smoke_config(ARCH), mesh)
+    rng = np.random.default_rng(0)
+    grads = {f"g{i}": torch.from_numpy(
+        (rng.standard_normal(shape) * 10.0 ** e).astype(np.float32))
+        for i, (shape, e) in enumerate([((7,), 0), ((3, 5), -4),
+                                        ((2, 3, 4), 3)])}
+
+    def no_gather(*args, **kw):
+        raise AssertionError("a replicated gradient was gathered")
+
+    monkeypatch.setattr(pt_train, "all_gather", no_gather)
+    got = pt_train._compress_pod_grads(grads, dist)
+    pod = mesh.sub(("pod",))
+    for k, g in grads.items():
+        total, _ = ef_compressed_psum(pod, g.expand(2, *g.shape), "pod")
+        assert torch.equal(got[k], total[0] / 2), k
+        assert not torch.equal(got[k], g), k   # it did quantize
