@@ -165,6 +165,36 @@ Phases (each raises on failure; none is caught):
    processes' unbroken run, its parameters within a relative norm of
    1e-5.
 
+10. the split island on one process per rank (the MoE with EP over one
+   mesh axis or none), 6 or 3 gloo processes sharing the card through
+   ``serve_procs`` and ``train_procs`` with phase 8's hand-off (no time here
+   is a multi-GPU time); each oracle is the same work on a ``LocalMesh`` of
+   the same shape, run first in the parent and freed.  (a) mixtral-8x7b at
+   its published widths (2 of 32 layers) on (pod 2, data 3, model 1), where
+   ``choose_ep_axes`` gives ``("pod",)`` (4 experts a process), the plan on
+   ``ClusterSpec(2, 3)``: 24 prompts of 1024 tokens (4 a process) and 15
+   decode steps through the plan, the rotation (``flash``, bit-identical to
+   the plan) and int8 dispatch; gated: on an identical MoE input, each
+   process's routing, token grid ``[E_loc, p * C, d]`` and exchanges bit for
+   bit its slice of the stacked run's (plan, rotation, int8); the f32
+   prefill (128-token prompts) within 1e-4 of the oracle, routing apart only
+   at a near tie, greedy tokens equal; bf16 launches of every kernel equal
+   to the oracle's (grouped_matmul on TMA, pack and unpack on the instance
+   ``a2a_pack.variant`` picks), at most ``PROC_BF16_APART_MAX`` sequences
+   routed apart and tokens equal in every sequence routed alike; the first
+   attention and MoE layer within 2e-2; the first MoE layer under int8
+   within (0, 0.05) of exact; reported per process: prefill ms, decode
+   ms/step, peak GB, the card's GB, the exchange's share of a traced
+   prefill.  (b) 1 layer at the same widths in f32, 12 prompts of 128
+   tokens: EP over ``data`` alone on (3, 2, 1) (4 experts a process) and no
+   EP on (1, 3, 1) (all 8 in each): prefill logits within 1e-4, routing
+   apart only at a near tie, the grid and exchanges bit for bit, launches
+   equal.  (c) the smoke mixtral (4 experts, f32) trained on (2, 3, 1):
+   2 AdamW steps through ``train_procs`` against the stacked step, metrics
+   within 1e-5, gradients within a relative norm of 1e-4, every expert's
+   gradient nonzero, launches equal; then one step with int8 dispatch,
+   reported.
+
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
 attention backward on wgmma alone, and serving pack and unpack
@@ -178,10 +208,10 @@ results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
 megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
 and flash_attention_bwd, mixtral's plan run for pack and unpack;
-``launches_by_path`` lists every path's counts, phases 7's, 8's and 9's
-too (phases 8's and 9's are rank 0's, equal in every process).  It exits non-zero,
-printing no result, without a CUDA device or outside a checkout of the
-repository.
+``launches_by_path`` lists every path's counts, phases 7's to 10's
+too (phases 8's to 10's are rank 0's, equal in every process).  It exits
+non-zero, printing no result, without a CUDA device or outside a checkout
+of the repository.
 """
 
 from __future__ import annotations
@@ -241,6 +271,11 @@ PROC_TIMEOUT_S, PROC_JOIN_S = 120.0, 600.0
 NEAR_TIE = 1e-5
 # bf16 sequences routed apart from the stacked run (2 of 32 seen, PERF.md)
 PROC_BF16_APART_MAX = 4
+# phase 10: a bf16 sequence routed alike may pick another greedy token only
+# where the oracle's logits of the two choices lie within this share of the
+# row's largest logit (about twice the largest bf16 prefill difference seen
+# between the processes and the stacked run, 5.6e-3, PERF.md)
+BF16_TOKEN_TIE = 1e-2
 PROC_PATH = "megatron-moe-32e procs (2,2,1)"
 PROC_LABEL = ("4 processes sharing one GPU's SMs, exchanging through pinned "
               "host memory over gloo: not a 4-GPU time")
@@ -248,6 +283,17 @@ PROC_LABEL = ("4 processes sharing one GPU's SMs, exchanging through pinned "
 TRAIN_PROC_STEPS, F32_PROC_STEPS = 3, 2
 TRAIN_PROC_PATH = "megatron-moe-32e train procs (2,2,1)"
 TRAINER_PROC_STEPS = 6
+# phase 10: the split island (EP over one axis or none) on processes
+SPLIT_MESH, SPLIT_LAYERS = (2, 3, 1), 2
+SPLIT_BATCH = 24                 # 4 prompts a process
+SPLIT_PATH = "mixtral-8x7b procs (2,3,1)"
+SPLIT_TRAIN_PATH = "mixtral-8x7b smoke train procs (2,3,1)"
+SPLIT_LABEL = ("processes sharing one GPU's SMs, exchanging through pinned "
+               "host memory over gloo: not a multi-GPU time")
+# (b): form -> (mesh, the EP axes choose_ep_axes must give)
+SPLIT_FORMS = {"data": ((3, 2, 1), ("data",)), "none": ((1, 3, 1), None)}
+FORM_LAYERS, FORM_BATCH, FORM_PROMPT = 1, 12, 128
+SPLIT_TRAIN_BATCH, SPLIT_TRAIN_SEQ, SPLIT_TRAIN_STEPS = 12, 64, 2
 # phase 9's f32 gate: an element whose oracle gradient stays within
 # NOISE_GRAD of its tensor slice's largest, every step, lies at the f32
 # noise floor of the gradient sums (the processes' and the stacked mesh's
@@ -1195,11 +1241,13 @@ def check_variants(run, label, want="tma", a2a=None):
 
 
 def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
-          use_kernel=True, decode=True, warmup=True, record=False):
+          use_kernel=True, decode=True, warmup=True, record=False,
+          keep_logits=False):
     """Prefill (a warm-up, then timed) and greedy decode of GEN tokens
     through the serving step builders.  Returns logits, tokens, timings,
     launch counts (counts set to 0 just before the timed prefill and before
-    decode) and, with ``record``, the timed prefill's routing decisions."""
+    decode), with ``record`` the timed prefill's routing decisions and with
+    ``keep_logits`` every step's logits (the prefill's first)."""
     from repro_torch.launch.serve import make_prefill_step, make_serve_step
 
     prompt = prompts.shape[1]
@@ -1232,6 +1280,7 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
         return res
     toks = logits.argmax(-1)
     out = [toks]
+    kept = [logits]
     reset_launches(kernels)
     events = []
     t0 = time.perf_counter()
@@ -1244,6 +1293,8 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
         b.record()
         events.append((a, b))
         out.append(toks)
+        if keep_logits:
+            kept.append(lg)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     step_ms = [a.elapsed_time(b) for a, b in events]
@@ -1252,6 +1303,8 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
                decode_variants=read_variants(kernels),
                last_logits=lg, step_ms_median=statistics.median(step_ms),
                step_ms_max=max(step_ms))
+    if keep_logits:
+        res["step_logits"] = kept
     return res
 
 
@@ -3933,6 +3986,825 @@ def train_procs_trainer_gate(torch):
 # library call's at every serving shape, at most 1.15x the bound at
 # mixtral's prefill, and one call per event pair at most 1.2x the library
 # call's at decode.
+# -- 10. the split island on one process per rank -----------------------------
+
+def split_config(**over):
+    """mixtral-8x7b at its published widths, depth cut to SPLIT_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return get_config(MIX_ARCH, **{"n_layers": SPLIT_LAYERS, **over})
+
+
+def ranks_of(shape):
+    return int(np.prod(shape))
+
+
+def moe_input(torch, cfg, batch, prompt, dtype):
+    """Phase 10's identical MoE input: every row made on the device from
+    the seed (each process makes them all and keeps its own)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    return (torch.randn((batch, prompt, cfg.d_model), generator=gen,
+                        device=DEVICE) * 0.3).to(dtype)
+
+
+def digest(torch, t) -> str:
+    """The sha256 of a tensor's bytes: two tensors with equal digests are
+    equal bit for bit."""
+    import hashlib
+
+    raw = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+class GridSpy:
+    """While active, keeps every token grid ``_expert_ffn`` runs on and
+    every output of the split island's exchanges (the dispatch, then the
+    return trip)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.grids, self.exchanged = moe, [], []
+
+    def __enter__(self):
+        self.ffn, self.exchange = self.moe._expert_ffn, \
+            self.moe._pod_ep_exchange
+
+        def ffn(cfg, w_gate, w_up, w_down, tokens, *args, **kw):
+            self.grids.append(tokens.detach().clone())
+            return self.ffn(cfg, w_gate, w_up, w_down, tokens, *args, **kw)
+
+        def exchange(*args):
+            fn = self.exchange(*args)
+
+            def run(buf):
+                out = fn(buf)
+                self.exchanged.append(out.detach().clone())
+                return out
+            return run
+
+        self.moe._expert_ffn, self.moe._pod_ep_exchange = ffn, exchange
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._expert_ffn, self.moe._pod_ep_exchange = self.ffn, \
+            self.exchange
+
+
+def grid_slice(grid, n_exp, ep, shape, coords):
+    """The ``LocalMesh`` grid ``[E, R * C, d]``'s rows of the rank at
+    ``coords`` (pod, data, ...): its EP coordinate's ``E_loc`` experts and
+    the block of its other DP coordinates, ``[E_loc, p * C, d]`` (the
+    layout of ``models/moe._moe_pod_ep``)."""
+    dp = ("pod", "data")
+    sizes, where = dict(zip(dp, shape[:2])), dict(zip(dp, coords[:2]))
+    others = [a for a in dp if a != ep]
+    if ep:
+        e_loc = n_exp // sizes[ep]
+        experts = slice(where[ep] * e_loc, (where[ep] + 1) * e_loc)
+    else:
+        experts = slice(None)
+    g = grid.reshape(n_exp, *[sizes[a] for a in others], -1, grid.shape[-1])
+    return g[(experts, *[where[a] for a in others])]
+
+
+def island_runs(torch, cfg, layer, x, mesh, plan, runs):
+    """The first MoE layer on ``x`` through each of ``runs`` ({name: (impl,
+    int8)}) on ``mesh``: per run the output, the routing, the token grid
+    and the exchanges' outputs (kept, on the device)."""
+    from repro_torch.launch.serve import make_dist_context
+    from repro_torch.models.moe import moe_apply
+
+    out = {}
+    for name, (impl, quant) in runs.items():
+        c = dataclasses.replace(cfg, quantized_dispatch=quant)
+        dist = make_dist_context(c, mesh, impl, plan if impl == "plan"
+                                 else None)
+        with torch.no_grad(), GridSpy() as spy, RouteRecorder() as rec:
+            y = moe_apply(c, layer, x, dist)[0]
+        out[name] = {"y": y, "eids": rec.eids[0], "grid": spy.grids[0],
+                     "exchanged": spy.exchanged}
+    return out
+
+
+def island_digests(torch, runs):
+    """A process's ``island_runs``: its grids' and exchanges' digests, its
+    routing, and its output's digest."""
+    return {name: {"grid": digest(torch, r["grid"]),
+                   "exchanged": [digest(torch, e) for e in r["exchanged"]],
+                   "eids": r["eids"].cpu(), "y": digest(torch, r["y"]),
+                   "grid_shape": tuple(r["grid"].shape)}
+            for name, r in runs.items()}
+
+
+def oracle_digests(torch, runs, n_exp, ep, shape):
+    """The stacked ``island_runs``' digests of each rank's slice: {name:
+    [per rank {grid, exchanged, eids, y}]}."""
+    coords = np.stack(np.unravel_index(np.arange(ranks_of(shape)), shape),
+                      axis=1)
+    out = {}
+    for name, r in runs.items():
+        per = []
+        b = r["y"].shape[0] // len(coords)
+        for rank, c in enumerate(coords):
+            g = grid_slice(r["grid"], n_exp, ep, shape, tuple(c))
+            per.append({"grid": digest(torch, g),
+                        "exchanged": [digest(torch, e[rank:rank + 1])
+                                      for e in r["exchanged"]],
+                        "eids": r["eids"][rank:rank + 1].cpu(),
+                        "y": digest(torch, r["y"][rank * b:(rank + 1) * b]),
+                        "grid_shape": tuple(g.shape)})
+        out[name] = per
+    return out
+
+
+def check_island(outs, want, label, key="island"):
+    """Every process's routing, token grid and exchanges (and, reported,
+    its output) bit for bit against its slice of the stacked run's."""
+    bits_y = True
+    for o in outs:
+        for name, mine in o[key].items():
+            ref = want[name][o["rank"]]
+            if not bool((mine["eids"] == ref["eids"]).all()):
+                raise AssertionError(f"{label}: rank {o['rank']} routed the "
+                                     f"identical input apart ({name})")
+            if (mine["grid"], mine["grid_shape"]) != (ref["grid"],
+                                                      ref["grid_shape"]):
+                raise AssertionError(
+                    f"{label}: rank {o['rank']}'s token grid "
+                    f"{mine['grid_shape']} differs from the stacked grid's "
+                    f"slice {ref['grid_shape']} ({name})")
+            if mine["exchanged"] != ref["exchanged"]:
+                raise AssertionError(f"{label}: rank {o['rank']}'s "
+                                     f"exchanges differ from the stacked "
+                                     f"ones ({name})")
+            bits_y &= mine["y"] == ref["y"]
+    first = outs[0][key]
+    return {name: {"grid_shape": first[name]["grid_shape"],
+                   "exchanges": len(first[name]["exchanged"])}
+            for name in first}, bits_y
+
+
+def split_child(mesh, cfg32, shards, rows, serve_cli, plan, runs):
+    """One rank of phase 10 (a), the per-rank hook of ``serve_procs``: the
+    f32 serve of its shard (``serve_procs``' own, prefill and 15 greedy
+    steps on the short prompts) with its routing recorded; then the bf16
+    serving of its 4 prompts of 1024 tokens through the plan, the rotation
+    (``flash``) and int8 dispatch; the first MoE layer on the identical
+    input through ``runs``; the exchange's share of a traced prefill and
+    the first layer.  Returns host tensors and digests."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.convert import recast
+    from repro_torch.launch.serve import make_prefill_step
+
+    kernels = proc_kernels()
+    cfg = split_config()
+    r, n = mesh.rank, ranks_of(mesh.shape)
+    out = {"rank": r, "used_gb": {}, "shard_gb": param_gb(shards[0]),
+           "experts": int(shards[0].blocks[0].moe.w_gate.shape[0])}
+    out["used_gb"]["after the parent's drop"] = card_used_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    with RouteRecorder() as rec:         # the prefill's, then each step's
+        serve_cli()
+    out["f32_routes"] = [e.cpu() for e in rec.eids[:len(rec.eids) // GEN]]
+
+    shard = recast(shards.pop(), cfg)
+    free(torch)
+    b = SPLIT_BATCH // n
+    prompts = stack_prompts(torch, cfg, SPLIT_BATCH, MIX_PROMPT)[
+        r * b:(r + 1) * b]
+    run = serve(torch, cfg, shard, mesh, "plan", plan, prompts, kernels,
+                record=True)
+    out["used_gb"]["serving"] = card_used_gb(torch)
+    keep = ("prefill_s", "decode_s", "decode_steps", "step_ms_median",
+            "step_ms_max", "prefill_launches", "decode_launches",
+            "prefill_variants", "decode_variants")
+    out["serve"] = {k: run[k] for k in keep}
+    out["serve"].update(logits=run["logits"].cpu(),
+                        last_logits=run["last_logits"].cpu(),
+                        tokens=run["tokens"].cpu(),
+                        routes=[e.cpu() for e in run["routes"]])
+    rot = serve(torch, cfg, shard, mesh, "flash", None, prompts, kernels,
+                warmup=False)
+    out["flash_equal"] = (bool(torch.equal(rot["logits"], run["logits"])),
+                          bool(torch.equal(rot["tokens"], run["tokens"])))
+    out["flash"] = {k: rot[k] for k in keep}
+    del rot
+    cfg_q = dataclasses.replace(cfg, quantized_dispatch=True)
+    quant = serve(torch, cfg_q, shard, mesh, "plan", plan, prompts, kernels,
+                  decode=False, record=True)
+    out["int8"] = {"prefill_s": quant["prefill_s"],
+                   "prefill_launches": quant["prefill_launches"],
+                   "prefill_variants": quant["prefill_variants"],
+                   "logits": quant["logits"].cpu(),
+                   "routes": [e.cpu() for e in quant["routes"]]}
+    del quant, run
+    free(torch)
+
+    x = moe_input(torch, cfg, SPLIT_BATCH, MIX_PROMPT, torch.bfloat16)[
+        r * b:(r + 1) * b]
+    isl = island_runs(torch, cfg, shard.blocks[0].moe, x, mesh, plan, runs)
+    out["island"] = island_digests(torch, isl)
+    exact, q = isl["plan"]["y"].float(), isl["int8"]["y"].float()
+    out["int8_layer"] = (float((q - exact).abs().max()),
+                         float(exact.abs().max()))
+    del isl, x, exact, q
+    free(torch)
+
+    prefill = make_prefill_step(cfg, mesh, "plan", plan,
+                                cache_len=MIX_PROMPT + GEN, device=DEVICE)
+    out["exchange"] = exchange_share(torch, prefill, shard,
+                                     {"tokens": prompts})
+    attn, y, eids = first_layer(torch, cfg, shard, mesh, plan, prompts)
+    out["first_layer"] = (attn.cpu(), y.cpu(), eids.cpu())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def split_gates(torch, outs, loc32, loc, loc_first, res, label):
+    """Phase 10 (a)'s gates on the processes' results against the stacked
+    oracles: the f32 prefill and greedy tokens, bf16 routing and tokens,
+    launches, the rotation against the plan, the first layer."""
+    n = len(outs)
+    b = SPLIT_BATCH // n
+    err32 = rel_err(torch, res["logits"][0], loc32["logits"].cpu())
+    routes32 = [torch.cat([o["f32_routes"][i] for o in outs])
+                for i in range(len(loc32["routes"]))]
+    flips32, n_dec, tie = near_tie_flips(torch, loc32["routes"], routes32,
+                                         loc32["margins"], SPLIT_BATCH)
+    same32 = bool(torch.equal(res["tokens"], loc32["tokens"].cpu()))
+    log(f"{label}[f32]: serve_procs' prefill logits ({SPLIT_BATCH} x "
+        f"{F32_PROMPT} tokens) gathered on rank 0, max rel diff "
+        f"{err32:.3e} against LocalMesh (limit 1e-4); {flips32} of {n_dec} "
+        f"routing decisions differ, each sequence's first at an oracle "
+        f"margin of at most {tie:.3e} (near-tie limit {NEAR_TIE}); greedy "
+        f"tokens of the prefill and {GEN - 1} decode steps equal {same32}")
+    if not (err32 < 1e-4 and tie <= NEAR_TIE and same32):
+        raise AssertionError(f"{label}: f32 prefill {err32}, {flips32} "
+                             f"routing decisions differ, the first at a "
+                             f"margin of {tie}; greedy tokens equal {same32}")
+    summary = {"f32": {"max_rel_diff": err32, "routing_differs": flips32,
+                       "first_difference_margin": tie,
+                       "tokens_equal": same32}}
+
+    logits = torch.cat([o["serve"]["logits"] for o in outs])
+    tokens = torch.cat([o["serve"]["tokens"] for o in outs])
+    routes = [torch.cat([o["serve"]["routes"][i] for o in outs])
+              for i in range(len(loc["routes"]))]
+    n_flip, n_dec, per_layer, per_seq = route_flips(
+        torch, [e.cpu() for e in loc["routes"]], routes, SPLIT_BATCH)
+    same_tok = (tokens == loc["tokens"].cpu()).all(-1)
+    gaps = token_tie_gaps(torch, loc, tokens, per_seq)
+    ties = 0
+    for lg in loc["step_logits"]:
+        top = lg.float().topk(2, dim=-1).values
+        ties += int(((top[:, 0] - top[:, 1]) / lg.float().abs().amax(-1)
+                     <= BF16_TOKEN_TIE).sum())
+    summary["bf16"] = {
+        "max_rel_diff": rel_err(torch, logits, loc["logits"].cpu()),
+        "bit_identical": bool(torch.equal(logits, loc["logits"].cpu())),
+        "routing_differs": n_flip,
+        "sequences_routed_apart": int(per_seq.sum()),
+        "sequences_same_tokens": int(same_tok.sum()),
+        "routed_alike_token_gaps": gaps}
+    log(f"{label}[bf16]: prefill logits max rel diff "
+        f"{summary['bf16']['max_rel_diff']:.3e} against LocalMesh "
+        f"(bit-identical {summary['bf16']['bit_identical']}); routing "
+        f"differs in {n_flip} of {n_dec} (token, layer) decisions (per layer "
+        f"{per_layer}), in {int(per_seq.sum())} of {SPLIT_BATCH} sequences "
+        f"(at most {PROC_BF16_APART_MAX}); greedy tokens equal in "
+        f"{int(same_tok.sum())} of {SPLIT_BATCH} sequences; each sequence "
+        f"routed alike whose tokens differ (step, oracle gap over the row's "
+        f"largest logit): {gaps} (limit {BF16_TOKEN_TIE}; {ties} of "
+        f"{SPLIT_BATCH * GEN} oracle greedy choices lie within it of the "
+        f"runner-up)")
+    summary["bf16"]["oracle_choices_within_tie"] = ties
+    if not (int(per_seq.sum()) <= PROC_BF16_APART_MAX
+            and all(g <= BF16_TOKEN_TIE for _, _, g in gaps)):
+        raise AssertionError(
+            f"{label}: bf16 routed {int(per_seq.sum())} of {SPLIT_BATCH} "
+            f"sequences apart (at most {PROC_BF16_APART_MAX}); sequences "
+            f"routed alike whose tokens differ first at oracle gaps {gaps} "
+            f"(limit {BF16_TOKEN_TIE})")
+
+    want = run_counts(loc)
+    a2a = {"prefill": {a2a_instance(split_moved_bytes(b * MIX_PROMPT))},
+           "decode": {"vec"}}
+    for o in outs:
+        sv = o["serve"]
+        check_run(torch, sv, split_config(), b, f"{label}[rank {o['rank']}]",
+                  SERVE_KERNELS, a2a)
+        for part in ("prefill", "decode"):
+            got = sv[f"{part}_launches"]
+            if got != want[part]:
+                raise AssertionError(
+                    f"{label}: rank {o['rank']} launched {got} in the "
+                    f"{part}; LocalMesh {want[part]}")
+        if o["flash_equal"] != (True, True):
+            raise AssertionError(f"{label}: rank {o['rank']}'s rotation "
+                                 f"(flash) logits and tokens equal to the "
+                                 f"plan's {o['flash_equal']}")
+        check_variants(o["int8"], f"{label}[rank {o['rank']} int8]",
+                       a2a={"prefill": {"vec"}})
+    log(f"{label}: every process launched each kernel as often as the "
+        f"LocalMesh run (prefill {want['prefill']}, decode "
+        f"{want['decode']}), grouped_matmul on TMA alone, pack and unpack on "
+        f"{sorted(a2a['prefill'])} in the prefill and vec in decode; the "
+        f"rotation's (flash) prefill logits and greedy tokens bit-identical "
+        f"to the plan's in every process")
+
+    errs, bits, route_eq = [], [], []
+    for o in outs:
+        rows = slice(o["rank"] * b, (o["rank"] + 1) * b)
+        attn, y, eids = o["first_layer"]
+        want_attn, want_y = loc_first[0][rows].cpu(), loc_first[1][rows].cpu()
+        errs.append((rel_err(torch, attn, want_attn),
+                     rel_err(torch, y, want_y)))
+        bits.append(bool(torch.equal(attn, want_attn))
+                    and bool(torch.equal(y, want_y)))
+        route_eq.append(bool(torch.equal(eids[0],
+                                         loc_first[2][o["rank"]].cpu())))
+    worst = tuple(max(e[i] for e in errs) for i in range(2))
+    log(f"{label}[first layer, bf16, identical inputs]: attention max rel "
+        f"diff {worst[0]:.3e}, MoE {worst[1]:.3e} against LocalMesh (limit "
+        f"2e-2); routing equal {all(route_eq)}; bit-identical {all(bits)}")
+    if not (worst[0] < 2e-2 and worst[1] < 2e-2 and all(route_eq)):
+        raise AssertionError(f"{label}: first layer {worst}, routing equal "
+                             f"{route_eq}")
+    summary["first_layer"] = {"attention": worst[0], "moe": worst[1],
+                              "bit_identical": all(bits)}
+    return summary
+
+
+def token_tie_gaps(torch, oracle, tokens, skip):
+    """For each sequence not in ``skip`` (a bool per sequence) whose greedy
+    ``tokens`` differ from the oracle's: (sequence, the step of its first
+    difference, the oracle's logit of its own choice there less its logit
+    of the process's, over the row's largest magnitude).  Up to that step
+    the two saw the same tokens, so the oracle's logits there score both
+    choices: a small gap is a greedy near tie that rounding can flip."""
+    want = oracle["tokens"].cpu()
+    out = []
+    for seq in range(want.shape[0]):
+        differ = (tokens[seq] != want[seq]).nonzero()
+        if bool(skip[seq]) or not len(differ):
+            continue
+        t = int(differ[0, 0])
+        row = oracle["step_logits"][t][seq].float().cpu()
+        gap = float(row[want[seq, t]] - row[tokens[seq, t]]) \
+            / float(row.abs().max())
+        out.append((seq, t, gap))
+    return out
+
+
+def split_moved_bytes(tokens):
+    """The bytes one process's plan pack moves in the prefill: its block
+    of each stage and its own block, ``E_loc * C`` bf16 rows each."""
+    from repro_torch.models.moe import _capacity
+
+    cfg = split_config()
+    e_loc = cfg.moe.num_experts // SPLIT_MESH[0]
+    cap = _capacity(cfg, tokens, cfg.moe.num_experts)
+    return 2 * e_loc * cap * cfg.d_model * 2
+
+
+def phase_split_serve(torch, kernels):
+    """Phase 10 (a): mixtral-8x7b on 6 processes of (pod 2, data 3, model
+    1), EP over ``pod`` alone, against ``LocalMesh((2, 3, 1))``.  Returns
+    rank 0's launch counts and a summary."""
+    from repro_torch.convert import recast
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import (flash_plan, make_dist_context,
+                                          serve_procs)
+
+    cfg = split_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    dev = torch.device(DEVICE)
+    local = make_mesh(SPLIT_MESH, AXES, dev)
+    ep = make_dist_context(cfg, local).ep_axes
+    if ep != ("pod",):
+        raise AssertionError(f"split[a]: EP axes {ep} on {SPLIT_MESH}")
+    plan = flash_plan(SPLIT_MESH[0], SPLIT_MESH[1], SEED)
+    n = ranks_of(SPLIT_MESH)
+    label = "split[a]"
+    log(f"{label}: {cfg.name} layers={cfg.n_layers}/32 at its published "
+        f"widths (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads, d_ff {cfg.d_ff}, {cfg.moe.num_experts} experts top"
+        f"{cfg.moe.top_k}, window {cfg.swa_window}) on a {SPLIT_MESH} mesh "
+        f"of {n} processes ({PROC_BACKEND}); choose_ep_axes gives {ep}, "
+        f"{cfg.moe.num_experts // SPLIT_MESH[0]} experts a process; "
+        f"{SPLIT_BATCH} prompts of {MIX_PROMPT} tokens ({SPLIT_BATCH // n} "
+        f"a process) and {GEN - 1} decode steps; f32 on {F32_PROMPT}-token "
+        f"prompts; {SPLIT_LABEL}")
+    summary = {"label": SPLIT_LABEL, "used_gb": {}}
+
+    torch.cuda.reset_peak_memory_stats()
+    params32 = stack_params(torch, cfg32)
+    summary["f32_params_gb"] = param_gb(params32)
+    short = stack_prompts(torch, cfg, SPLIT_BATCH, F32_PROMPT)
+    loc32 = serve(torch, cfg32, params32, local, "plan", plan, short,
+                  kernels, warmup=False, record="margins")
+    params = recast(params32, cfg)
+    prompts = stack_prompts(torch, cfg, SPLIT_BATCH, MIX_PROMPT)
+    loc = serve(torch, cfg, params, local, "plan", plan, prompts, kernels,
+                record=True, keep_logits=True)
+    check_run(torch, loc, cfg, SPLIT_BATCH, f"{label}[local oracle]",
+              SERVE_KERNELS)
+    summary["oracle"] = {"prefill_ms": loc["prefill_s"] * 1e3,
+                         "decode_ms_per_step": loc["decode_s"]
+                         / loc["decode_steps"] * 1e3,
+                         "decode_device_ms_median": loc["step_ms_median"]}
+    log(f"{label}[local oracle]: the same bf16 work stacked in one process: "
+        f"prefill {summary['oracle']['prefill_ms']:.3f} ms; decode "
+        f"{summary['oracle']['decode_ms_per_step']:.3f} ms/step (median "
+        f"{loc['step_ms_median']:.3f} ms on the device clock)")
+    loc_first = first_layer(torch, cfg, params, local, plan, prompts)
+    runs = {"plan": ("plan", False), "flash": ("flash", False),
+            "int8": ("plan", True)}
+    x = moe_input(torch, cfg, SPLIT_BATCH, MIX_PROMPT, torch.bfloat16)
+    isl = island_runs(torch, cfg, params.blocks[0].moe, x, local, plan, runs)
+    want = oracle_digests(torch, isl, cfg.moe.num_experts, "pod", SPLIT_MESH)
+    exact, q = isl["plan"]["y"].float(), isl["int8"]["y"].float()
+    oracle_int8 = rel_err(torch, q, exact)
+    del isl, x, exact, q, params
+    free(torch)
+    summary["parent_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
+    log(f"{label}[local oracle]: f32 parameters "
+        f"{summary['f32_params_gb']:.2f} GB; parent peak "
+        f"{summary['parent_peak_gb']:.2f} GB")
+
+    holder = [params32]
+    del params32
+    t0 = time.perf_counter()
+    res = serve_procs(cfg32, holder, short, SPLIT_MESH, PROC_BACKEND, DEVICE,
+                      "plan", plan, GEN, hook=functools.partial(
+                          split_child, plan=plan, runs=runs),
+                      timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    summary["processes_s"] = time.perf_counter() - t0
+    summary["used_gb"].update(res.get("card_used_gb", {}))
+    outs = res["ranks"]
+    if [o["experts"] for o in outs] != [cfg.moe.num_experts // 2] * n:
+        raise AssertionError(f"{label}: experts a process "
+                             f"{[o['experts'] for o in outs]}")
+
+    island, bits_y = check_island(outs, want, label)
+    log(f"{label}[identical input, bf16]: in every process the routing, the "
+        f"token grid and both exchanges' outputs bit-identical to its slice "
+        f"of the stacked run's, through {', '.join(island)} "
+        f"({json.dumps(island)}); the layer's output bit-identical "
+        f"{bits_y}")
+    q_err = max(o["int8_layer"][0] for o in outs) \
+        / max(o["int8_layer"][1] for o in outs)
+    log(f"{label}[int8 dispatch]: first MoE layer on identical inputs, max "
+        f"rel diff to exact {q_err:.3e} on the processes (limit (0, 0.05)); "
+        f"the stacked run's own {oracle_int8:.3e}")
+    if not 0 < q_err < 0.05:
+        raise AssertionError(f"{label}: int8 first MoE layer {q_err}")
+    summary.update(split_gates(torch, outs, loc32, loc, loc_first, res,
+                               label))
+    summary["island"] = {"runs": island, "output_bit_identical": bits_y,
+                         "int8_layer_rel_diff": q_err}
+
+    q_logits = torch.cat([o["int8"]["logits"] for o in outs])
+    ex_logits = torch.cat([o["serve"]["logits"] for o in outs])
+    qr = [torch.cat([o["int8"]["routes"][i] for o in outs])
+          for i in range(len(outs[0]["int8"]["routes"]))]
+    er = [torch.cat([o["serve"]["routes"][i] for o in outs])
+          for i in range(len(qr))]
+    n_flip, n_dec, per_layer, per_seq = route_flips(torch, er, qr,
+                                                    SPLIT_BATCH)
+    summary["int8"] = {"prefill_logits_rel_diff": rel_err(
+        torch, q_logits, ex_logits), "routing_differs": n_flip,
+        "sequences_routed_apart": int(per_seq.sum())}
+    log(f"{label}[int8 dispatch]: prefill logits max rel diff to exact "
+        f"{summary['int8']['prefill_logits_rel_diff']:.3e}; routing differs "
+        f"in {n_flip} of {n_dec} decisions (per layer {per_layer}), in "
+        f"{int(per_seq.sum())} of {SPLIT_BATCH} sequences (reported)")
+
+    for o in outs:
+        sv = o["serve"]
+        share, n_spans, host_ms = o["exchange"]
+        log(f"{label}[rank {o['rank']}]: prefill {sv['prefill_s'] * 1e3:.3f} "
+            f"ms; decode {sv['decode_s'] / sv['decode_steps'] * 1e3:.3f} "
+            f"ms/step host mean, {sv['step_ms_median']:.3f} ms device median "
+            f"over {sv['decode_steps']} steps; rotation prefill "
+            f"{o['flash']['prefill_s'] * 1e3:.3f} ms, int8 prefill "
+            f"{o['int8']['prefill_s'] * 1e3:.3f} ms; exchange share of a "
+            f"traced prefill {share:.4f} ({n_spans} collectives, "
+            f"{host_ms:.3f} ms, host staging included); peak "
+            f"{o['peak_gb']:.2f} GB (f32 shard {o['shard_gb']:.2f} GB); "
+            f"{SPLIT_LABEL}")
+    card = dict(summary["used_gb"])
+    for o in outs:
+        for k, v in o["used_gb"].items():
+            card[f"{k} (rank {o['rank']})"] = v
+    summary["used_gb"] = card
+    summary["card_peak_gb_seen"] = max(card.values())
+    summary["ranks"] = [{
+        "rank": o["rank"], "prefill_ms": o["serve"]["prefill_s"] * 1e3,
+        "decode_ms_per_step": o["serve"]["decode_s"]
+        / o["serve"]["decode_steps"] * 1e3,
+        "decode_device_ms_median": o["serve"]["step_ms_median"],
+        "flash_prefill_ms": o["flash"]["prefill_s"] * 1e3,
+        "int8_prefill_ms": o["int8"]["prefill_s"] * 1e3,
+        "peak_gb": o["peak_gb"], "exchange_share": o["exchange"][0]}
+        for o in outs]
+    log(f"{label}: memory in use on the card (GB): "
+        f"{json.dumps({k: round(v, 2) for k, v in card.items()})}; the most "
+        f"seen {summary['card_peak_gb_seen']:.2f} GB")
+    counts = {"prefill": outs[0]["serve"]["prefill_launches"],
+              "decode": outs[0]["serve"]["decode_launches"]}
+    return counts, summary
+
+
+def form_child(mesh, cfg32, shards, rows, serve_cli, ep):
+    """One rank of phase 10 (b): ``serve_procs``' own f32 prefill of its
+    rows with the routing recorded, launches counted; then the first MoE
+    layer on the identical input."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = proc_kernels()
+    r, n = mesh.rank, ranks_of(mesh.shape)
+    out = {"rank": r, "experts": int(shards[0].blocks[0].moe.w_gate.shape[0]),
+           "shard_gb": param_gb(shards[0])}
+    reset_launches(kernels)
+    with RouteRecorder() as rec:
+        serve_cli()
+    out["launches"] = read_launches(kernels)
+    out["variants"] = read_variants(kernels)
+    out["routes"] = [e.cpu() for e in rec.eids]
+    b = FORM_BATCH // n
+    x = moe_input(torch, cfg32, FORM_BATCH, FORM_PROMPT, torch.float32)[
+        r * b:(r + 1) * b]
+    isl = island_runs(torch, cfg32, shards.pop().blocks[0].moe, x, mesh,
+                      None, {"flash": ("flash", False)})
+    out["island"] = island_digests(torch, isl)
+    return out
+
+
+def phase_split_forms(torch, kernels):
+    """Phase 10 (b): EP over ``data`` alone on (3, 2, 1) and no EP on (1,
+    3, 1), 1 layer at mixtral's published widths in f32, a prefill against
+    each mesh's stacked oracle.  Returns each path's launches and a
+    summary."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_dist_context, serve_procs
+
+    cfg = split_config(n_layers=FORM_LAYERS, compute_dtype="float32")
+    prompts = stack_prompts(torch, cfg, FORM_BATCH, FORM_PROMPT)
+    launches, summary = {}, {}
+    for form, (shape, want_ep) in SPLIT_FORMS.items():
+        label = f"split[b, {form}]"
+        local = make_mesh(shape, AXES, torch.device(DEVICE))
+        ep = make_dist_context(cfg, local).ep_axes
+        if ep != want_ep:
+            raise AssertionError(f"{label}: EP axes {ep} on {shape}")
+        n = ranks_of(shape)
+        params = stack_params(torch, cfg)
+        reset_launches(kernels)
+        loc = serve(torch, cfg, params, local, "flash", None, prompts,
+                    kernels, decode=False, warmup=False, record="margins")
+        x = moe_input(torch, cfg, FORM_BATCH, FORM_PROMPT, torch.float32)
+        isl = island_runs(torch, cfg, params.blocks[0].moe, x, local, None,
+                          {"flash": ("flash", False)})
+        want = oracle_digests(torch, isl, cfg.moe.num_experts,
+                              ep[0] if ep else None, shape)
+        del isl, x
+        free(torch)
+        holder = [params]
+        del params
+        t0 = time.perf_counter()
+        res = serve_procs(cfg, holder, prompts, shape, PROC_BACKEND, DEVICE,
+                          "flash", None, 1, hook=functools.partial(
+                              form_child, ep=ep),
+                          timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+        seconds = time.perf_counter() - t0
+        outs = res["ranks"]
+        e_loc = cfg.moe.num_experts // (local.axis_size(ep) if ep else 1)
+        if [o["experts"] for o in outs] != [e_loc] * n:
+            raise AssertionError(f"{label}: experts a process "
+                                 f"{[o['experts'] for o in outs]}")
+        island, _ = check_island(outs, want, label)
+        err = rel_err(torch, res["logits"][0], loc["logits"].cpu())
+        routes = [torch.cat([o["routes"][i] for o in outs])
+                  for i in range(len(loc["routes"]))]
+        flips, n_dec, tie = near_tie_flips(torch, loc["routes"], routes,
+                                           loc["margins"], FORM_BATCH)
+        want_l = loc["prefill_launches"]
+        same = all(o["launches"] == want_l for o in outs)
+        log(f"{label}: 1 layer on {shape}, {n} processes, EP axes {ep} "
+            f"({e_loc} experts a process, f32 shard "
+            f"{outs[0]['shard_gb']:.2f} GB), {FORM_BATCH} prompts of "
+            f"{FORM_PROMPT} tokens: prefill logits max rel diff {err:.3e} "
+            f"against LocalMesh{shape} (limit 1e-4); {flips} of {n_dec} "
+            f"routing decisions differ, the first at a margin of at most "
+            f"{tie:.3e} (limit {NEAR_TIE}); routing, token grid "
+            f"{island['flash']['grid_shape']} and "
+            f"{island['flash']['exchanges']} exchanges bit-identical to the "
+            f"stacked slices; launches equal to the oracle's {same} "
+            f"({want_l}); {seconds:.1f} s with the processes' start-up")
+        if not (err < 1e-4 and tie <= NEAR_TIE and same):
+            raise AssertionError(f"{label}: prefill {err}, routing tie "
+                                 f"{tie}, launches equal {same}")
+        for o in outs:
+            if o["variants"]["grouped_matmul"]["simt"] != \
+                    o["launches"]["grouped_matmul"]:
+                raise AssertionError(f"{label}: f32 grouped_matmul by "
+                                     f"instance {o['variants']}")
+        launches[f"mixtral-8x7b {form} procs "
+                 f"({','.join(map(str, shape))})"] = {
+            "prefill": outs[0]["launches"],
+            "decode": dict.fromkeys(outs[0]["launches"], 0)}
+        summary[form] = {"mesh": shape, "ep_axes": ep, "experts": e_loc,
+                         "max_rel_diff": err, "routing_differs": flips,
+                         "first_difference_margin": tie,
+                         "grid_shape": island["flash"]["grid_shape"],
+                         "processes_s": seconds}
+        del res, outs, loc
+        free(torch)
+    return launches, summary
+
+
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+
+
+def expert_grads_nonzero(grads):
+    """Whether every expert of every expert stack has a nonzero gradient (a
+    gradient cut by a collective comes back as zeros)."""
+    return all(bool((g.reshape(g.shape[0], -1).abs().amax(-1) > 0).all())
+               for k, g in grads.items()
+               if ".moe." in k and k.rsplit(".", 1)[-1] in EXPERT_STACKS)
+
+
+def split_train_child(mesh, cfg, shards, train, want):
+    """One rank of phase 10 (c): ``train()`` (the smoke mixtral's f32
+    steps) with each step's gradients held against the oracle's slices
+    (``want``, shared through CUDA IPC) and its launches counted; then one
+    step with int8 dispatch on a copy of the initial shard (reported)."""
+    import torch
+
+    from repro_torch.convert import recast
+    from repro_torch.launch.train import (init_train_state, make_train_step,
+                                          train_specs)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = proc_kernels()
+    specs = train_specs(cfg, mesh)
+    init = {k: p.detach().clone() for k, p in shards[0].named_parameters()}
+    experts = int(shards[0].blocks[0].moe.w_gate.shape[0])
+    launches = []
+
+    def each(i, run):
+        reset_launches(kernels)
+        res = run()
+        torch.cuda.synchronize()
+        launches.append(read_launches(kernels))
+        return res
+
+    with GradSpy(on_grads=lambda i, g: (
+            grad_stats(torch, mesh, specs, g, want["grads"][i]),
+            expert_grads_nonzero(g))) as spy:
+        res = train(each_step=each)
+    # release the parent's tensors now, not at this process's exit
+    want.clear()
+    gc.collect()
+    cfg_q = dataclasses.replace(cfg, quantized_dispatch=True)
+    step = make_train_step(cfg_q, mesh, proc_train_options(
+        SPLIT_TRAIN_STEPS), device=DEVICE)
+    _, m = step(init_train_state(recast(init, cfg_q, train=True)),
+                train_batches(cfg, SPLIT_TRAIN_BATCH, SPLIT_TRAIN_SEQ, 1)[0])
+    return {"rank": mesh.rank, "metrics": res["metrics"], "experts": experts,
+            "grads": [s for s, _ in spy.grads],
+            "expert_grads_nonzero": all(z for _, z in spy.grads),
+            "launches": launches,
+            "int8": {k: float(v) for k, v in m.items()}}
+
+
+def phase_split_train(torch, kernels):
+    """Phase 10 (c): the smoke mixtral (4 experts, f32) trained on the 6
+    processes of (2, 3, 1) through ``train_procs``, EP over ``pod`` alone,
+    against the same steps on ``LocalMesh((2, 3, 1))``; then one step with
+    int8 dispatch on each.  Returns rank 0's launches and a summary."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import recast
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (init_train_state, make_dist_context,
+                                          make_train_step, train_procs)
+
+    label = "split[c]"
+    cfg = dataclasses.replace(smoke_config(MIX_ARCH),
+                              compute_dtype="float32")
+    local = make_mesh(SPLIT_MESH, AXES, torch.device(DEVICE))
+    ep = make_dist_context(cfg, local).ep_axes
+    if ep != ("pod",):
+        raise AssertionError(f"{label}: EP axes {ep} on {SPLIT_MESH}")
+    batches = train_batches(cfg, SPLIT_TRAIN_BATCH, SPLIT_TRAIN_SEQ,
+                            SPLIT_TRAIN_STEPS)
+    init = {k: p.detach().clone() for k, p in
+            stack_params(torch, cfg, train=True).named_parameters()}
+
+    def fresh(c):
+        return recast({k: v.clone() for k, v in init.items()}, c,
+                      train=True)
+
+    state = init_train_state(fresh(cfg))
+    step = make_train_step(cfg, local, proc_train_options(SPLIT_TRAIN_STEPS),
+                           device=DEVICE)
+    oracle = {"metrics": [], "launches": []}
+    with GradSpy() as spy:
+        for b in batches:
+            reset_launches(kernels)
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            oracle["launches"].append(read_launches(kernels))
+            oracle["metrics"].append({k: float(v) for k, v in m.items()})
+    want = {"grads": spy.grads}
+    cfg_q = dataclasses.replace(cfg, quantized_dispatch=True)
+    _, m = make_train_step(cfg_q, local, proc_train_options(
+        SPLIT_TRAIN_STEPS), device=DEVICE)(init_train_state(fresh(cfg_q)),
+                                           batches[0])
+    oracle_q = {k: float(v) for k, v in m.items()}
+    del state, step
+    t0 = time.perf_counter()
+    res = train_procs(cfg, [fresh(cfg)], proc_data(cfg, SPLIT_TRAIN_BATCH,
+                                                   SPLIT_TRAIN_SEQ),
+                      SPLIT_MESH, PROC_BACKEND, DEVICE,
+                      proc_train_options(SPLIT_TRAIN_STEPS),
+                      SPLIT_TRAIN_STEPS, hook=functools.partial(
+                          split_train_child, want=want),
+                      timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    seconds = time.perf_counter() - t0
+    del want, spy
+    free(torch)
+    torch.cuda.ipc_collect()  # the oracle's tensors the processes mapped
+    outs = res["ranks"]
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                     for a, b in zip(res["metrics"], oracle["metrics"])
+                     for k in ("loss", "nll", "aux", "grad_norm", "lr"))
+    grad_errs = [rel_norms([o["grads"][i] for o in outs])
+                 for i in range(SPLIT_TRAIN_STEPS)]
+    worst_grad = max(max(e.values()) for e in grad_errs)
+    worst_key = max(grad_errs[-1], key=grad_errs[-1].get)
+    launches_equal = all(o["launches"] == oracle["launches"] for o in outs)
+    nonzero = all(o["expert_grads_nonzero"] for o in outs)
+    experts = [o["experts"] for o in outs]
+    q_diff = {k: abs(outs[0]["int8"][k] - oracle_q[k])
+              / max(abs(oracle_q[k]), 1e-6) for k in ("loss", "grad_norm")}
+    log(f"{label}: smoke {cfg.name} (d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts, f32) trained on {SPLIT_MESH}, "
+        f"{ranks_of(SPLIT_MESH)} processes through train_procs, EP axes "
+        f"{ep} ({experts[0]} experts a process), {SPLIT_TRAIN_BATCH} x "
+        f"{SPLIT_TRAIN_SEQ} tokens, {SPLIT_TRAIN_STEPS} AdamW steps against "
+        f"LocalMesh{SPLIT_MESH}: metrics max rel diff {metric_err:.3e} "
+        f"(limit 1e-5); gradients, relative norm of the gathered whole, "
+        f"worst {worst_grad:.3e} (limit 1e-4; the last step's worst "
+        f"{worst_key}); every expert's gradient nonzero in every process "
+        f"{nonzero}; launches equal to the oracle's {launches_equal} "
+        f"({oracle['launches'][0]}); {seconds:.1f} s with the processes' "
+        f"start-up")
+    log(f"{label}[int8 dispatch]: one step, loss "
+        f"{outs[0]['int8']['loss']:.6f} and grad norm "
+        f"{outs[0]['int8']['grad_norm']:.6f} on the processes, relative "
+        f"differences to the stacked step's {json.dumps(q_diff)} "
+        f"(reported)")
+    if not (metric_err <= 1e-5 and worst_grad <= 1e-4 and launches_equal
+            and nonzero and experts == [2] * ranks_of(SPLIT_MESH)):
+        raise AssertionError(f"{label}: metrics {metric_err}, gradients "
+                             f"{worst_grad}, launches equal "
+                             f"{launches_equal}, expert gradients nonzero "
+                             f"{nonzero}, experts {experts}")
+    counts = {k: sum(s[k] for s in outs[0]["launches"])
+              for k in outs[0]["launches"][0]}
+    return counts, {"metric_err": metric_err, "grad_err": worst_grad,
+                    "expert_grads_nonzero": nonzero,
+                    "int8_step_rel_diff": q_diff, "processes_s": seconds}
+
+
+def phase_split(torch, kernels):
+    """Phase 10: (a) serving mixtral-8x7b on (2, 3, 1), (b) the other two
+    forms, (c) training.  Returns each path's launches and a summary."""
+    summary, launches = {}, {}
+    t0 = time.perf_counter()
+    launches[SPLIT_PATH], summary["a"] = phase_split_serve(torch, kernels)
+    summary["a_s"] = time.perf_counter() - t0
+    free(torch)
+    t0 = time.perf_counter()
+    forms, summary["b"] = phase_split_forms(torch, kernels)
+    launches.update(forms)
+    summary["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train, summary["c"] = phase_split_train(torch, kernels)
+    summary["c_s"] = time.perf_counter() - t0
+    return launches, train, summary
+
+
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
                 "flash_attention mixtral-8x7b long prefill": 1.5,
@@ -4071,6 +4943,14 @@ def main() -> int:
     log(f"phase train procs: {time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(train_procs_summary)}")
 
+    # 10. the split island on one process per rank: mixtral over pod, EP
+    # over data alone, replicated experts; served and trained
+    t0 = time.perf_counter()
+    split_launches, split_train_launches, split = phase_split(torch, kernels)
+    launches.update(split_launches)
+    log(f"phase split: {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(split)}")
+
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for
     # pack and unpack, which training does not launch: the main path of
@@ -4095,6 +4975,8 @@ def main() -> int:
             train_launches[name]
         by_path[f"{TRAIN_PROC_PATH} ({TRAIN_PROC_STEPS} steps, each "
                 f"process)"] = train_proc_launches[name]
+        by_path[f"{SPLIT_TRAIN_PATH} ({SPLIT_TRAIN_STEPS} steps, each "
+                f"process)"] = split_train_launches[name]
         for path, counts in stack_launches.items():
             if name in counts:
                 by_path[path] = counts[name]

@@ -19,8 +19,8 @@ transposed collective (the same tiled ``all_to_all``; ``ppermute`` with every
 pair reversed; ``pmean`` of the cotangents over the group).
 
 ``size`` is the number of ranks of the mesh and ``coords()`` their
-coordinates; ``local_size`` and ``local_coords()`` are those of the ranks
-this process holds (all of them on a ``LocalMesh``, its own on a
+coordinates; ``local_size``, ``local_shape`` and ``local_coords()`` are those
+of the ranks this process holds (all of them on a ``LocalMesh``, its own on a
 ``ProcessMesh``).
 """
 
@@ -90,6 +90,11 @@ class LocalMesh:
     def local_size(self) -> int:
         """Ranks held by this process: all of them."""
         return self.size
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """The held ranks' extent along each axis: the whole shape."""
+        return self.shape
 
     def local_coords(self) -> np.ndarray:
         """``[local_size, n_axes]`` coordinates of the ranks held here."""
@@ -166,6 +171,11 @@ class ProcessMesh:
     def local_size(self) -> int:
         """Ranks held by this process: its own."""
         return 1
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """The held ranks' extent along each axis: 1 on every axis."""
+        return (1,) * len(self.shape)
 
     @property
     def rank_coords(self) -> Tuple[int, ...]:

@@ -25,6 +25,14 @@ names the rendezvous), rank 0 printing the gathered tokens:
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,2 --procs \\
         --backend gloo
+
+On ``--mesh 2,3`` mixtral's experts go over ``pod`` alone (8 divides
+neither 6 nor 3), so each of the 6 processes runs the split island on its
+``E_loc`` experts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mixtral-8x7b --smoke --device cpu --mesh 2,3 --batch 6 \\
+        --procs --backend gloo
 """
 
 from __future__ import annotations

@@ -37,6 +37,9 @@ per-process program rather than a fabric), rank 0 printing the steps:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,2 --procs \\
         --backend gloo --batch 8 --seq 32 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch mixtral-8x7b --smoke --device cpu --mesh 2,3 --procs \\
+        --backend gloo --batch 12 --seq 16 --steps 2
 """
 
 from __future__ import annotations
@@ -174,9 +177,12 @@ def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
     as the gradient of the mean loss over every process's rows: summed over
     the DP axes the parameter is replicated on (gathered, added in member
     order), then divided by the DP world size.  An expert shard's gradient
-    already holds every process's tokens (the exchange's backward brought
-    them), so it is only divided.  ``grads`` is emptied as it goes: each
-    gradient is freed once its synced form exists."""
+    already holds the tokens of its EP group (the exchange's backward
+    brought them): on the island, EP over every DP axis, that is every
+    process's, so it is only divided; with EP over ``pod`` alone it is
+    summed over ``data``, with no EP over every DP axis.  ``grads`` is
+    emptied as it goes: each gradient is freed once its synced form
+    exists."""
     from .shardings import sharded_axes
 
     dp = dp_axes(mesh)

@@ -21,10 +21,13 @@ over the process group.
 EP over one mesh axis or none (``_moe_pod_ep``: mixtral's 8 experts over
 ``pod``, dbrx's over ``data``, or experts replicated) runs the reference's
 split-island form: routing, dispatch and the exchange per rank, then one
-grouped FFN over all ranks' tokens, then the return exchange and the combine.
-Over the slow axis the exchange may be int8 with a per-row f32 scale
-(``cfg.quantized_dispatch``).  It runs on a ``LocalMesh`` only; on a
-``ProcessMesh`` it raises.
+grouped FFN over the held ranks' tokens, then the return exchange and the
+combine.  Over the slow axis the exchange may be int8 with a per-row f32
+scale (``cfg.quantized_dispatch``).  On a ``LocalMesh`` the grid holds every
+rank's tokens against all ``E`` experts; on a ``ProcessMesh`` it is this
+process's own ``[E_loc, p * C, d]`` (the reference's island layout) against
+the ``E_loc`` experts its shard holds, and equals the ``LocalMesh`` grid's
+slice of those experts and of this process's other DP coordinates.
 
 ``dist=None`` runs the same math with one rank and no exchange; it is the
 correctness oracle for the island.  ``use_kernel=False`` runs the plain
@@ -56,7 +59,7 @@ from ..kernels.grouped_matmul import grouped_matmul_ref
 # plain wrapper call
 from ..kernels.grouped_matmul import grouped_matmul_autograd as \
     grouped_matmul
-from ..launch.mesh import LocalMesh, ProcessMesh, pmean
+from ..launch.mesh import pmean
 from .dist import DistContext
 from .layers import dense_init, param
 
@@ -228,7 +231,7 @@ def _quantized(a2a):
     return exchange
 
 
-def _pod_ep_exchange(cfg: ModelConfig, dist: DistContext, mesh: LocalMesh,
+def _pod_ep_exchange(cfg: ModelConfig, dist: DistContext, mesh,
                      ep_axis: str, slow: bool):
     """The exchange over the one EP axis: the rotation schedule (or the
     plan's stages) over the slow axis, a flat all-to-all over a fast one;
@@ -243,28 +246,26 @@ def _pod_ep_exchange(cfg: ModelConfig, dist: DistContext, mesh: LocalMesh,
 def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
                 p: MoE) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split-island MoE with EP over one DP axis (``p_pods`` = its size) or
-    none (``p_pods = 1``: experts replicated), every rank at once.
+    none (``p_pods = 1``: experts replicated), every held rank at once.
 
     Per rank (x split over the DP axes, slow-axis major): route, dispatch
-    into ``[p_pods, E_loc * C, d]`` and exchange over the EP axis.  Rank
-    ``r`` then holds, for each of its ``E_loc`` experts, the tokens of the
-    ``p_pods`` ranks that share its other coordinates.  Its EP coordinate
-    ``c`` names its experts ``c * E_loc + e``, so the ranks' tokens are laid
-    out as ``[E, R * C, d]`` (group ``e`` = global expert ``e``) and one
-    grouped-FFN launch per product serves them all.  The return trip runs
-    the inverse.  x: [B, S, d] with B divisible by the DP size.  On a
-    ``ProcessMesh`` it raises: this form is not ported to processes.
+    into ``[p_pods, E_loc * C, d]`` and exchange over the EP axis; the
+    capacity ``C`` comes from the rank's own token count (the reference's
+    ``t_loc``).  Rank ``r`` then holds, for each of its ``E_loc`` experts,
+    the tokens of the ``p_pods`` ranks that share its other coordinates.
+    Its EP coordinate ``c`` names its experts ``c * E_loc + e``, so the held
+    ranks' tokens are laid out as ``[ep dim, E_loc, other dp dims, p_pods,
+    C, d]``: on a ``LocalMesh`` (every rank held) that is ``[E, R * C, d]``
+    against all ``E`` experts, on a ``ProcessMesh`` (every dim 1 but its
+    own ``E_loc`` and ``p_pods``) ``[E_loc, p_pods * C, d]`` against its
+    shard's ``E_loc``.  One grouped-FFN launch per product serves the grid;
+    the return trip runs the inverse.  x: ``[B, S, d]``, the held ranks'
+    rows (B divisible by their number).
     """
-    if isinstance(dist.mesh, ProcessMesh):
-        raise ValueError(
-            "EP over one mesh axis or none (_moe_pod_ep: mixtral over pod, "
-            "dbrx over data, replicated experts) and int8 dispatch run on a "
-            "LocalMesh only; on a ProcessMesh the MoE needs EP over the "
-            f"DP axes {dist.dp_axes}, got {dist.ep_axes}")
     mesh = dist.mesh.sub(dist.dp_axes)
     ep_axis = dist.ep_axes[0] if dist.ep_axes else None
     p_pods = mesh.axis_size(ep_axis) if ep_axis else 1
-    r = mesh.size
+    r = mesh.local_size
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     e_loc = e // p_pods
     b, s, d = x.shape
@@ -281,14 +282,21 @@ def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     if exchange is not None:
         recv = exchange(recv)
 
-    # [*dp dims, p_pods, E_loc, C, d] -> [ep dim, E_loc, other dp dims,
-    # p_pods, C, d] -> [E, R * C, d]
-    n = len(mesh.shape)
+    # [*held dp dims, p_pods, E_loc, C, d] -> [ep dim, E_loc, other held dp
+    # dims, p_pods, C, d] -> [held experts, rows, d]
+    held = mesh.local_shape
+    n = len(held)
     lead = [mesh.axis_names.index(ep_axis)] if ep_axis else []
     perm = lead + [n + 1] + [i for i in range(n) if i not in lead] \
         + [n, n + 2, n + 3]
-    grid = recv.reshape(*mesh.shape, p_pods, e_loc, cap, d).permute(perm)
-    tokens = grid.reshape(e, r * cap, d).contiguous()
+    grid = recv.reshape(*held, p_pods, e_loc, cap, d).permute(perm)
+    e_held = e_loc * (held[lead[0]] if lead else 1)
+    tokens = grid.reshape(e_held, -1, d).contiguous()
+    if tokens.shape[0] != p.w_gate.shape[0]:
+        raise ValueError(
+            f"the grid holds {tokens.shape[0]} experts' tokens and the "
+            f"expert stacks {p.w_gate.shape[0]}: a ProcessMesh needs its "
+            f"shard's E_loc = {e_loc} experts (convert.shard_module)")
     y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down, tokens,
                     use_kernel=dist.use_kernel)
     inv = [perm.index(i) for i in range(len(perm))]

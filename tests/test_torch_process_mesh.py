@@ -18,8 +18,9 @@ mesh, one rank each, against the stacked ``LocalMesh`` and the reference's
   last its trash block.
 * ``gather_tensor(shard_tensor(x))`` is ``x`` in every process.
 * A collective that one rank never joins fails the run within the
-  timeout; ``_moe_pod_ep`` (and int8 dispatch with it) raises on a
-  ``ProcessMesh``.
+  timeout; ``_moe_pod_ep`` (and int8 dispatch with it) runs on a
+  ``ProcessMesh`` on each process's shard of the experts and refuses a
+  whole stack where EP gives it ``E_loc``.
 
 Each process is started with the ``spawn`` method and joins through a
 ``file://`` rendezvous under the test's temporary directory.
@@ -178,7 +179,7 @@ def _run_all(mesh, inp: dict, plan) -> dict:
 def _rank_work(mesh, inp, plan):
     """One process: the module's cases on its own rank's inputs, the
     unpack's output blocks of the plan exchange, and the single-axis MoE
-    paths' refusal."""
+    paths on its shard and on the whole stack."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -208,7 +209,7 @@ def _rank_work(mesh, inp, plan):
     layer = moe.MoE(cfg, torch.Generator().manual_seed(0), torch.float32,
                     "cpu")
     x = torch.zeros(2, 4, cfg.d_model)
-    refusals = []
+    refusals, shard_runs = [], []
     for ep, quantized in ((("pod",), False), (("data",), True), (None, False)):
         dist = DistContext(mesh=mesh, dp_axes=("pod", "data"),
                            slow_axis="pod", ep_axes=ep, a2a_impl="flash")
@@ -218,7 +219,16 @@ def _rank_work(mesh, inp, plan):
             refusals.append(None)
         except ValueError as e:
             refusals.append(str(e))
-    out["refusals"] = refusals
+        shard = moe.MoE(cfg, torch.Generator().manual_seed(0),
+                        torch.float32, "cpu")
+        for name in ("w_gate", "w_up", "w_down"):
+            setattr(shard, name, torch.nn.Parameter(shard_tensor(
+                getattr(layer, name).detach(), (ep and ep[0], None, None),
+                mesh).clone()))
+        y, aux = moe.moe_apply(c, shard, x, dist)
+        shard_runs.append(bool(torch.isfinite(y).all())
+                          and tuple(y.shape) == tuple(x.shape))
+    out["refusals"], out["shard_runs"] = refusals, shard_runs
 
     x = torch.arange(8 * 4 * 2, dtype=torch.float32).reshape(8, 4, 2)
     out["round_trips"] = [
@@ -344,9 +354,16 @@ def test_gather_inverts_shard_on_processes(procs):
 
 
 def test_single_axis_moe_refused_on_processes(procs):
+    """The single-axis forms run on processes, each on its shard of the
+    experts (``test_torch_pod_ep_procs.py`` holds them against the
+    reference); a process handed the whole stack where EP gives it
+    ``E_loc`` experts is refused, and with no EP the whole stack is its
+    shard."""
     for r in procs:
-        for msg in r["refusals"]:
+        assert r["shard_runs"] == [True, True, True]
+        for msg in r["refusals"][:2]:
             assert msg is not None and "ProcessMesh" in msg
+        assert r["refusals"][2] is None
 
 
 def test_mismatched_collective_fails_within_the_timeout(tmp_path):
