@@ -216,6 +216,7 @@ of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -294,6 +295,29 @@ SPLIT_LABEL = ("processes sharing one GPU's SMs, exchanging through pinned "
 SPLIT_FORMS = {"data": ((3, 2, 1), ("data",)), "none": ((1, 3, 1), None)}
 FORM_LAYERS, FORM_BATCH, FORM_PROMPT = 1, 12, 128
 SPLIT_TRAIN_BATCH, SPLIT_TRAIN_SEQ, SPLIT_TRAIN_STEPS = 12, 64, 2
+# phase 11: under TP each sum over "model" rounds its bf16 partial products
+# once more than one product does, which flips routers' near ties and
+# greedy near ties as the kernels against plain math do (about 1% of
+# routing decisions a layer, PERF.md).  A bf16 sequence may be routed
+# apart, or pick another greedy token, only where it first differs at an
+# oracle margin (router logits) or gap (vocabulary logits) within
+# TP_BF16_TIE of the row's largest: the bf16 layer tolerance.  The first
+# differences seen reached 9.9e-3 (routing, megatron's 4 layers) and
+# 1.48e-2 (tokens, llama3.2-1b's 16), the oracles' median choices lie at
+# 7.6e-2 and 3.8e-2 (PERF.md); a control at that median must fail
+TP_BF16_TIE = 2e-2
+# phase 11: tensor parallelism over "model" on processes: megatron-moe-32e
+# served (N_LAYERS layers) and trained (TP_TRAIN_LAYERS) on (2, 2, 2),
+# whose DP shape is PROC_MESH's (the oracles'), llama3.2-1b served on
+# (1, 2, 2), its f32 check on DENSE_F32_BATCH prompts
+TP_MESH, TP_DENSE_MESH, TP_TRAIN_LAYERS = (2, 2, 2), (1, 2, 2), 1
+DENSE_ARCH, DENSE_F32_BATCH = "llama3.2-1b", 8
+TP_PATH = "megatron-moe-32e tp procs (2,2,2)"
+TP_DENSE_PATH = "llama3.2-1b tp procs (1,2,2)"
+TP_TRAIN_PATH = "megatron-moe-32e tp train procs (2,2,2)"
+TP_LABEL = ("processes sharing one GPU's SMs, exchanging and summing over "
+            "'model' through pinned host memory over gloo: not a multi-GPU "
+            "time")
 # phase 9's f32 gate: an element whose oracle gradient stays within
 # NOISE_GRAD of its tensor slice's largest, every step, lies at the f32
 # noise floor of the gradient sums (the processes' and the stacked mesh's
@@ -1242,12 +1266,14 @@ def check_variants(run, label, want="tma", a2a=None):
 
 def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
           use_kernel=True, decode=True, warmup=True, record=False,
-          keep_logits=False):
+          keep_logits=False, pick=None):
     """Prefill (a warm-up, then timed) and greedy decode of GEN tokens
     through the serving step builders.  Returns logits, tokens, timings,
     launch counts (counts set to 0 just before the timed prefill and before
     decode), with ``record`` the timed prefill's routing decisions and with
-    ``keep_logits`` every step's logits (the prefill's first)."""
+    ``keep_logits`` every step's logits (the prefill's first).  ``pick``
+    makes a step's tokens of its logits (default: their argmax; under TP
+    ``tp_pick``, the argmax over the vocabulary shards)."""
     from repro_torch.launch.serve import make_prefill_step, make_serve_step
 
     prompt = prompts.shape[1]
@@ -1278,7 +1304,8 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
            else None}
     if not decode:
         return res
-    toks = logits.argmax(-1)
+    pick = pick or (lambda lg: lg.argmax(-1))
+    toks = pick(logits)
     out = [toks]
     kept = [logits]
     reset_launches(kernels)
@@ -1289,7 +1316,7 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         lg, cache = step(params, cache, toks, t)
-        toks = lg.argmax(-1)
+        toks = pick(lg)
         b.record()
         events.append((a, b))
         out.append(toks)
@@ -1308,13 +1335,15 @@ def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
     return res
 
 
-def check_run(torch, run, cfg, batch, label, required, a2a=None):
-    """Shape and finiteness of a run's logits; every kernel of ``required``
+def check_run(torch, run, cfg, batch, label, required, a2a=None,
+              vocab=None):
+    """Shape (``vocab`` columns, default the whole vocabulary) and
+    finiteness of a run's logits; every kernel of ``required``
     launched in its prefill and decode, grouped_matmul on its TMA + wgmma
     instance alone, pack and unpack as ``check_variants`` asks,
     ``flash_attention`` once per layer per prefill and never in decode."""
     for t in (run["logits"], run["last_logits"]):
-        if tuple(t.shape) != (batch, cfg.vocab) or \
+        if tuple(t.shape) != (batch, vocab or cfg.vocab) or \
                 not bool(torch.isfinite(t.float()).all()):
             raise AssertionError(f"{label}: bad logits {tuple(t.shape)}")
     pre, dec = run["prefill_launches"], run["decode_launches"]
@@ -2997,23 +3026,25 @@ def proc_collectives(torch, mesh, inp, plan):
 def first_layer(torch, cfg, params, mesh, plan, prompts):
     """The first attention layer and the first MoE layer (through the plan
     on ``mesh``) on the embedded prompts, with the kernels: (attention,
-    MoE output, the MoE's routing)."""
+    MoE output, the MoE's routing).  On a process mesh with TP over
+    "model", each on this process's slice, summed over "model"."""
     from repro_torch.launch.serve import make_dist_context
     from repro_torch.models.layers import attention_apply, norm_apply
     from repro_torch.models.moe import moe_apply
+    from repro_torch.models.tp import tp_mesh
     from repro_torch.models.transformer import _embed_tokens, _window_args
 
     blk = params.blocks[0]
     b, s = prompts.shape
+    dist = make_dist_context(cfg, mesh, "plan", plan)
     with torch.no_grad():
-        x0 = _embed_tokens(cfg, params, prompts, None)
+        x0 = _embed_tokens(cfg, params, prompts, None, tp_mesh(dist))
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x0.device).expand(b, s)
         window, use_window = _window_args(cfg, False)
         attn = attention_apply(cfg, blk.attn, norm_apply(cfg, blk.norm1, x0),
                                positions=positions, window=window,
-                               use_window=use_window)
-        dist = make_dist_context(cfg, mesh, "plan", plan)
+                               use_window=use_window, tp=tp_mesh(dist))
         with RouteRecorder() as rec:
             y = moe_apply(cfg, blk.moe, norm_apply(cfg, blk.norm2, x0),
                           dist)[0]
@@ -3451,8 +3482,9 @@ def traced_step(torch, run):
     the shares of its host time inside the process mesh's collectives of
     the forward and backward (the MoE exchange and the aux loss's mean,
     their ``procmesh.*`` ranges inside ``train.forward_backward``, the
-    backward's ``.bwd`` ones included) and inside the gradient sync
-    (``train.grad_sync``), host staging included."""
+    backward's ``.bwd`` ones included), inside the sums over "model" of a
+    TP run (its ``procmesh.tp_*`` ranges there) and inside the gradient
+    sync (``train.grad_sync``), host staging included."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3471,9 +3503,13 @@ def traced_step(torch, run):
     inside = [e for e in spans(lambda n: n.startswith("procmesh."))
               if any(r.time_range.start <= e.time_range.start
                      and e.time_range.end <= r.time_range.end for r in fb)]
+    tp = [e for e in inside if e.name.startswith("procmesh.tp_")]
+    inside = [e for e in inside if not e.name.startswith("procmesh.tp_")]
     ex_us = busy_us([(e.time_range.start, e.time_range.end) for e in inside])
+    tp_us = busy_us([(e.time_range.start, e.time_range.end) for e in tp])
     sync_us = sum(e.time_range.elapsed_us() for e in sync)
     return res, {"host_ms": host_us / 1e3, "exchange_share": ex_us / host_us,
+                 "tp_share": tp_us / host_us, "tp_sums": len(tp),
                  "sync_share": sync_us / host_us,
                  "collectives": len(inside),
                  "backward_collectives": sum(e.name.endswith(".bwd")
@@ -3633,9 +3669,24 @@ def grad_stats(torch, mesh, specs, got, want):
     return out
 
 
-def f32_proc_child(mesh, cfg, shards, train, want):
-    """One rank of phase 9 (b): the first step's gradients with ``pmean``'s
-    backward replaced by a local ``1 / n`` (the planted fault, no update),
+@contextlib.contextmanager
+def pmean_local():
+    """Phase 9 (b)'s planted fault: ``pmean``'s backward a local ``1 /
+    n``."""
+    from repro_torch.launch import mesh as M
+
+    real = M._pmean_backward
+    M._pmean_backward = lambda mesh_, g, axes: g / mesh_.axis_size(axes)
+    try:
+        yield
+    finally:
+        M._pmean_backward = real
+
+
+def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local):
+    """One rank of phase 9 (b): the first step's gradients under the
+    planted fault ``plant()`` (default: ``pmean``'s backward a local ``1 /
+    n``; no update),
     then the sound steps through ``train()``; each step's gradients and the
     final parameters against the oracle's slices (``want``, shared from the
     parent through CUDA IPC).  Per parameter: the worst difference of the
@@ -3644,7 +3695,6 @@ def f32_proc_child(mesh, cfg, shards, train, want):
     class, its update skipped (the initial value) and its sign flipped."""
     import torch
 
-    from repro_torch.launch import mesh as M
     from repro_torch.launch.train import (init_train_state, make_train_step,
                                           train_specs)
     from repro_torch.launch.shardings import shard_tensor
@@ -3654,9 +3704,7 @@ def f32_proc_child(mesh, cfg, shards, train, want):
     kernels = proc_kernels()
     specs = train_specs(cfg, mesh)
     module = shards[0]
-    real = M._pmean_backward
-    M._pmean_backward = lambda mesh_, g, axes: g / mesh_.axis_size(axes)
-    try:
+    with plant():
         state = init_train_state(module)
         step = make_train_step(cfg, mesh, proc_train_options(F32_PROC_STEPS),
                                device=DEVICE)
@@ -3665,8 +3713,6 @@ def f32_proc_child(mesh, cfg, shards, train, want):
             step(state, train_batches(cfg, TRAIN_BATCH, F32_TRAIN_SEQ, 1)[0])
         fault = spy.grads[0]
         del state, step, spy
-    finally:
-        M._pmean_backward = real
     free(torch)
     init = {k: p.detach().cpu() for k, p in module.named_parameters()}
     launches = []
@@ -3730,9 +3776,13 @@ def rel_norms(stats):
     return out
 
 
-def train_procs_f32_gate(torch, kernels):
+def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
+                         label="train-procs", plant=pmean_local,
+                         fault_name="pmean's backward a local 1 / n"):
     """Phase 9 (b): 1 layer in f32, TRAIN_BATCH x F32_TRAIN_SEQ tokens,
-    F32_PROC_STEPS steps on the 4 processes against the stacked oracle:
+    F32_PROC_STEPS steps on the processes of ``shape`` (phase 11 (c): with
+    TP over "model", and its own planted fault ``plant``) against the
+    stacked oracle on the same DP shape:
     metrics within a relative 1e-5, every gathered gradient within a
     relative norm of 1e-4, every parameter after the last step within 1e-5
     of its tensor's largest value (those at the gradients' noise floor,
@@ -3746,10 +3796,11 @@ def train_procs_f32_gate(torch, kernels):
                           F32_PROC_STEPS, kernels, keep=True)
     want = {"grads": oracle.pop("grads"), "final": oracle.pop("final")}
     res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
-                      proc_data(cfg, TRAIN_BATCH, F32_TRAIN_SEQ), PROC_MESH,
+                      proc_data(cfg, TRAIN_BATCH, F32_TRAIN_SEQ), shape,
                       PROC_BACKEND, DEVICE,
                       proc_train_options(F32_PROC_STEPS), F32_PROC_STEPS,
-                      hook=functools.partial(f32_proc_child, want=want),
+                      hook=functools.partial(f32_proc_child, want=want,
+                                             plant=plant),
                       timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
     del want
     free(torch)
@@ -3781,13 +3832,15 @@ def train_procs_f32_gate(torch, kernels):
                   for k in o["params"])
     n_elems = sum(o["params"][k]["n"] for o in outs for k in o["params"])
     rate = proc_train_options(F32_PROC_STEPS).peak_lr
-    routes = [torch.cat([o["routes"][i] for o in outs])
+    # one process of each DP rank (model peers route the same rows)
+    routes = [torch.cat([o["routes"][i] for o in outs[::shape[2]]])
               for i in range(len(oracle["routes"]))]
     flips, n_dec, tie = near_tie_flips(torch, oracle["routes"], routes,
                                        oracle["margins"], TRAIN_BATCH)
     launches_equal = all(o["launches"] == oracle["launches"] for o in outs)
-    log(f"train-procs[f32]: 1 layer, {TRAIN_BATCH} x {F32_TRAIN_SEQ} tokens, "
-        f"{F32_PROC_STEPS} steps on 4 processes against the stacked oracle: "
+    log(f"{label}[f32]: 1 layer, {TRAIN_BATCH} x {F32_TRAIN_SEQ} tokens, "
+        f"{F32_PROC_STEPS} steps on {len(outs)} processes {shape} against "
+        f"the stacked oracle: "
         f"metrics max rel diff {metric_err:.3e} (limit 1e-5); gradients, "
         f"relative norm of the gathered whole, worst {worst_grad:.3e} "
         f"(limit 1e-4; step 0's worst {worst_key} "
@@ -3801,31 +3854,31 @@ def train_procs_f32_gate(torch, kernels):
         f"each sequence's first at an oracle margin of at most {tie:.3e} "
         f"(near-tie limit {NEAR_TIE}); launches equal to the oracle's "
         f"{launches_equal}")
-    log("train-procs[f32 noise class]: the worst element outside it, over "
+    log(f"{label}[f32 noise class]: the worst element outside it, over "
         "its tensor's largest, if NOISE_GRAD were " + ", ".join(
             f"{t}: {v:.3e}" for t, v in scan.items()) + " (limit 1e-5)")
     refused = min(skipped, flipped) > NOISE_STEP * rate
-    log(f"train-procs[f32 planted controls]: the noise class's update "
+    log(f"{label}[f32 planted controls]: the noise class's update "
         f"skipped {skipped / rate:.4f} x the rate, its sign flipped "
         f"{flipped / rate:.4f} x: the gate (limit {NOISE_STEP}) "
         f"{'refuses both' if refused else 'PASSES one'}")
-    log(f"train-procs[f32 planted fault]: pmean's backward a local 1 / n: "
+    log(f"{label}[f32 planted fault]: {fault_name}: "
         f"step 0's worst gradient {fault_key} at a relative norm of "
         f"{fault[fault_key]:.3e}: the gate (1e-4) "
         f"{'refuses' if fault[fault_key] > 1e-4 else 'PASSES'} it")
     if not (metric_err <= 1e-5 and worst_grad <= 1e-4 and param_err <= 1e-5
             and noise_err <= NOISE_STEP * rate and tie <= NEAR_TIE
             and launches_equal):
-        raise AssertionError(f"train-procs[f32]: metrics {metric_err}, "
+        raise AssertionError(f"{label}[f32]: metrics {metric_err}, "
                              f"gradients {worst_grad}, parameters "
                              f"{param_err} (at the noise floor {noise_err}), "
                              f"routing tie {tie}, launches equal "
                              f"{launches_equal}")
     if not fault[fault_key] > 1e-4:
-        raise AssertionError("train-procs[f32]: the planted pmean fault "
-                             "passes the gradient gate")
+        raise AssertionError(f"{label}[f32]: the planted fault "
+                             f"({fault_name}) passes the gradient gate")
     if not refused:
-        raise AssertionError(f"train-procs[f32]: a planted control on the "
+        raise AssertionError(f"{label}[f32]: a planted control on the "
                              f"noise class's update passes the parameter "
                              f"gate (skipped {skipped}, flipped {flipped})")
     return {"metric_err": metric_err, "grad_err": worst_grad,
@@ -4805,6 +4858,734 @@ def phase_split(torch, kernels):
     return launches, train, summary
 
 
+# -- 11. tensor parallelism over "model" on one process per rank ---------------
+
+def tp_pick(cfg, mesh, impl, plan):
+    """A step's greedy tokens under TP: the argmax over every process's
+    vocabulary shard (``transformer.greedy_tokens``)."""
+    from repro_torch.launch.serve import make_dist_context
+    from repro_torch.models.transformer import greedy_tokens
+
+    dist = make_dist_context(cfg, mesh, impl, plan)
+    return lambda logits: greedy_tokens(cfg, logits, dist)
+
+
+def dense_config():
+    """llama3.2-1b at its published config (16 layers)."""
+    from repro_torch.configs import get_config
+
+    return get_config(DENSE_ARCH)
+
+
+class StreamRecorder:
+    """While active, the digest of the residual stream after each layer of
+    a prefill (``transformer._block_prefill``'s output)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import transformer
+        self.torch, self.mod, self.digests = torch, transformer, []
+
+    def __enter__(self):
+        self.real = self.mod._block_prefill
+
+        def spy(*args, **kw):
+            out = self.real(*args, **kw)
+            self.digests.append(digest(self.torch, out[0]))
+            return out
+        self.mod._block_prefill = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._block_prefill = self.real
+
+
+def tp_shares(torch, prefill, params, batch):
+    """One prefill under torch.profiler (host activity): the shares of its
+    host time inside the exchanges (the ``procmesh.*`` ranges but the TP
+    sums) and inside the sums over "model" (``procmesh.tp_*``), host
+    staging included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) * 1e6
+    spans = [e for e in prof.events() if e.name.startswith("procmesh.")]
+    tp = [e for e in spans if e.name.startswith("procmesh.tp_")]
+    ex = [e for e in spans if not e.name.startswith("procmesh.tp_")]
+
+    def busy(events):
+        return busy_us([(e.time_range.start, e.time_range.end)
+                        for e in events])
+
+    return {"host_ms": host_us / 1e3, "exchange_share": busy(ex) / host_us,
+            "tp_share": busy(tp) / host_us, "exchanges": len(ex),
+            "tp_sums": len(tp)}
+
+
+def dp_index(coords, shape):
+    """A process's DP rank: its (pod, data) coordinates, row-major."""
+    return coords[0] * shape[1] + coords[1]
+
+
+def by_dp(outs, shape, get):
+    """``get(o)`` of each DP rank's process at model coordinate 0, joined
+    in DP order."""
+    import torch
+
+    firsts = sorted((o for o in outs if o["coords"][2] == 0),
+                    key=lambda o: dp_index(o["coords"], shape))
+    return torch.cat([get(o) for o in firsts])
+
+
+def assemble(outs, shape, get, dim):
+    """``get(o)`` of every process put together: model peers' slices
+    joined along ``dim``, then the DP ranks' along 0."""
+    import torch
+
+    groups = {}
+    for o in outs:
+        groups.setdefault(dp_index(o["coords"], shape), []).append(o)
+    return torch.cat([torch.cat([get(o) for o in sorted(
+        g, key=lambda o: o["coords"][2])], dim=dim)
+        for _, g in sorted(groups.items())])
+
+
+def check_peers(outs, get, label, what):
+    """``get(o)`` equal (``==``) on every model peer of each DP rank."""
+    groups = {}
+    for o in outs:
+        groups.setdefault(tuple(o["coords"][:2]), []).append(get(o))
+    for key, vals in groups.items():
+        if any(v != vals[0] for v in vals[1:]):
+            raise AssertionError(f"{label}: {what} differs between the "
+                                 f"model peers of DP rank {key}")
+
+
+def tp_child(mesh, cfg32, shards, rows, serve_cli, plan):
+    """One rank of phase 11 (a), the per-rank hook of ``serve_procs``: the
+    f32 serve of its shard (``serve_procs``' own: prefill and 15 greedy
+    steps gathered over the DP axes and "model") with its routing
+    recorded; the bf16 serving run; a prefill with the residual stream's
+    digest after every layer; the exchange's and the TP sums' shares of a
+    traced prefill; the first MoE layer on the identical input; the first
+    attention and MoE layers.  Returns host tensors and digests."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.convert import recast
+    from repro_torch.launch.serve import make_prefill_step
+
+    kernels = proc_kernels()
+    cfg = serve_config()
+    out = {"rank": mesh.rank, "coords": mesh.rank_coords, "used_gb": {},
+           "shard_gb": param_gb(shards[0]),
+           "experts": tuple(shards[0].blocks[0].moe.w_gate.shape)}
+    out["used_gb"]["after the parent's drop"] = card_used_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with RouteRecorder() as rec:         # the prefill's, then each step's
+        serve_cli()
+    out["f32_routes"] = [e.cpu() for e in rec.eids[:len(rec.eids) // GEN]]
+
+    shard = recast(shards.pop(), cfg)
+    free(torch)
+    run = serve(torch, cfg, shard, mesh, "plan", plan, rows, kernels,
+                record=True, pick=tp_pick(cfg, mesh, "plan", plan))
+    out["used_gb"]["serving"] = card_used_gb(torch)
+    out["serve"] = {k: run[k] for k in (
+        "prefill_s", "decode_s", "decode_steps", "step_ms_median",
+        "step_ms_max", "prefill_launches", "decode_launches",
+        "prefill_variants", "decode_variants")}
+    out["serve"].update(logits=run["logits"].cpu(),
+                        last_logits=run["last_logits"].cpu(),
+                        tokens=run["tokens"].cpu(),
+                        routes=[e.cpu() for e in run["routes"]])
+    del run
+    prefill = make_prefill_step(cfg, mesh, "plan", plan,
+                                cache_len=PROMPT + GEN, device=DEVICE)
+    with torch.no_grad(), StreamRecorder(torch) as st:
+        prefill(shard, {"tokens": rows})
+    out["stream"] = st.digests
+    out["shares"] = tp_shares(torch, prefill, shard, {"tokens": rows})
+
+    b = rows.shape[0]
+    dp = dp_index(mesh.rank_coords, TP_MESH)
+    x = moe_input(torch, cfg, PROC_BATCH, PROMPT, torch.bfloat16)[
+        dp * b:(dp + 1) * b]
+    isl = island_runs(torch, cfg, shard.blocks[0].moe, x, mesh, plan,
+                      {"plan": ("plan", False)})["plan"]
+    out["island"] = {"grid": digest(torch, isl["grid"]),
+                     "grid_shape": tuple(isl["grid"].shape),
+                     "eids": isl["eids"].cpu(), "y": isl["y"].cpu(),
+                     "y_digest": digest(torch, isl["y"])}
+    del isl, x
+    attn, y, eids = first_layer(torch, cfg, shard, mesh, plan, rows)
+    out["first_layer"] = (attn.cpu(), y.cpu(), eids.cpu())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_report(outs, summary, label):
+    """Each process's serving numbers and the card's memory, logged and
+    kept in ``summary``."""
+    card = dict(summary["used_gb"])
+    for o in outs:
+        for k, v in o["used_gb"].items():
+            card[f"{k} (rank {o['rank']})"] = v
+        sv, sh = o["serve"], o["shares"]
+        log(f"{label}[rank {o['rank']} {tuple(o['coords'])}]: prefill "
+            f"{sv['prefill_s'] * 1e3:.3f} ms; decode "
+            f"{sv['decode_s'] / sv['decode_steps'] * 1e3:.3f} ms/step host "
+            f"mean, {sv['step_ms_median']:.3f} ms device median over "
+            f"{sv['decode_steps']} steps; traced prefill "
+            f"{sh['host_ms']:.3f} ms: exchange share "
+            f"{sh['exchange_share']:.4f} ({sh['exchanges']} collectives), "
+            f"sums over 'model' {sh['tp_share']:.4f} ({sh['tp_sums']} "
+            f"sums), host staging included; peak {o['peak_gb']:.2f} GB "
+            f"(f32 shard {o['shard_gb']:.2f} GB); {TP_LABEL}")
+    summary["used_gb"] = card
+    summary["card_peak_gb_seen"] = max(card.values())
+    summary["ranks"] = [{
+        "rank": o["rank"], "coords": list(o["coords"]),
+        "prefill_ms": o["serve"]["prefill_s"] * 1e3,
+        "decode_ms_per_step": o["serve"]["decode_s"]
+        / o["serve"]["decode_steps"] * 1e3,
+        "decode_device_ms_median": o["serve"]["step_ms_median"],
+        "peak_gb": o["peak_gb"], **o["shares"]} for o in outs]
+    log(f"{label}: memory in use on the card (GB): "
+        f"{json.dumps({k: round(v, 2) for k, v in card.items()})}; the most "
+        f"seen {summary['card_peak_gb_seen']:.2f} GB")
+
+
+def check_tp_launches(outs, want, label):
+    """Every process launched each kernel as often as the oracle in its
+    prefill and decode."""
+    for o in outs:
+        for part in ("prefill", "decode"):
+            got = o["serve"][f"{part}_launches"]
+            if got != want[part]:
+                raise AssertionError(f"{label}: rank {o['rank']} launched "
+                                     f"{got} in the {part}; the oracle "
+                                     f"{want[part]}")
+
+
+def phase_tp_serve(torch, kernels):
+    """Phase 11 (a): megatron-moe-32e on 8 processes of (pod 2, data 2,
+    model 2), against ``LocalMesh((2, 2, 1))`` (the same DP shape, whole
+    weights).  Returns rank 0's launch counts and a summary."""
+    from repro_torch.convert import recast
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import flash_plan, serve_procs
+
+    cfg = serve_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    local = make_mesh(PROC_MESH, AXES, torch.device(DEVICE))
+    plan = flash_plan(TP_MESH[0], TP_MESH[1], SEED)
+    prompts = stack_prompts(torch, cfg, PROC_BATCH, PROMPT)
+    n, tp = ranks_of(TP_MESH), TP_MESH[2]
+    label = "tp[a]"
+    log(f"{label}: {cfg.name} layers={cfg.n_layers}/24 at its published "
+        f"widths on a {TP_MESH} mesh of {n} processes ({PROC_BACKEND}): "
+        f"{cfg.n_heads // tp} of {cfg.n_heads} heads, "
+        f"{cfg.moe.num_experts // 4} experts of [{cfg.d_model}, "
+        f"{cfg.d_ff // tp}] and {cfg.vocab // tp} of {cfg.vocab} vocabulary "
+        f"rows a process; {PROC_BATCH} prompts of {PROMPT} tokens "
+        f"({PROC_BATCH // 4} a DP rank, on each of its {tp} model peers) "
+        f"and {GEN - 1} decode steps; {TP_LABEL}")
+    summary = {"label": TP_LABEL, "used_gb": {}}
+
+    torch.cuda.reset_peak_memory_stats()
+    params32 = stack_params(torch, cfg32)
+    loc32 = serve(torch, cfg32, params32, local, "plan", plan, prompts,
+                  kernels, warmup=False, record="margins")
+    params = recast(params32, cfg)
+    loc = serve(torch, cfg, params, local, "plan", plan, prompts, kernels,
+                record="margins", keep_logits=True)
+    check_run(torch, loc, cfg, PROC_BATCH, f"{label}[local oracle]",
+              SERVE_KERNELS, MEGATRON_A2A)
+    summary["oracle"] = {"prefill_ms": loc["prefill_s"] * 1e3,
+                         "decode_ms_per_step": loc["decode_s"]
+                         / loc["decode_steps"] * 1e3}
+    loc_first = first_layer(torch, cfg, params, local, plan, prompts)
+    x = moe_input(torch, cfg, PROC_BATCH, PROMPT, torch.bfloat16)
+    isl = island_runs(torch, cfg, params.blocks[0].moe, x, local, plan,
+                      {"plan": ("plan", False)})["plan"]
+    e_loc = cfg.moe.num_experts // 4
+    b = PROC_BATCH // 4
+    want = [{"grid": digest(torch, isl["grid"][r * e_loc:(r + 1) * e_loc]),
+             "eids": isl["eids"][r:r + 1].cpu(),
+             "y": isl["y"][r * b:(r + 1) * b].cpu()} for r in range(4)]
+    del isl, x, params
+    free(torch)
+    summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
+
+    holder = [params32]
+    del params32
+    t0 = time.perf_counter()
+    res = serve_procs(cfg32, holder, prompts, TP_MESH, PROC_BACKEND, DEVICE,
+                      "plan", plan, GEN,
+                      hook=functools.partial(tp_child, plan=plan),
+                      timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    summary["processes_s"] = time.perf_counter() - t0
+    summary["used_gb"].update(res.get("card_used_gb", {}))
+    outs = res["ranks"]
+    shapes = {o["experts"] for o in outs}
+    if shapes != {(e_loc, cfg.d_model, cfg.d_ff // tp)}:
+        raise AssertionError(f"{label}: expert stacks {shapes}")
+
+    # identical MoE input: routing and grid bit for bit the stacked slice's
+    for o in outs:
+        w, isl = want[dp_index(o["coords"], TP_MESH)], o["island"]
+        if not (bool(torch.equal(isl["eids"], w["eids"]))
+                and isl["grid"] == w["grid"]):
+            raise AssertionError(f"{label}: rank {o['rank']}'s routing or "
+                                 f"token grid {isl['grid_shape']} differs "
+                                 f"from its slice of the stacked run's")
+    check_peers(outs, lambda o: o["island"]["y_digest"], label,
+                "the MoE layer's output on the identical input")
+    y_err = max(rel_err(torch, o["island"]["y"].float(),
+                        want[dp_index(o["coords"], TP_MESH)]["y"].float())
+                for o in outs)
+    check_peers(outs, lambda o: o["stream"], label,
+                "the residual stream's digest after a layer")
+    log(f"{label}[identical MoE input, bf16]: every process's routing and "
+        f"token grid {outs[0]['island']['grid_shape']} (the forward "
+        f"exchange's output, transposed) bit-identical to its slice of the "
+        f"stacked run's; the layer's output bit-identical on model peers "
+        f"and within {y_err:.3e} of the stacked output (the sum over "
+        f"'model' of two F/2 halves); the residual stream after each of the "
+        f"{cfg.n_layers} layers bit-identical on model peers")
+    if not y_err < 2e-2:
+        raise AssertionError(f"{label}: MoE output on identical input "
+                             f"{y_err}")
+
+    # f32: serve_procs' gather against the oracle
+    err32 = rel_err(torch, res["logits"][0], loc32["logits"].cpu())
+    routes32 = [by_dp(outs, TP_MESH, lambda o: o["f32_routes"][i])
+                for i in range(len(loc32["routes"]))]
+    flips32, n_dec, tie = near_tie_flips(torch, loc32["routes"], routes32,
+                                         loc32["margins"], PROC_BATCH)
+    same32 = bool(torch.equal(res["tokens"], loc32["tokens"].cpu()))
+    log(f"{label}[f32]: serve_procs' prefill logits gathered over the DP "
+        f"axes and 'model', max rel diff {err32:.3e} against LocalMesh "
+        f"(limit 1e-4); {flips32} of {n_dec} routing decisions differ, each "
+        f"sequence's first at an oracle margin of at most {tie:.3e} "
+        f"(near-tie limit {NEAR_TIE}); greedy tokens (the argmax over the "
+        f"vocabulary shards) of the prefill and {GEN - 1} steps equal "
+        f"{same32}")
+    if not (err32 < 1e-4 and tie <= NEAR_TIE and same32):
+        raise AssertionError(f"{label}: f32 prefill {err32}, routing tie "
+                             f"{tie}, tokens equal {same32}")
+    summary["f32"] = {"max_rel_diff": err32, "routing_differs": flips32,
+                      "first_difference_margin": tie, "tokens_equal": same32}
+
+    # bf16: launches, routing and tokens
+    want_l = run_counts(loc)
+    check_tp_launches(outs, want_l, label)
+    for o in outs:
+        check_run(torch, o["serve"], cfg, b, f"{label}[rank {o['rank']}]",
+                  SERVE_KERNELS, MEGATRON_A2A, vocab=cfg.vocab // tp)
+    check_peers(outs, lambda o: o["serve"]["tokens"].tolist(), label,
+                "the greedy tokens")
+    logits = assemble(outs, TP_MESH, lambda o: o["serve"]["logits"], -1)
+    tokens = by_dp(outs, TP_MESH, lambda o: o["serve"]["tokens"])
+    routes = [by_dp(outs, TP_MESH, lambda o: o["serve"]["routes"][i])
+              for i in range(len(loc["routes"]))]
+    oracle_routes = [e.cpu() for e in loc["routes"]]
+    n_flip, n_dec, per_layer, per_seq = route_flips(
+        torch, oracle_routes, routes, PROC_BATCH)
+    _, _, tie = near_tie_flips(torch, oracle_routes, routes, loc["margins"],
+                               PROC_BATCH)
+    gaps = token_tie_gaps(torch, loc, tokens, per_seq)
+    # the control: one oracle decision at the median margin sent elsewhere
+    margins = torch.cat([m.cpu().reshape(-1) for m in loc["margins"]])
+    planted = [e.clone() for e in oracle_routes]
+    flat = planted[0].reshape(-1, planted[0].shape[-1])
+    at = int(loc["margins"][0].cpu().reshape(-1).argsort()[
+        flat.shape[0] // 2])
+    flat[at, 0] = flat[at, 0] ^ 1
+    control = near_tie_flips(torch, oracle_routes, planted, loc["margins"],
+                             PROC_BATCH)[2]
+    within = int((margins <= TP_BF16_TIE).sum())
+    summary["bf16"] = {
+        "max_rel_diff": rel_err(torch, logits, loc["logits"].cpu()),
+        "routing_differs": n_flip, "first_difference_margin": tie,
+        "sequences_routed_apart": int(per_seq.sum()),
+        "sequences_same_tokens": int((tokens == loc["tokens"].cpu())
+                                     .all(-1).sum()),
+        "routed_alike_token_gaps": gaps,
+        "decisions_within_route_tie": within,
+        "planted_control_margin": control}
+    log(f"{label}[bf16]: every process launched each kernel as often as the "
+        f"oracle (prefill {want_l['prefill']}, decode {want_l['decode']}), "
+        f"grouped_matmul on TMA alone at [{e_loc}, rows, {cfg.d_model}] @ "
+        f"[{e_loc}, {cfg.d_model}, {cfg.d_ff // tp}], pack and unpack on "
+        f"{sorted(MEGATRON_A2A['prefill'])}; prefill logits max rel diff "
+        f"{summary['bf16']['max_rel_diff']:.3e}; routing differs in {n_flip} "
+        f"of {n_dec} decisions (per layer {per_layer}), in "
+        f"{int(per_seq.sum())} of {PROC_BATCH} sequences (reported: the "
+        f"sums over 'model' round bf16 otherwise than one product), each "
+        f"sequence's first at an oracle margin of at most {tie:.3e} (limit "
+        f"{TP_BF16_TIE}; {within} of {margins.numel()} oracle decisions "
+        f"lie within it; one decision planted at the median margin reads "
+        f"{control:.3e}); greedy tokens equal in "
+        f"{summary['bf16']['sequences_same_tokens']} of {PROC_BATCH}; each "
+        f"sequence routed alike whose tokens differ (sequence, step, oracle "
+        f"gap): {gaps} (limit {BF16_TOKEN_TIE})")
+    if not (tie <= TP_BF16_TIE
+            and all(g <= BF16_TOKEN_TIE for _, _, g in gaps)):
+        raise AssertionError(f"{label}: bf16 routing's first differences at "
+                             f"margins up to {tie}; token gaps {gaps}")
+    if not control > TP_BF16_TIE:
+        raise AssertionError(f"{label}: a decision planted at the median "
+                             f"margin ({control}) passes the routing gate")
+
+    errs, route_eq = [], []
+    for o in outs:
+        dp = dp_index(o["coords"], TP_MESH)
+        rows = slice(dp * b, (dp + 1) * b)
+        attn, y, eids = o["first_layer"]
+        errs.append((rel_err(torch, attn, loc_first[0][rows].cpu()),
+                     rel_err(torch, y, loc_first[1][rows].cpu())))
+        route_eq.append(bool(torch.equal(eids[0], loc_first[2][dp].cpu())))
+    worst = tuple(max(e[i] for e in errs) for i in range(2))
+    log(f"{label}[first layer, bf16, identical inputs]: attention max rel "
+        f"diff {worst[0]:.3e}, MoE {worst[1]:.3e} against LocalMesh (limit "
+        f"2e-2); routing equal {all(route_eq)}")
+    if not (worst[0] < 2e-2 and worst[1] < 2e-2 and all(route_eq)):
+        raise AssertionError(f"{label}: first layer {worst}, routing equal "
+                             f"{route_eq}")
+    summary["first_layer"] = {"attention": worst[0], "moe": worst[1]}
+    summary["moe_identical_input_rel_diff"] = y_err
+    tp_report(outs, summary, label)
+    r0 = next(o for o in outs if o["rank"] == 0)
+    return {"prefill": r0["serve"]["prefill_launches"],
+            "decode": r0["serve"]["decode_launches"]}, summary
+
+
+def dense_child(mesh, cfg32, shards, rows, serve_cli):
+    """One rank of phase 11 (b): the f32 serve of its shard
+    (``serve_procs``' own) and its f32 decode cache; then bf16 serving of
+    its rows of the PROC_BATCH prompts, a prefill with the residual
+    stream's digests and a traced prefill."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.convert import recast
+    from repro_torch.launch.serve import make_prefill_step
+
+    kernels = proc_kernels()
+    cfg = dense_config()
+    out = {"rank": mesh.rank, "coords": mesh.rank_coords, "used_gb": {},
+           "shard_gb": param_gb(shards[0]),
+           "kv_heads": shards[0].blocks[0].attn.wk.shape[-1]
+           // cfg.resolved_head_dim}
+    out["used_gb"]["after the parent's drop"] = card_used_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    serve_cli()
+    pre32 = make_prefill_step(cfg32, mesh, None, None,
+                              cache_len=PROMPT + GEN, device=DEVICE)
+    _, cache = pre32(shards[0], {"tokens": rows})
+    out["cache"] = [(c["k"].cpu(), c["v"].cpu()) for c in cache]
+    del cache
+    shard = recast(shards.pop(), cfg)
+    free(torch)
+    dp = dp_index(mesh.rank_coords, TP_DENSE_MESH)
+    b = PROC_BATCH // TP_DENSE_MESH[1]
+    prompts = stack_prompts(torch, cfg, PROC_BATCH, PROMPT)[
+        dp * b:(dp + 1) * b]
+    run = serve(torch, cfg, shard, mesh, None, None, prompts, kernels,
+                pick=tp_pick(cfg, mesh, None, None))
+    out["used_gb"]["serving"] = card_used_gb(torch)
+    out["serve"] = {k: run[k] for k in (
+        "prefill_s", "decode_s", "decode_steps", "step_ms_median",
+        "step_ms_max", "prefill_launches", "decode_launches")}
+    out["serve"].update(logits=run["logits"].cpu(),
+                        last_logits=run["last_logits"].cpu(),
+                        tokens=run["tokens"].cpu())
+    del run
+    prefill = make_prefill_step(cfg, mesh, None, None,
+                                cache_len=PROMPT + GEN, device=DEVICE)
+    with torch.no_grad(), StreamRecorder(torch) as st:
+        prefill(shard, {"tokens": prompts})
+    out["stream"] = st.digests
+    out["shares"] = tp_shares(torch, prefill, shard, {"tokens": prompts})
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_tp_dense(torch, kernels):
+    """Phase 11 (b): llama3.2-1b (all 16 layers) on 4 processes of (1, 2,
+    2), against ``LocalMesh((1, 2, 1))``.  Returns rank 0's launch counts
+    and a summary."""
+    from repro_torch.convert import recast
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_prefill_step, serve_procs
+
+    cfg = dense_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    local = make_mesh(TP_DENSE_MESH[:2] + (1,), AXES, torch.device(DEVICE))
+    n, tp = ranks_of(TP_DENSE_MESH), TP_DENSE_MESH[2]
+    label = "tp[b]"
+    log(f"{label}: {cfg.name} layers={cfg.n_layers} at its published "
+        f"config on a {TP_DENSE_MESH} mesh of {n} processes "
+        f"({PROC_BACKEND}): {cfg.n_heads // tp} of {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads // tp} of {cfg.n_kv_heads} kv heads, FFN "
+        f"{cfg.d_ff // tp} of {cfg.d_ff}, the tied embedding and head "
+        f"{cfg.vocab // tp} of {cfg.vocab} rows a process; bf16 on "
+        f"{PROC_BATCH} prompts of {PROMPT} tokens and {GEN - 1} decode "
+        f"steps, f32 on {DENSE_F32_BATCH}; {TP_LABEL}")
+    summary = {"label": TP_LABEL, "used_gb": {}}
+    params32 = stack_params(torch, cfg32)
+    short = stack_prompts(torch, cfg, DENSE_F32_BATCH, PROMPT)
+    loc32 = serve(torch, cfg32, params32, local, None, None, short, kernels,
+                  warmup=False)
+    pre32 = make_prefill_step(cfg32, local, None, None,
+                              cache_len=PROMPT + GEN, device=DEVICE)
+    with torch.no_grad():
+        _, cache = pre32(params32, {"tokens": short})
+    want_cache = [(c["k"].cpu(), c["v"].cpu()) for c in cache]
+    del cache
+    params = recast(params32, cfg)
+    prompts = stack_prompts(torch, cfg, PROC_BATCH, PROMPT)
+    loc = serve(torch, cfg, params, local, None, None, prompts, kernels,
+                keep_logits=True)
+    check_stack_run(torch, loc, cfg, PROC_BATCH, f"{label}[local oracle]",
+                    cfg.n_layers)
+    summary["oracle"] = {"prefill_ms": loc["prefill_s"] * 1e3,
+                         "decode_ms_per_step": loc["decode_s"]
+                         / loc["decode_steps"] * 1e3}
+    del params
+    free(torch)
+    summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
+    holder = [params32]
+    del params32
+    t0 = time.perf_counter()
+    res = serve_procs(cfg32, holder, short, TP_DENSE_MESH, PROC_BACKEND,
+                      DEVICE, None, None, GEN, hook=dense_child,
+                      timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    summary["processes_s"] = time.perf_counter() - t0
+    summary["used_gb"].update(res.get("card_used_gb", {}))
+    outs = res["ranks"]
+    if {o["kv_heads"] for o in outs} != {cfg.n_kv_heads // tp}:
+        raise AssertionError(f"{label}: kv heads a process "
+                             f"{[o['kv_heads'] for o in outs]}")
+
+    err32 = rel_err(torch, res["logits"][0], loc32["logits"].cpu())
+    same32 = bool(torch.equal(res["tokens"], loc32["tokens"].cpu()))
+    cache_err = 0.0
+    for i, (k, v) in enumerate(want_cache):
+        for j, w in enumerate((k, v)):
+            got = assemble(outs, TP_DENSE_MESH, lambda o: o["cache"][i][j],
+                           2)
+            if got.shape != w.shape:
+                raise AssertionError(f"{label}: layer {i}'s cache gathered "
+                                     f"{tuple(got.shape)}, the oracle's "
+                                     f"{tuple(w.shape)}")
+            cache_err = max(cache_err, rel_err(torch, got, w))
+    log(f"{label}[f32]: serve_procs' prefill logits gathered over 'data' "
+        f"and 'model', max rel diff {err32:.3e} against LocalMesh (limit "
+        f"1e-4); greedy tokens of the prefill and {GEN - 1} steps equal "
+        f"{same32}; each process's decode cache ({cfg.n_kv_heads // tp} kv "
+        f"heads), gathered by rows and heads, within {cache_err:.3e} of the "
+        f"oracle's (limit 1e-5)")
+    if not (err32 < 1e-4 and same32 and cache_err <= 1e-5):
+        raise AssertionError(f"{label}: f32 {err32}, tokens equal {same32}, "
+                             f"cache {cache_err}")
+    summary["f32"] = {"max_rel_diff": err32, "tokens_equal": same32,
+                      "cache_rel_diff": cache_err}
+
+    want_l = run_counts(loc)
+    check_tp_launches(outs, want_l, label)
+    b = PROC_BATCH // TP_DENSE_MESH[1]
+    for o in outs:
+        for t in (o["serve"]["logits"], o["serve"]["last_logits"]):
+            if tuple(t.shape) != (b, cfg.vocab // tp) or \
+                    not bool(torch.isfinite(t.float()).all()):
+                raise AssertionError(f"{label}: rank {o['rank']}'s logits "
+                                     f"{tuple(t.shape)}")
+    check_peers(outs, lambda o: o["serve"]["tokens"].tolist(), label,
+                "the greedy tokens")
+    check_peers(outs, lambda o: o["stream"], label,
+                "the residual stream's digest after a layer")
+    logits = assemble(outs, TP_DENSE_MESH, lambda o: o["serve"]["logits"],
+                      -1)
+    tokens = by_dp(outs, TP_DENSE_MESH, lambda o: o["serve"]["tokens"])
+    gaps = token_tie_gaps(torch, loc, tokens,
+                          torch.zeros(PROC_BATCH, dtype=torch.bool))
+    # how near a tie the oracle's greedy choices are: the gate's reach, and
+    # a control at their median that it must refuse
+    top = torch.stack([lg.float().topk(2, dim=-1).values
+                       for lg in loc["step_logits"]])
+    oracle_gaps = ((top[..., 0] - top[..., 1])
+                   / torch.stack([lg.float().abs().amax(-1)
+                                  for lg in loc["step_logits"]])).reshape(-1)
+    within = int((oracle_gaps <= TP_BF16_TIE).sum())
+    control = float(oracle_gaps.median())
+    summary["bf16"] = {
+        "max_rel_diff": rel_err(torch, logits, loc["logits"].cpu()),
+        "sequences_same_tokens": int((tokens == loc["tokens"].cpu())
+                                     .all(-1).sum()),
+        "token_gaps": gaps, "oracle_choices_within_tie": within,
+        "median_oracle_gap": control}
+    log(f"{label}[bf16]: every process launched flash_attention "
+        f"{want_l['prefill']['flash_attention']} times in the prefill and "
+        f"nothing else, as the oracle; the residual stream after each of "
+        f"the {cfg.n_layers} layers bit-identical on model peers; prefill "
+        f"logits max rel diff {summary['bf16']['max_rel_diff']:.3e}; greedy "
+        f"tokens equal in {summary['bf16']['sequences_same_tokens']} of "
+        f"{PROC_BATCH}; each sequence whose tokens differ (sequence, step, "
+        f"oracle gap): {gaps} (limit {TP_BF16_TIE}; {within} of "
+        f"{oracle_gaps.numel()} oracle choices lie within it, their median "
+        f"gap {control:.3e})")
+    if not all(g <= TP_BF16_TIE for _, _, g in gaps):
+        raise AssertionError(f"{label}: bf16 token gaps {gaps}")
+    if not control > TP_BF16_TIE:
+        raise AssertionError(f"{label}: a token at the oracle's median gap "
+                             f"({control}) passes the token gate")
+    tp_report(outs, summary, label)
+    r0 = next(o for o in outs if o["rank"] == 0)
+    return {"prefill": r0["serve"]["prefill_launches"],
+            "decode": r0["serve"]["decode_launches"]}, summary
+
+
+def tp_train_child(mesh, cfg, shards, train):
+    """One rank of phase 11 (c): ``train_proc_child``'s loop, each step's
+    gradients of the leaves replicated over "model" kept as digests."""
+    import torch
+
+    from repro_torch.launch.shardings import sharded_axes
+    from repro_torch.launch.train import train_specs
+
+    specs = train_specs(cfg, mesh)
+    whole = [k for k, spec in specs.items()
+             if "model" not in sharded_axes(mesh, spec)]
+    with GradSpy(on_grads=lambda i, g: {k: digest(torch, g[k])
+                                        for k in whole}) as spy:
+        out = train_proc_child(mesh, cfg, shards, train)
+    out.update(coords=mesh.rank_coords, replicated=spy.grads)
+    return out
+
+
+@contextlib.contextmanager
+def copy_on_x():
+    """Phase 11 (c)'s planted fault: the copy into the TP region on the
+    MoE's input ``x`` instead of its token grid (the grid still summed over
+    "model"), which adds the router's share of ``dx`` once a model peer."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.tp import copy_in, sum_out, tp_mesh
+
+    real_apply, real_ffn = transformer.moe_apply, moe._expert_ffn
+
+    def apply(cfg, p, x, dist=None, **kw):
+        return real_apply(cfg, p, copy_in(tp_mesh(dist), x), dist, **kw)
+
+    def ffn(cfg, w_gate, w_up, w_down, tokens, counts=None, use_kernel=True,
+            tp=None):
+        return sum_out(tp, real_ffn(cfg, w_gate, w_up, w_down, tokens,
+                                    counts, use_kernel))
+
+    transformer.moe_apply, moe._expert_ffn = apply, ffn
+    try:
+        yield
+    finally:
+        transformer.moe_apply, moe._expert_ffn = real_apply, real_ffn
+
+
+def phase_tp_train(torch, kernels):
+    """Phase 11 (c): megatron-moe-32e (TP_TRAIN_LAYERS layer) trained on 8
+    processes of (2, 2, 2) through ``train_procs`` against the stacked
+    oracle on (2, 2, 1); then the f32 gate with the planted copy on ``x``.
+    Returns rank 0's launches over its steps and a summary."""
+    from repro_torch.launch.train import train_procs
+
+    cfg = train_config(n_layers=TP_TRAIN_LAYERS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    label = "tp[c]"
+    log(f"{label}: {cfg.name} layers={cfg.n_layers}/24 at its published "
+        f"widths on a {TP_MESH} mesh of {ranks_of(TP_MESH)} processes "
+        f"({PROC_BACKEND}) through train_procs; {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens a step, {TRAIN_PROC_STEPS} AdamW steps; {TP_LABEL}")
+    oracle = local_oracle(torch, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                          TRAIN_PROC_STEPS, kernels)
+    summary = {"label": TP_LABEL, "oracle": {
+        "step_ms": oracle["step_ms"], "peak_gb": oracle["peak_gb"]}}
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
+                      proc_data(cfg, TRAIN_BATCH, TRAIN_SEQ), TP_MESH,
+                      PROC_BACKEND, DEVICE,
+                      proc_train_options(TRAIN_PROC_STEPS), TRAIN_PROC_STEPS,
+                      hook=tp_train_child, timeout=PROC_TIMEOUT_S,
+                      join_timeout=PROC_JOIN_S)
+    summary["processes_s"] = time.perf_counter() - t0
+    outs = res["ranks"]
+    check_proc_launches(outs, oracle, cfg.n_layers, label)
+    check_peers(outs, lambda o: o["replicated"], label,
+                "a gradient of a leaf replicated over 'model'")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(res["metrics"], oracle["metrics"])]
+    n_whole = len(outs[0]["replicated"][0])
+    log(f"{label}: every process launched each kernel as often as the "
+        f"oracle each step ({oracle['launches'][0]}); the gradients of the "
+        f"{n_whole} leaves replicated over 'model' bit-identical on model "
+        f"peers every step; step losses "
+        f"{[round(m['loss'], 6) for m in res['metrics']]} against the "
+        f"oracle's, relative differences {[f'{d:.3e}' for d in diffs]} "
+        f"(limit 2e-2)")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"{label}: step losses against the oracle "
+                             f"{diffs}")
+    summary.update(loss_diffs=diffs, card_used_gb=res.get("card_used_gb",
+                                                          {}), ranks=[])
+    for o in outs:
+        ms = o["train"]["step_ms"]
+        r = {"rank": o["rank"], "coords": list(o["coords"]), "step_ms": ms,
+             "tokens_per_s": tokens / 4 / ms[1] * 1e3,
+             "peak_gb": o["peak_gb"], "card_gb": max(o["card_gb"]),
+             "shard_gb": o["shard_gb"], **o["trace"]}
+        summary["ranks"].append(r)
+        log(f"{label}[rank {o['rank']} {tuple(o['coords'])}]: step ms "
+            f"{[round(x, 3) for x in ms]} (step {TRAIN_PROC_STEPS - 1} "
+            f"traced); {r['tokens_per_s']:.1f} tokens/s of its DP rank's "
+            f"rows at step 1; peak {o['peak_gb']:.2f} GB (f32 shard "
+            f"{o['shard_gb']:.2f} GB); the card {r['card_gb']:.2f} GB in "
+            f"use; traced step {r['host_ms']:.3f} ms: exchange share "
+            f"{r['exchange_share']:.4f}, sums over 'model' "
+            f"{r['tp_share']:.4f} ({r['tp_sums']} sums), gradient sync "
+            f"{r['sync_share']:.4f}; {TP_LABEL}")
+    counts = {k: sum(step[k] for step in outs[0]["launches"])
+              for k in outs[0]["launches"][0]}
+    summary["f32"] = train_procs_f32_gate(
+        torch, kernels, TP_MESH, label, copy_on_x,
+        "the copy into the TP region on the MoE's x instead of its token "
+        "grid")
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    return counts, summary
+
+
+def phase_tp(torch, kernels):
+    """Phase 11: (a) megatron-moe-32e served on (2, 2, 2), (b) llama3.2-1b
+    served on (1, 2, 2), (c) megatron-moe-32e trained on (2, 2, 2).
+    Returns each serving path's launches, the training's and a summary."""
+    summary, launches = {}, {}
+    for key, path, fn in (("a", TP_PATH, phase_tp_serve),
+                          ("b", TP_DENSE_PATH, phase_tp_dense)):
+        t0 = time.perf_counter()
+        launches[path], summary[key] = fn(torch, kernels)
+        summary[f"{key}_s"] = time.perf_counter() - t0
+        free(torch)
+    t0 = time.perf_counter()
+    train, summary["c"] = phase_tp_train(torch, kernels)
+    summary["c_s"] = time.perf_counter() - t0
+    return launches, train, summary
+
+
+
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
                 "flash_attention mixtral-8x7b long prefill": 1.5,
@@ -4951,6 +5732,13 @@ def main() -> int:
     log(f"phase split: {time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(split)}")
 
+    # 11. tensor parallelism over "model" on one process per rank:
+    # megatron-moe-32e served and trained, llama3.2-1b served
+    t0 = time.perf_counter()
+    tp_launches, tp_train_launches, tp = phase_tp(torch, kernels)
+    launches.update(tp_launches)
+    log(f"phase tp: {time.perf_counter() - t0:.1f} s; {json.dumps(tp)}")
+
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for
     # pack and unpack, which training does not launch: the main path of
@@ -4977,6 +5765,8 @@ def main() -> int:
                 f"process)"] = train_proc_launches[name]
         by_path[f"{SPLIT_TRAIN_PATH} ({SPLIT_TRAIN_STEPS} steps, each "
                 f"process)"] = split_train_launches[name]
+        by_path[f"{TP_TRAIN_PATH} ({TRAIN_PROC_STEPS} steps, rank 0)"] = \
+            tp_train_launches[name]
         for path, counts in stack_launches.items():
             if name in counts:
                 by_path[path] = counts[name]

@@ -146,22 +146,51 @@ def shard_module(params: Any, cfg: ModelConfig, mesh,
     """This process's shard of a port module (or its ``{name: tensor}``),
     by ``launch/shardings.module_specs`` on ``mesh`` (a ``ProcessMesh``),
     copied onto ``device`` (default: the mesh's) into a module of its own:
-    the whole can be dropped after.  Raises for a spec over a "model" axis
-    larger than 1 (TP is not ported)."""
+    the whole can be dropped after.  A "model" axis above 1 cuts the
+    reference's TP slices (heads, the FFN's and the experts' hidden dim,
+    the vocabulary; ``models/tp.py`` runs them) for the dense, MoE and vlm
+    transformer families; ``_check_tp`` raises for what is not ported."""
     from .launch.shardings import module_specs, named_params, shard_tensor
 
     dev = mesh.device if device is None else resolve_device(device)
     named = named_params(params)
+    _check_tp(cfg, mesh)
     specs = module_specs(cfg, mesh, named)
-    if "model" in mesh.axis_names and mesh.axis_size("model") > 1:
-        raise ValueError("TP over 'model' is not ported: a process mesh for "
-                         "the model needs a 'model' axis of 1")
     local = {}
     with torch.no_grad():
         for k, v in named.items():
             local[k] = shard_tensor(v.detach(), specs[k], mesh).to(
                 device=dev, copy=True).contiguous()
         return _assign(_shell(cfg, train), local, dev)
+
+
+def _check_tp(cfg: ModelConfig, mesh) -> None:
+    """Raise a ``ValueError`` naming what is not ported when ``mesh`` has a
+    "model" axis above 1 that ``cfg`` cannot run on."""
+    if "model" not in mesh.axis_names or mesh.axis_size("model") == 1:
+        return
+    tp = mesh.axis_size("model")
+    why = None
+    if cfg.family in ("ssm", "hybrid") or cfg.encdec:
+        why = (f"TP over 'model' of the {cfg.family} family (its recurrent, "
+               f"Mamba or encoder-decoder weights) is not ported")
+    elif cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        why = (f"TP over 'model' of {tp} that does not divide the "
+               f"{cfg.n_heads} heads and {cfg.n_kv_heads} kv heads (the "
+               f"reference's cut through a head and its head_dim-sharded "
+               f"cache) is not ported")
+    elif cfg.seq_shard_activations:
+        why = ("seq_shard_activations (activations sharded over 'model' "
+               "along the sequence) is not ported")
+    elif cfg.fsdp:
+        why = ("FSDP on a process mesh (parameters and moments sharded "
+               "over the data axes) is not ported")
+    elif cfg.pure_dp:
+        why = ("pure_dp over a 'model' axis above 1 (the batch split over "
+               "'model' too) is not ported")
+    if why:
+        shape = dict(zip(mesh.axis_names, mesh.shape))
+        raise ValueError(f"{cfg.name} on mesh {shape}: {why}")
 
 
 def recast(params: Any, cfg: ModelConfig, device: Optional[Any] = None,

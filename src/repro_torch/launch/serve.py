@@ -33,6 +33,15 @@ neither 6 nor 3), so each of the 6 processes runs the split island on its
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch mixtral-8x7b --smoke --device cpu --mesh 2,3 --batch 6 \\
         --procs --backend gloo
+
+A third entry, ``--mesh POD,DATA,MODEL``, adds tensor parallelism over
+"model" on the processes (``models/tp.py``): each holds its slice of the
+heads, the FFN's and the experts' hidden dim and the vocabulary, and a DP
+rank's prompts go to each of its model peers (8 processes here):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 2,2,2 --procs \\
+        --backend gloo
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import torch
 
 from ..configs import ModelConfig, get_config, smoke_config
 from ..models import build_model
+from ..models.transformer import greedy_tokens
 from .mesh import make_mesh, resolve_device
 from .train import make_dist_context
 
@@ -139,22 +149,27 @@ def flash_plan(n_pods: int, gpus_per_pod: int, seed: int = 0):
 def _greedy(mesh, cfg: ModelConfig, params, rows: torch.Tensor, spec,
             impl: Optional[str], plan, gen_len: int) -> dict:
     """Prefill this rank's ``rows`` and decode greedily to ``gen_len``
-    tokens, gathering each step's logits and the tokens (returned on rank
-    0; ``{}`` on the others)."""
+    tokens, gathering each step's logits (over the DP axes, and over
+    "model" where the vocabulary is sharded) and the tokens (returned on
+    rank 0; ``{}`` on the others).  A token is the argmax over every
+    vocabulary shard (``transformer.greedy_tokens``)."""
     from .shardings import gather_tensor
 
     prompt = rows.shape[1]
     total = prompt + gen_len
     prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total)
     step = make_serve_step(cfg, mesh, impl, plan)
+    dist = make_dist_context(cfg, mesh, impl, plan)
     logits, cache = prefill(params, {"tokens": rows})
-    steps = [gather_tensor(logits, spec, mesh)]
-    toks = logits.argmax(-1)
+    vocab = "model" if logits.shape[-1] != cfg.vocab else None
+    logits_spec = (spec[0], vocab)
+    steps = [gather_tensor(logits, logits_spec, mesh)]
+    toks = greedy_tokens(cfg, logits, dist)
     out = [toks]
     for t in range(prompt, total - 1):
         logits, cache = step(params, cache, toks, t)
-        steps.append(gather_tensor(logits, spec, mesh))
-        toks = logits.argmax(-1)
+        steps.append(gather_tensor(logits, logits_spec, mesh))
+        toks = greedy_tokens(cfg, logits, dist)
         out.append(toks)
     gen = gather_tensor(torch.stack(out, dim=1), spec, mesh)
     if mesh.rank:
@@ -207,8 +222,9 @@ def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
     """Serve ``prompts [B, S]`` on one process per rank of ``mesh_shape``
     (pod, data, model): each process takes its shard of ``params`` (a
     module or ``{name: tensor}``, shared with it without a copy: CUDA IPC
-    on the card) and its ``B / (pod * data)`` rows, prefills and decodes
-    ``gen_len`` greedy tokens.
+    on the card) and its ``B / (pod * data)`` rows (the same rows on each
+    of a DP rank's model peers), prefills and decodes ``gen_len`` greedy
+    tokens.
 
     ``params`` may come in a one-element list, which is emptied: once every
     process holds its shard, the parent drops its own references to the
@@ -317,6 +333,18 @@ def _plan_dispatch_schedules(gen_len: int, use_plan_server: bool) -> dict:
     return out
 
 
+def parse_mesh(ap: argparse.ArgumentParser, text: str):
+    """``POD,DATA`` or ``POD,DATA,MODEL`` as a (pod, data, model) shape
+    (model 1 when left out)."""
+    try:
+        shape = tuple(int(v) for v in text.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        ap.error(f"--mesh {text!r}: give POD,DATA or POD,DATA,MODEL")
+    return shape + (1,) * (3 - len(shape))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -340,9 +368,10 @@ def main(argv=None):
                     help="route dispatch-schedule planning through the "
                          "plan-serving daemon (repro_torch.serving) instead "
                          "of the inline PlanCache path")
-    ap.add_argument("--mesh", default=None, metavar="POD,DATA",
-                    help="serve on a local (POD, DATA, 1) mesh stacked on "
-                         "the device; default: no mesh")
+    ap.add_argument("--mesh", default=None, metavar="POD,DATA[,MODEL]",
+                    help="serve on a local (POD, DATA, MODEL) mesh stacked "
+                         "on the device (MODEL defaults to 1; the stacked "
+                         "mesh keeps whole weights); default: no mesh")
     ap.add_argument("--procs", action="store_true",
                     help="serve the --mesh on one process per rank")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
@@ -377,9 +406,10 @@ def main(argv=None):
         ap.error("--procs needs --mesh and --backend")
     mesh = plan = None
     if args.mesh:
-        pod, data = (int(v) for v in args.mesh.split(","))
+        shape = parse_mesh(ap, args.mesh)
+        pod, data, _ = shape
         if not args.procs:
-            mesh = make_mesh((pod, data, 1), AXES, device)
+            mesh = make_mesh(shape, AXES, device)
         if cfg.a2a_impl in ("plan", "auto"):
             plan = flash_plan(pod, data, args.seed)
             sched = lower_plan(plan, n_pods=pod)
@@ -399,7 +429,7 @@ def main(argv=None):
         del params  # serve_procs drops the whole once every rank has its own
         _sync(device)
         t0 = time.perf_counter()
-        res = serve_procs(cfg, holder, prompts, (pod, data, 1), args.backend,
+        res = serve_procs(cfg, holder, prompts, shape, args.backend,
                           args.device, cfg.a2a_impl, plan, args.gen_len,
                           init_method=args.init_method)
         dt = time.perf_counter() - t0
@@ -407,7 +437,7 @@ def main(argv=None):
             return
         gen = res["tokens"].numpy()
         print(f"arch={cfg.name} layers={cfg.n_layers} batch={args.batch} "
-              f"generated={gen.shape[1]} tokens/req on {pod * data} "
+              f"generated={gen.shape[1]} tokens/req on {int(np.prod(shape))} "
               f"processes ({args.backend}, {device}); {dt:.3f} s with the "
               f"processes' start-up")
         print("sample:", gen[0][:16])

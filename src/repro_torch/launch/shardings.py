@@ -24,8 +24,11 @@ parameter names).
 
 ``shard_tensor`` cuts the slice a rank holds under a spec and
 ``gather_tensor`` puts the slices back together (on a ``ProcessMesh``, over
-its process groups).  TP over "model" is not ported: the model code runs
-whole weights, so a process mesh for serving has a "model" axis of 1.
+its process groups).  On a ``ProcessMesh`` the model code runs the "model"
+slices these specs cut (``models/tp.py``), with one deviation: the decode
+cache holds this process's kv heads where ``_CACHE_TABLE`` shards
+``head_dim`` (the same bytes a process and the same math); ``cache_specs``
+stays the reference's table.
 """
 
 from __future__ import annotations

@@ -40,6 +40,13 @@ per-process program rather than a fabric), rank 0 printing the steps:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch mixtral-8x7b --smoke --device cpu --mesh 2,3 --procs \\
         --backend gloo --batch 12 --seq 16 --steps 2
+
+``--mesh POD,DATA,MODEL`` adds tensor parallelism over "model" on the
+processes (``models/tp.py``; 8 here):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 2,2,2 --procs \\
+        --backend gloo --batch 8 --seq 32 --steps 4
 """
 
 from __future__ import annotations
@@ -176,7 +183,13 @@ def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
     """Each process's gradients (of its own loss, the mean over its rows)
     as the gradient of the mean loss over every process's rows: summed over
     the DP axes the parameter is replicated on (gathered, added in member
-    order), then divided by the DP world size.  An expert shard's gradient
+    order), then divided by the DP world size.  Never over "model": a
+    process's TP slice already holds its whole gradient (its model peers
+    ran the same rows), and a leaf replicated over "model" (the norms, the
+    router, ``q_norm``/``k_norm``) reaches it whole and with the same bits
+    on every peer, since each path into the TP region enters through
+    ``models/tp.copy_in``, whose backward sums the peers' parts in member
+    order.  An expert shard's gradient
     already holds the tokens of its EP group (the exchange's backward
     brought them): on the island, EP over every DP axis, that is every
     process's, so it is only divided; with EP over ``pod`` alone it is
@@ -288,8 +301,10 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
     """
     proc = isinstance(mesh, ProcessMesh)
     if proc and cfg.fsdp:
-        raise ValueError("FSDP keeps every parameter sharded over the data "
-                         "axes; a process mesh runs whole replicated weights")
+        raise ValueError("FSDP on a process mesh is not ported: it needs "
+                         "each layer's weights gathered over the data axes "
+                         "before use, its gradients reduce-scattered and "
+                         "the AdamW state sharded")
     if device is not None:
         dev = resolve_device(device)
     else:
@@ -515,9 +530,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--mesh", default=None, metavar="POD,DATA",
-                    help="train on a local (POD, DATA, 1) mesh stacked on "
-                         "the device; default: no mesh")
+    ap.add_argument("--mesh", default=None, metavar="POD,DATA[,MODEL]",
+                    help="train on a local (POD, DATA, MODEL) mesh stacked "
+                         "on the device (MODEL defaults to 1; the stacked "
+                         "mesh keeps whole weights); default: no mesh")
     ap.add_argument("--procs", action="store_true",
                     help="train the --mesh on one process per rank")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
@@ -544,12 +560,13 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.procs and not (args.mesh and args.backend):
         ap.error("--procs needs --mesh and --backend")
-    mesh = None
+    mesh = shape = None
     if args.mesh:
-        pod, data = (int(v) for v in args.mesh.split(","))
+        from .serve import parse_mesh
+
+        shape = parse_mesh(ap, args.mesh)
         if not args.procs:
-            mesh = make_mesh((pod, data, 1), ("pod", "data", "model"),
-                             device)
+            mesh = make_mesh(shape, ("pod", "data", "model"), device)
     opts = TrainOptions(peak_lr=args.lr,
                         warmup_steps=max(args.steps // 10, 1),
                         total_steps=args.steps,
@@ -558,13 +575,12 @@ def main(argv=None):
         torch.Generator(device=device).manual_seed(args.seed))
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
-    where = f"{pod * data} processes ({args.backend}, {device})" \
+    where = f"{int(np.prod(shape))} processes ({args.backend}, {device})" \
         if args.procs else str(device)
-    print(f"arch={cfg.name} layers={cfg.n_layers} mesh="
-          f"{args.mesh and (pod, data, 1)} batch={args.batch} seq={args.seq}"
-          f" on {where}")
+    print(f"arch={cfg.name} layers={cfg.n_layers} mesh={shape} "
+          f"batch={args.batch} seq={args.seq} on {where}")
     if args.procs:
-        res = train_procs(cfg, [params], data_cfg, (pod, data, 1),
+        res = train_procs(cfg, [params], data_cfg, shape,
                           args.backend, args.device, opts, args.steps,
                           ckpt_dir=args.ckpt_dir,
                           init_method=args.init_method)

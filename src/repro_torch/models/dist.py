@@ -2,7 +2,9 @@
 
 Counterpart of ``src/repro/models/dist.py`` over a ``LocalMesh`` or a
 ``ProcessMesh`` (``launch/mesh.py``); ``ep_size`` and ``choose_ep_axes``
-read the whole mesh's shape, whichever ranks this process holds.  ``None``
+read the whole mesh's shape, whichever ranks this process holds, and
+``tp_size`` the size of "model" on a ``ProcessMesh`` (1 on a ``LocalMesh``,
+which keeps whole weights: ``models/tp.py``).  ``None``
 in place of a context means the single-device path, the correctness oracle
 for the distributed one.
 """
@@ -41,6 +43,15 @@ class DistContext:
         if not self.ep_axes:
             return 1
         return self.mesh.axis_size(self.ep_axes)
+
+    @property
+    def tp_size(self) -> int:
+        """The tensor-parallel degree: "model"'s size on a ``ProcessMesh``,
+        else 1."""
+        if not isinstance(self.mesh, ProcessMesh) \
+                or "model" not in self.mesh.axis_names:
+            return 1
+        return self.mesh.axis_size("model")
 
 
 def choose_ep_axes(cfg: ModelConfig, mesh

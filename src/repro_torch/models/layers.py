@@ -13,6 +13,15 @@ it outside any Pallas kernel and calls its chunked form "mathematically
 identical to the Pallas flash_attention kernel".  Decode attention is plain
 PyTorch, as the reference's.  The decode cache is updated in place (the
 reference returns a new one) to keep one copy of it in device memory.
+
+Under tensor parallelism (``tp``, a ``ProcessMesh`` whose "model" axis is
+above 1; ``models/tp.py``) attention runs on this process's heads, counted
+from its weights' widths: ``wq``/``wk``/``wv`` are column-parallel behind
+``copy_in`` and ``wo`` is row-parallel, followed by ``sum_out``; so are the
+MLP's ``w_gate``/``w_up`` and ``w_down`` (the GELU form's ``b_up`` sharded,
+``b_down`` added once after the sum).  The replicated ``q_norm``/``k_norm``
+enter through ``copy_in`` too, which sums their gradients over the peers'
+heads.  The kernels run unchanged on the local heads.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from ..configs.registry import ModelConfig
 # plain wrapper call
 from ..kernels.flash_attention import flash_attention_autograd as \
     flash_attention
+from .tp import copy_in, sum_out, tp_of
 
 NEG_INF = -1e30
 
@@ -154,16 +164,31 @@ class Attention(nn.Module):
                                            device=device))
 
 
+def _heads(cfg: ModelConfig, p: Attention) -> Tuple[int, int]:
+    """(query heads, kv heads) that ``p`` holds: all of them, or this
+    process's share under TP."""
+    dh = cfg.resolved_head_dim
+    return p.wq.shape[-1] // dh, p.wk.shape[-1] // dh
+
+
+def _attn_tp(cfg: ModelConfig, p: Attention, tp):
+    """``tp`` if ``p`` holds a share of the heads, else None."""
+    return tp_of(tp, p.wq.shape[-1], cfg.n_heads * cfg.resolved_head_dim)
+
+
 def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                 positions: torch.Tensor, rope: bool = True):
+                 positions: torch.Tensor, rope: bool = True, tp=None):
+    """q, k, v of the heads ``p`` holds; ``tp`` (or None) as
+    ``_attn_tp`` gives it."""
     b, s, _ = x.shape
-    h, k, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    (h, k), dh = _heads(cfg, p), cfg.resolved_head_dim
+    x = copy_in(tp, x)
     q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, dh)
     kk = (x @ p.wk.to(x.dtype)).reshape(b, s, k, dh)
     v = (x @ p.wv.to(x.dtype)).reshape(b, s, k, dh)
     if cfg.qk_norm:
-        q = rms_head_norm(q, p.q_norm)
-        kk = rms_head_norm(kk, p.k_norm)
+        q = rms_head_norm(q, copy_in(tp, p.q_norm))
+        kk = rms_head_norm(kk, copy_in(tp, p.k_norm))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         kk = apply_rope(kk, positions, cfg.rope_theta)
@@ -251,7 +276,7 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None, use_window: bool = True,
                     chunked_threshold: int = 2048, return_kv: bool = False,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, tp=None):
     """Self-attention over a full sequence (prefill).
 
     ``use_kernel`` runs it on the ``flash_attention`` kernel over the
@@ -259,10 +284,12 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     projections (no copy; the kernel reads through the strides and writes
     ``[B, S, H, D]``); False runs the reference's plain math.  ``use_window=False``
     drops the window.  With ``return_kv`` also returns the (pre-GQA-repeat)
-    keys/values."""
+    keys/values.  ``tp``: the ``ProcessMesh`` of a TP run (the heads ``p``
+    holds, their partial ``wo`` products summed over "model"), or None."""
     b, s, _ = x.shape
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    h, kv = _heads(cfg, p)
+    tp = _attn_tp(cfg, p, tp)
+    q, k, v = _project_qkv(cfg, p, x, positions, tp=tp)
     eff = window if (window is not None and use_window) else None
     if use_kernel:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -276,7 +303,7 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
         out = mha_einsum(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
                          _band_mask(s, s, 0, eff, causal, x.device))
     out = out.reshape(b, s, h * cfg.resolved_head_dim)
-    out = out @ p.wo.to(out.dtype)
+    out = sum_out(tp, out @ p.wo.to(out.dtype))
     if not return_kv:
         return out
     return out, (k, v)
@@ -303,16 +330,18 @@ def assemble_kv_cache(k: torch.Tensor, v: torch.Tensor,
 
 def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                     *, window: Optional[int] = None):
+                     *, window: Optional[int] = None, tp=None):
     """One-token decode against a (ring-buffered, if windowed) KV cache.
 
-    x [B, 1, d]; caches [B, S_phys, K, Dh], written in place at ``pos``.
-    Returns (out [B, 1, d], cache_k, cache_v)."""
+    x [B, 1, d]; caches [B, S_phys, K, Dh] (the kv heads ``p`` holds),
+    written in place at ``pos``.  Returns (out [B, 1, d], cache_k,
+    cache_v); ``tp`` as ``attention_apply``'s."""
     b = x.shape[0]
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    (h, kv), dh = _heads(cfg, p), cfg.resolved_head_dim
+    tp = _attn_tp(cfg, p, tp)
     s_phys = cache_k.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, tp=tp)
     slot = pos if window is None else pos % s_phys
     cache_k[:, slot] = k_new[:, 0]
     cache_v[:, slot] = v_new[:, 0]
@@ -324,7 +353,7 @@ def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bqkgs,bskd->bqkgd", probs, cache_v)
-    out = out.reshape(b, 1, h * dh) @ p.wo.to(x.dtype)
+    out = sum_out(tp, out.reshape(b, 1, h * dh) @ p.wo.to(x.dtype))
     return out, cache_k, cache_v
 
 
@@ -351,10 +380,16 @@ class MLP(nn.Module):
                                             device=device))
 
 
-def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """The MLP; under TP (``tp``, and ``p`` holding a slice of the hidden
+    dim) on this process's slice, the partial products summed over
+    "model"."""
     dt = x.dtype
+    tp = tp_of(tp, p.w_down.shape[0], cfg.d_ff)
+    x = copy_in(tp, x)
     if cfg.act == "silu":
         h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
-        return h @ p.w_down.to(dt)
+        return sum_out(tp, h @ p.w_down.to(dt))
     h = F.gelu(x @ p.w_up.to(dt) + p.b_up.to(dt), approximate="tanh")
-    return h @ p.w_down.to(dt) + p.b_down.to(dt)
+    return sum_out(tp, h @ p.w_down.to(dt)) + p.b_down.to(dt)

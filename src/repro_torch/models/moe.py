@@ -29,6 +29,18 @@ process's own ``[E_loc, p * C, d]`` (the reference's island layout) against
 the ``E_loc`` experts its shard holds, and equals the ``LocalMesh`` grid's
 slice of those experts and of this process's other DP coordinates.
 
+Under tensor parallelism (a ``ProcessMesh`` whose "model" axis is above 1,
+``models/tp.py``) the expert stacks hold this process's slice of ``d_ff``,
+``[E_loc, d, F/tp]`` and ``[E_loc, F/tp, d]``, as the reference's
+``_MOE_TABLE`` shards them.  Routing, dispatch and the exchange run whole on
+every model peer, bit for bit the same; the token grid enters the grouped
+FFN through ``copy_in`` (never ``x``: the router's path to ``x`` is already
+whole on every peer, and a copy there would add its share of ``dx`` ``tp``
+times), and the FFN's partial output is summed over "model" on the grid,
+before the return trip, as the reference's GSPMD sums it: the int8 return
+exchange then quantizes the whole ``y``, and the gates' gradient reads it.
+The local path sums too, also where ``moe_apply`` drops ``dist``.
+
 ``dist=None`` runs the same math with one rank and no exchange; it is the
 correctness oracle for the island.  ``use_kernel=False`` runs the plain
 versions of the kernels on every path.
@@ -62,6 +74,7 @@ from ..kernels.grouped_matmul import grouped_matmul_autograd as \
 from ..launch.mesh import pmean
 from .dist import DistContext
 from .layers import dense_init, param
+from .tp import copy_in, sum_out, tp_mesh, tp_of
 
 __all__ = ["MoE", "init_moe", "moe_apply"]
 
@@ -111,11 +124,15 @@ def _capacity(cfg: ModelConfig, n_tokens: int, n_experts: int) -> int:
 def _route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
     """Top-k routing of ``x_flat [G, T, d]`` for each of G ranks.
 
-    Returns (gates [G, T, k], eids [G, T, k], aux [G])."""
-    e = cfg.moe.num_experts
+    The top k are the first k of a stable descending sort: among equal
+    probabilities the lower expert first, as ``lax.top_k`` orders them
+    (``torch.topk`` picks another set, on the CPU, and documents no order on
+    the card).  Returns (gates [G, T, k], eids [G, T, k], aux [G])."""
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
     logits = x_flat.float() @ router_w                         # [G, T, E]
     probs = torch.softmax(logits, dim=-1)
-    gates, eids = torch.topk(probs, cfg.moe.top_k, dim=-1)     # [G, T, k]
+    gates, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eids = gates[..., :k], eids[..., :k]                # [G, T, k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance aux loss (fraction * mean prob).
     frac = F.one_hot(eids[..., 0], e).float().mean(1)          # [G, E]
@@ -170,16 +187,25 @@ def _combine(y_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
 
 def _expert_ffn(cfg: ModelConfig, w_gate, w_up, w_down,
                 tokens: torch.Tensor, counts: Optional[torch.Tensor] = None,
-                use_kernel: bool = True) -> torch.Tensor:
+                use_kernel: bool = True, tp=None) -> torch.Tensor:
     """tokens [E, C_tot, d] -> [E, C_tot, d] (grouped SwiGLU).
 
     ``counts [E]`` marks each expert's filled rows (the rest are zero and
-    stay zero); None treats every row as valid."""
+    stay zero); None treats every row as valid.  ``tp`` (``_moe_tp``): the
+    stacks hold a slice of ``d_ff``, and the partial output is summed over
+    "model"."""
     dt = tokens.dtype
     gmm = grouped_matmul if use_kernel else grouped_matmul_ref
+    tokens = copy_in(tp, tokens)
     h = F.silu(gmm(tokens, w_gate.to(dt), counts)) \
         * gmm(tokens, w_up.to(dt), counts)
-    return gmm(h, w_down.to(dt), counts)
+    return sum_out(tp, gmm(h, w_down.to(dt), counts))
+
+
+def _moe_tp(cfg: ModelConfig, dist: Optional[DistContext], p: MoE):
+    """The ``ProcessMesh`` to sum the FFN over when ``p``'s stacks hold a
+    slice of ``d_ff``, else None."""
+    return tp_of(tp_mesh(dist), p.w_down.shape[1], cfg.d_ff)
 
 
 def _moe_island(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
@@ -207,7 +233,7 @@ def _moe_island(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     tokens = recv.reshape(r, g, e_loc, cap, d).transpose(1, 2) \
         .reshape(r * e_loc, g * cap, d).contiguous()
     y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down, tokens,
-                    use_kernel=dist.use_kernel)
+                    use_kernel=dist.use_kernel, tp=_moe_tp(cfg, dist, p))
     y = y.reshape(r, e_loc, g, cap, d).transpose(1, 2) \
         .reshape(r, g, e_loc * cap, d)
     y = a2a(y)                                        # return trip
@@ -298,7 +324,7 @@ def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
             f"expert stacks {p.w_gate.shape[0]}: a ProcessMesh needs its "
             f"shard's E_loc = {e_loc} experts (convert.shard_module)")
     y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down, tokens,
-                    use_kernel=dist.use_kernel)
+                    use_kernel=dist.use_kernel, tp=_moe_tp(cfg, dist, p))
     inv = [perm.index(i) for i in range(len(perm))]
     y = y.reshape(grid.shape).permute(inv).reshape(r, p_pods, e_loc * cap, d)
     if exchange is not None:
@@ -321,6 +347,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
 
     The kernels run unless ``use_kernel`` or ``dist.use_kernel`` is
     False."""
+    tp = _moe_tp(cfg, dist, p)   # the local path below sums over "model" too
     if dist is not None:
         if not use_kernel and dist.use_kernel:
             dist = dataclasses.replace(dist, use_kernel=False)
@@ -342,7 +369,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
         counts = torch.bincount(eids.reshape(-1), minlength=e) \
             .clamp(max=cap).to(torch.int32)
         y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down,
-                        buf.reshape(e, cap, d), counts, use_kernel)
+                        buf.reshape(e, cap, d), counts, use_kernel, tp)
         out = _combine(y.reshape(1, e * cap, d), slot, keep, gates, b * s,
                        cfg.moe.top_k)
         return out.reshape(b, s, d), aux[0]

@@ -27,6 +27,17 @@ the embedding table is cast to the compute dtype, then gathered, as the
 reference does, so a repeated token's gradient sums in the compute dtype
 in both; serving gathers, then casts only the rows it took (the same
 values).
+
+Under tensor parallelism (``dist.tp_size > 1`` on a ``ProcessMesh``;
+``models/tp.py``) each leaf follows its spec: attention, the MLP and the
+experts run on this process's slice (``layers.py``, ``moe.py``); a
+vocabulary-sharded ``embed`` looks up this process's rows, writes zero for
+ids outside them and sums over "model" (exact: one peer contributes); the
+head gives this process's vocabulary shard of the logits (the tied head is
+its ``embed`` shard's transpose), and ``lm_loss`` is then a
+vocabulary-parallel cross entropy.  The decode cache holds this process's
+kv heads.  A leaf its spec keeps whole (an odd vocabulary) takes the whole
+path, with no collective.
 """
 
 from __future__ import annotations
@@ -55,6 +66,8 @@ from .layers import (
     take_rows,
 )
 from .moe import MoE, moe_apply
+from .tp import argmax_over, copy_in, max_over, sum_out, tp_mesh, tp_of, \
+    vocab_slice
 from .ssm import (
     MLSTM, SLSTM, Mamba,
     mamba_apply, mamba_decode, mamba_zero_state,
@@ -64,7 +77,7 @@ from .ssm import (
 
 __all__ = [
     "LM", "layer_kinds", "init_lm", "lm_forward", "lm_loss",
-    "init_decode_cache", "lm_decode_step", "lm_prefill",
+    "init_decode_cache", "lm_decode_step", "lm_prefill", "greedy_tokens",
 ]
 
 
@@ -170,7 +183,7 @@ def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor, kind: str, dist,
         y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
         return x + y, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp_apply(cfg, p.mlp, h2), aux
+    return x + mlp_apply(cfg, p.mlp, h2, tp_mesh(dist)), aux
 
 
 def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
@@ -187,7 +200,8 @@ def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
     h = norm_apply(cfg, p.norm1, x)
     attn_out, (k_raw, v_raw) = attention_apply(
         cfg, p.attn, h, positions=positions, window=window,
-        use_window=use_window, return_kv=True, use_kernel=use_kernel)
+        use_window=use_window, return_kv=True, use_kernel=use_kernel,
+        tp=tp_mesh(dist))
     cache_window = None if (cfg.swa_window is None or full_flag) \
         else cfg.swa_window
     k_c, v_c = assemble_kv_cache(k_raw, v_raw, cache_window, cache_len)
@@ -213,7 +227,7 @@ def _block_train(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
     h = norm_apply(cfg, p.norm1, x)
     attn_out = attention_apply(cfg, p.attn, h, positions=positions,
                                window=window, use_window=use_window,
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, tp=tp_mesh(dist))
     if kind == "hybrid":
         x = x + _fuse(cfg, p, attn_out, mamba_apply(cfg, p.mamba, h))
     else:
@@ -237,9 +251,10 @@ def _remat(fn):
 def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
                extras: Any = None, dist: Optional[DistContext] = None,
                use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], aux summed over the layers)."""
+    """tokens [B, S] -> (logits [B, S, V], aux summed over the layers);
+    under TP with a sharded vocabulary this process's ``[B, S, V/tp]``."""
     b, s = tokens.shape
-    x = _embed_tokens(cfg, params, tokens, extras)
+    x = _embed_tokens(cfg, params, tokens, extras, tp_mesh(dist))
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     kinds = layer_kinds(cfg)
@@ -256,7 +271,7 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     elif cfg.remat:
         fns = [_remat(f) for f in fns]
     x, aux = _layers(fns, x)
-    return _lm_logits(cfg, params, x), aux
+    return _lm_logits(cfg, params, x, tp_mesh(dist)), aux
 
 
 def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
@@ -265,11 +280,15 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
     (loss, metrics): next-token cross entropy plus 0.01 * aux, with the
     reference's metrics (``loss``, ``nll``, ``aux``, ``ppl_proxy``).
     ``cfg.bf16_ce`` keeps the max and the exponentials in the logits'
-    dtype and sums over the vocabulary in f32."""
+    dtype and sums over the vocabulary in f32.  Over a sharded vocabulary
+    it is ``_vocab_parallel_nll``."""
     logits, aux = lm_forward(cfg, params, batch["tokens"], batch, dist,
                              use_kernel)
     labels = batch["labels"].long()[..., None]
-    if cfg.bf16_ce:
+    tp = tp_of(tp_mesh(dist), logits.shape[-1], cfg.vocab)
+    if tp is not None:
+        lse, label_logit = _vocab_parallel_nll(cfg, tp, logits, labels)
+    elif cfg.bf16_ce:
         m = logits.amax(-1, keepdim=True)
         denom = torch.exp(logits - m).sum(-1, dtype=torch.float32)
         lse = m[..., 0].float() + torch.log(denom)
@@ -286,10 +305,43 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
     return loss, metrics
 
 
+def _vocab_parallel_nll(cfg: ModelConfig, tp, logits: torch.Tensor,
+                        labels: torch.Tensor):
+    """(lse, label logit) of this process's vocabulary shard ``logits
+    [..., V/tp]``: the max over "model" (a shift the value does not depend
+    on, so it carries no gradient), the exponentials' sums added over
+    "model" in member order, the label's logit from the shard that owns it.
+    ``cfg.bf16_ce`` as ``lm_loss``'s."""
+    local, owned = vocab_slice(tp, labels, logits.shape[-1])
+    if cfg.bf16_ce:
+        m = max_over(tp, logits.amax(-1, keepdim=True))
+        denom = torch.exp(logits - m).sum(-1, dtype=torch.float32)
+        picked = torch.gather(logits, -1, local)[..., 0].float()
+    else:
+        logits = logits.float()
+        m = max_over(tp, logits.amax(-1, keepdim=True))
+        denom = torch.exp(logits - m).sum(-1)
+        picked = torch.gather(logits, -1, local)[..., 0]
+    lse = m[..., 0].float() + torch.log(sum_out(tp, denom))
+    label_logit = sum_out(tp, torch.where(owned[..., 0], picked,
+                                          torch.zeros_like(picked)))
+    return lse, label_logit
+
+
 def _embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
-                  extras) -> torch.Tensor:
+                  extras, tp=None) -> torch.Tensor:
+    """The tokens' embeddings (and the vision stub's patches); over a
+    vocabulary sharded across ``tp``'s "model" axis, this process's rows,
+    zero for ids outside them, summed over "model"."""
     compute = getattr(torch, cfg.compute_dtype)
-    x = take_rows(params.embed, tokens, compute)
+    tp = tp_of(tp, params.embed.shape[0], cfg.vocab)
+    if tp is None:
+        x = take_rows(params.embed, tokens, compute)
+    else:
+        local, owned = vocab_slice(tp, tokens, params.embed.shape[0])
+        rows = take_rows(params.embed, local, compute)
+        x = sum_out(tp, torch.where(owned[..., None], rows,
+                                    torch.zeros_like(rows)))
     if cfg.frontend == "vision_stub" and extras is not None:
         fl = cfg.frontend_len
         patch = torch.as_tensor(extras["patch_embeds"],
@@ -299,11 +351,23 @@ def _embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     return x
 
 
-def _lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor
+def _lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor, tp=None
                ) -> torch.Tensor:
+    """The logits, or over a sharded vocabulary this process's shard of
+    them."""
     x = norm_apply(cfg, params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    x = copy_in(tp_of(tp, head.shape[-1], cfg.vocab), x)
     return x @ head.to(x.dtype)
+
+
+def greedy_tokens(cfg: ModelConfig, logits: torch.Tensor,
+                  dist: Optional[DistContext] = None) -> torch.Tensor:
+    """The argmax of ``logits [..., V]`` (or of this process's vocabulary
+    shard ``[..., V/tp]``, over every model peer's: the global index, the
+    lowest among ties)."""
+    return argmax_over(tp_of(tp_mesh(dist), logits.shape[-1], cfg.vocab),
+                       logits)
 
 
 def _phys_len(cfg: ModelConfig, seq_len: int, full_attn: bool) -> int:
@@ -313,9 +377,12 @@ def _phys_len(cfg: ModelConfig, seq_len: int, full_attn: bool) -> int:
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                      device="cuda") -> List[Dict[str, Any]]:
+                      device="cuda", kv_heads: Optional[int] = None
+                      ) -> List[Dict[str, Any]]:
+    """Zero caches of ``kv_heads`` heads (default: all of them; a process
+    under TP holds its own, its ``wk``'s width over the head dim)."""
     kinds = layer_kinds(cfg)
-    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    kv, dh = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     compute = getattr(torch, cfg.compute_dtype)
     cache = []
     for i, kind in enumerate(kinds):
@@ -357,7 +424,7 @@ def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
                                     phys <= cfg.swa_window) else None
     h = norm_apply(cfg, p.norm1, x)
     attn, _, _ = attention_decode(cfg, p.attn, h, cache["k"], cache["v"],
-                                  pos, window=window)
+                                  pos, window=window, tp=tp_mesh(dist))
     if kind == "hybrid":
         ssm, cache["ssm"] = mamba_decode(cfg, p.mamba, h, cache["ssm"])
         x = x + _fuse(cfg, p, attn, ssm)
@@ -369,14 +436,15 @@ def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
 def lm_decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor,
                    pos: int, dist: Optional[DistContext] = None,
                    use_kernel: bool = True):
-    """tokens [B] int, pos int -> (logits [B, V], cache updated in place)."""
-    x = _embed_tokens(cfg, params, tokens[:, None], None)
+    """tokens [B] int, pos int -> (logits [B, V], cache updated in place);
+    the logits are this process's vocabulary shard under TP."""
+    x = _embed_tokens(cfg, params, tokens[:, None], None, tp_mesh(dist))
     kinds = layer_kinds(cfg)
     for i, (p_l, cache_l) in enumerate(zip(params.blocks, cache)):
         x = _block_decode(cfg, p_l, cache_l, x, int(pos), kind=kinds[i],
                           full_flag=_full_flag(cfg, i), dist=dist,
                           use_kernel=use_kernel)
-    return _lm_logits(cfg, params, x)[:, 0], cache
+    return _lm_logits(cfg, params, x, tp_mesh(dist))[:, 0], cache
 
 
 def lm_prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
@@ -391,7 +459,7 @@ def lm_prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     cache_len = cache_len or s
     if cache_len < s:
         raise ValueError("cache must at least hold the prompt")
-    x = _embed_tokens(cfg, params, tokens, extras)
+    x = _embed_tokens(cfg, params, tokens, extras, tp_mesh(dist))
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     kinds = layer_kinds(cfg)
@@ -408,5 +476,5 @@ def lm_prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
             full_flag=_full_flag(cfg, i), cache_len=cache_len,
             use_kernel=use_kernel)
         cache.append(cache_l)
-    logits = _lm_logits(cfg, params, x[:, -1:])
+    logits = _lm_logits(cfg, params, x[:, -1:], tp_mesh(dist))
     return logits[:, 0], cache
