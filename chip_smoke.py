@@ -193,7 +193,35 @@ Phases (each raises on failure; none is caught):
    2 AdamW steps through ``train_procs`` against the stacked step, metrics
    within 1e-5, gradients within a relative norm of 1e-4, every expert's
    gradient nonzero, launches equal; then one step with int8 dispatch,
-   reported.
+   reported;
+11. tensor parallelism over "model" on one process per rank, under
+   ``serve_procs`` and ``train_procs`` as in phases 8 to 10 (each process
+   holds its heads, its slice of the FFN's and the experts' ``d_ff`` and
+   of the vocabulary; the oracles run on a ``LocalMesh`` of the same DP
+   shape, "model" at 1, whole weights).  (a) megatron-moe-32e at its
+   published widths (4 of 24 layers) on (pod 2, data 2, model 2), 8
+   processes, 32 prompts of 128 tokens and 15 decode steps through the
+   plan; gated: on an identical MoE input each process's routing and grid
+   bit for bit its slice of the stacked run's, model peers' outputs and
+   residual streams bit-identical; the f32 prefill within 1e-4, routing
+   apart only at a near tie, tokens equal; bf16 launches equal to the
+   oracle's; held to the witness (``TPRounding``: the oracle with each
+   row-parallel product rounded per peer before the sum, TP's rounding and
+   nothing else of TP) at most ``PROC_BF16_APART_MAX`` sequences routed
+   apart (the plain oracle, held alike, must fail), tokens apart only at a
+   ``BF16_TOKEN_TIE`` of the witness (a planted token must fail), the MoE
+   layer on the identical input bit for bit the witness's; against the
+   plain oracle every first difference at a margin within
+   ``TP_BF16_TIE``; the first attention and MoE layer within 2e-2.  (b)
+   llama3.2-1b (16 layers) on (1, 2, 2): f32 logits within 1e-4, tokens
+   equal, each process's cache gathered by heads within 1e-5; bf16
+   launches equal, tokens held to the witness as in (a).  (c)
+   megatron-moe-32e (1 layer) trained on (2, 2, 2): bf16 launches equal,
+   losses within 2e-2, replicated leaves' gradients bit-identical on model
+   peers; the f32 gate (metrics 1e-5, gradients a relative norm of 1e-4,
+   parameters 1e-5) refusing a planted copy on the MoE's ``x``.  Reported
+   per process: prefill ms, decode ms/step or step ms, peak GB, the shares
+   of a traced prefill or step in the exchange and the sums over "model".
 
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
@@ -208,8 +236,8 @@ results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
 megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
 and flash_attention_bwd, mixtral's plan run for pack and unpack;
-``launches_by_path`` lists every path's counts, phases 7's to 10's
-too (phases 8's to 10's are rank 0's, equal in every process).  It exits
+``launches_by_path`` lists every path's counts, phases 7's to 11's
+too (phases 8's to 11's are rank 0's, equal in every process).  It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.
 """
@@ -270,12 +298,14 @@ PROC_TIMEOUT_S, PROC_JOIN_S = 120.0, 600.0
 # it.  The one such flip seen sat at 7.728e-07, where the logits differ by
 # 4.4e-06 (PERF.md); near_tie_controls shows what the limit refuses
 NEAR_TIE = 1e-5
-# bf16 sequences routed apart from the stacked run (2 of 32 seen, PERF.md)
+# bf16 sequences routed apart from the stacked run (2 of 32 seen, PERF.md);
+# in phase 11 from the witness (TPRounding)
 PROC_BF16_APART_MAX = 4
-# phase 10: a bf16 sequence routed alike may pick another greedy token only
-# where the oracle's logits of the two choices lie within this share of the
-# row's largest logit (about twice the largest bf16 prefill difference seen
-# between the processes and the stacked run, 5.6e-3, PERF.md)
+# phases 10 and 11: a bf16 sequence routed alike may pick another greedy
+# token only where the oracle's (phase 11: the witness's) logits of the two
+# choices lie within this share of the row's largest logit (about twice the
+# largest bf16 prefill difference seen between the processes and the
+# stacked run, 5.6e-3, PERF.md)
 BF16_TOKEN_TIE = 1e-2
 PROC_PATH = "megatron-moe-32e procs (2,2,1)"
 PROC_LABEL = ("4 processes sharing one GPU's SMs, exchanging through pinned "
@@ -297,14 +327,16 @@ FORM_LAYERS, FORM_BATCH, FORM_PROMPT = 1, 12, 128
 SPLIT_TRAIN_BATCH, SPLIT_TRAIN_SEQ, SPLIT_TRAIN_STEPS = 12, 64, 2
 # phase 11: under TP each sum over "model" rounds its bf16 partial products
 # once more than one product does, which flips routers' near ties and
-# greedy near ties as the kernels against plain math do (about 1% of
-# routing decisions a layer, PERF.md).  A bf16 sequence may be routed
-# apart, or pick another greedy token, only where it first differs at an
-# oracle margin (router logits) or gap (vocabulary logits) within
-# TP_BF16_TIE of the row's largest: the bf16 layer tolerance.  The first
-# differences seen reached 9.9e-3 (routing, megatron's 4 layers) and
-# 1.48e-2 (tokens, llama3.2-1b's 16), the oracles' median choices lie at
-# 7.6e-2 and 3.8e-2 (PERF.md); a control at that median must fail
+# greedy near ties (about 1% of routing decisions a layer, PERF.md).  The
+# witness (TPRounding: the stacked oracle with that rounding alone) holds
+# the bf16 runs at PROC_BF16_APART_MAX and BF16_TOKEN_TIE.  Against the
+# plain oracle a bf16 sequence may be routed apart, or pick another greedy
+# token, only where it first differs at an oracle margin (router logits)
+# or gap (vocabulary logits) within TP_BF16_TIE of the row's largest: the
+# bf16 layer tolerance.  The first differences seen reached 9.9e-3
+# (routing, megatron's 4 layers) and 1.48e-2 (tokens, llama3.2-1b's 16),
+# the oracles' median choices lie at 7.6e-2 and 3.8e-2 (PERF.md); a control
+# at that median must fail
 TP_BF16_TIE = 2e-2
 # phase 11: tensor parallelism over "model" on processes: megatron-moe-32e
 # served (N_LAYERS layers) and trained (TP_TRAIN_LAYERS) on (2, 2, 2),
@@ -4899,6 +4931,85 @@ class StreamRecorder:
         self.mod._block_prefill = self.real
 
 
+class TPRounding:
+    """While active, each row-parallel product (``tp.row_parallel``:
+    attention's ``wo``, the MLP's and the experts' ``w_down``) of a run on
+    whole weights computes what ``parts`` model peers compute under TP:
+    the product of each contiguous slice of the contraction, rounded to its
+    dtype, the slices added in f32 in peer order and rounded once more
+    (``tp.sum_out``).  The witness oracle: TP's rounding on the stacked
+    mesh, and nothing else of TP."""
+
+    def __init__(self, parts):
+        from repro_torch.models import layers, moe
+        self.mods, self.parts = (layers, moe), parts
+
+    def __enter__(self):
+        from repro_torch.launch.mesh import member_sum
+
+        self.real = [m.row_parallel for m in self.mods]
+
+        def split(tp, product, x, w, *extra):
+            if tp is not None:
+                raise AssertionError("TPRounding runs on whole weights")
+            n = w.shape[-2] // self.parts
+            outs = [product(x[..., i * n:(i + 1) * n].contiguous(),
+                            w[..., i * n:(i + 1) * n, :].contiguous(),
+                            *extra) for i in range(self.parts)]
+            return member_sum(o.float() for o in outs).to(outs[0].dtype)
+        for m in self.mods:
+            m.row_parallel = split
+        return self
+
+    def __exit__(self, *exc):
+        for m, real in zip(self.mods, self.real):
+            m.row_parallel = real
+
+
+class GateSplit:
+    """While active, for each MoE routing of a stacked run (``moe._route``
+    on ``[R, T, d]``): how many of its bf16 gates differ from those of each
+    rank's rows routed alone (``[1, T, d]``, as its process routes them).
+    The f32 router products of the two shapes round otherwise."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.counts = moe, []
+
+    def __enter__(self):
+        self.real = self.moe._route
+
+        def spy(cfg, router_w, x_flat):
+            out = self.real(cfg, router_w, x_flat)
+            self.counts.append(sum(
+                int((self.real(cfg, router_w, x_flat[r:r + 1])[0]
+                     != out[0][r:r + 1]).sum())
+                for r in range(x_flat.shape[0])))
+            return out
+        self.moe._route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+
+def token_control(torch, oracle):
+    """The oracle's greedy tokens with one choice planted: at the step and
+    sequence where its top two logits lie at their median gap, its second
+    choice.  ``token_tie_gaps`` reads that gap."""
+    top = torch.stack([lg.float().cpu().topk(2, dim=-1).indices
+                       for lg in oracle["step_logits"]])     # [T, B, 2]
+    vals = torch.stack([lg.float().cpu().topk(2, dim=-1).values
+                        for lg in oracle["step_logits"]])
+    gaps = (vals[..., 0] - vals[..., 1]) / torch.stack(
+        [lg.float().cpu().abs().amax(-1) for lg in oracle["step_logits"]])
+    at = int(gaps.reshape(-1).argsort()[gaps.numel() // 2])
+    t, seq = divmod(at, gaps.shape[1])
+    planted = oracle["tokens"].cpu().clone()
+    planted[seq, t] = top[t, seq, 1]
+    return planted
+
+
 def tp_shares(torch, prefill, params, batch):
     """One prefill under torch.profiler (host activity): the shares of its
     host time inside the exchanges (the ``procmesh.*`` ranges but the TP
@@ -5072,13 +5183,103 @@ def check_tp_launches(outs, want, label):
                                      f"{want[part]}")
 
 
+def witness_tokens(torch, wit, oracle, tokens, logits, skip):
+    """A TP run's greedy ``tokens`` and prefill ``logits`` against the
+    witness's (``TPRounding``), the plain oracle's tokens beside them, and
+    the gaps ``check_witness_tokens`` holds."""
+    batch = tokens.shape[0]
+    gaps = token_tie_gaps(torch, wit, tokens, skip)
+    control = token_tie_gaps(torch, wit, token_control(torch, wit),
+                             torch.zeros(batch, dtype=torch.bool))[0][2]
+    want = wit["tokens"].cpu()
+    res = {"logits_rel_diff": rel_err(torch, logits, wit["logits"].cpu()),
+           "logits_equal": bool(torch.equal(logits,
+                                            wit["logits"].cpu())),
+           "sequences_same_tokens": int((tokens == want).all(-1).sum()),
+           "oracle_sequences_same_tokens": int(
+               (oracle["tokens"].cpu() == want).all(-1).sum()),
+           "token_gaps": gaps, "planted_token_gap": control}
+    return res
+
+
+def check_witness_tokens(label, res):
+    """A sequence may pick another token than the witness only where the
+    witness's top two lie within ``BF16_TOKEN_TIE`` of the row's largest;
+    a token planted at the witness's median gap must fail that."""
+    if not all(g <= BF16_TOKEN_TIE for _, _, g in res["token_gaps"]):
+        raise AssertionError(f"{label}: bf16 tokens apart from the "
+                             f"witness's at gaps {res['token_gaps']}")
+    if not res["planted_token_gap"] > BF16_TOKEN_TIE:
+        raise AssertionError(f"{label}: a token planted at the witness's "
+                             f"median gap ({res['planted_token_gap']}) "
+                             f"passes the gate")
+
+
+def tp_witness(torch, label, outs, wit, loc, tokens, routes, logits, want,
+               gates_apart):
+    """Phase 11 (a)'s bf16 run held to the witness (``TPRounding``): at
+    most ``PROC_BF16_APART_MAX`` sequences routed apart (the plain oracle,
+    held to it alike, must fail that), tokens by ``check_witness_tokens``,
+    and on the identical MoE input each process's output bit for bit its
+    slice of the witness's.  ``gates_apart`` (``GateSplit``, per layer of
+    the witness's prefill) is reported beside the logits."""
+    w_routes = [e.cpu() for e in wit["routes"]]
+    n_flip, n_dec, per_layer, per_seq = route_flips(torch, w_routes, routes,
+                                                    PROC_BATCH)
+    o_flip, _, o_layer, o_seq = route_flips(
+        torch, w_routes, [e.cpu() for e in loc["routes"]], PROC_BATCH)
+    ys = [(o["island"]["y"], want[dp_index(o["coords"], TP_MESH)]["wit_y"])
+          for o in outs]
+    res = {"routing_differs": n_flip, "per_layer": per_layer,
+           "sequences_routed_apart": int(per_seq.sum()),
+           "oracle_routing_differs": o_flip, "oracle_per_layer": o_layer,
+           "oracle_sequences_routed_apart": int(o_seq.sum()),
+           "moe_identical_input_equal": all(bool(torch.equal(a, w))
+                                            for a, w in ys),
+           "moe_identical_input_rel_diff": max(
+               rel_err(torch, a.float(), w.float()) for a, w in ys),
+           "stacked_gates_apart_per_layer": gates_apart}
+    res.update(witness_tokens(torch, wit, loc, tokens, logits, per_seq))
+    log(f"{label}[bf16 against the witness, the oracle with TP's rounding "
+        f"of the row-parallel products alone]: routing differs in {n_flip} "
+        f"of {n_dec} decisions (per layer {per_layer}), in "
+        f"{res['sequences_routed_apart']} of {PROC_BATCH} sequences (limit "
+        f"{PROC_BF16_APART_MAX}); the plain oracle against it: {o_flip} "
+        f"decisions (per layer {o_layer}), {res['oracle_sequences_routed_apart']}"
+        f" sequences; prefill logits max rel diff "
+        f"{res['logits_rel_diff']:.3e} (bit-identical "
+        f"{res['logits_equal']}; the bf16 gates of the stacked router "
+        f"products that differ from each rank's own, per layer: "
+        f"{gates_apart}); greedy tokens equal in "
+        f"{res['sequences_same_tokens']} of {PROC_BATCH} (the plain "
+        f"oracle's in {res['oracle_sequences_same_tokens']}); each sequence "
+        f"routed alike whose tokens differ (sequence, step, witness gap): "
+        f"{res['token_gaps']} (limit {BF16_TOKEN_TIE}; one planted at the "
+        f"median gap reads {res['planted_token_gap']:.3e}); the MoE layer on "
+        f"the identical input bit-identical to the witness's "
+        f"{res['moe_identical_input_equal']} (max rel diff "
+        f"{res['moe_identical_input_rel_diff']:.3e})")
+    check_witness_tokens(label, res)
+    if not (res["sequences_routed_apart"] <= PROC_BF16_APART_MAX
+            and res["moe_identical_input_equal"]):
+        raise AssertionError(f"{label}: {res['sequences_routed_apart']} "
+                             f"sequences routed apart from the witness; MoE "
+                             f"output on the identical input equal "
+                             f"{res['moe_identical_input_equal']}")
+    if not res["oracle_sequences_routed_apart"] > PROC_BF16_APART_MAX:
+        raise AssertionError(f"{label}: the plain oracle passes the "
+                             f"witness's routing gate")
+    return res
+
+
 def phase_tp_serve(torch, kernels):
     """Phase 11 (a): megatron-moe-32e on 8 processes of (pod 2, data 2,
     model 2), against ``LocalMesh((2, 2, 1))`` (the same DP shape, whole
     weights).  Returns rank 0's launch counts and a summary."""
     from repro_torch.convert import recast
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.serve import flash_plan, serve_procs
+    from repro_torch.launch.serve import (flash_plan, make_prefill_step,
+                                          serve_procs)
 
     cfg = serve_config()
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -5115,10 +5316,25 @@ def phase_tp_serve(torch, kernels):
                       {"plan": ("plan", False)})["plan"]
     e_loc = cfg.moe.num_experts // 4
     b = PROC_BATCH // 4
+    # the witness: the same runs with TP's rounding of the row-parallel
+    # products alone (TPRounding)
+    with TPRounding(tp):
+        wit = serve(torch, cfg, params, local, "plan", plan, prompts,
+                    kernels, record="margins", keep_logits=True)
+        wit_isl = island_runs(torch, cfg, params.blocks[0].moe, x, local,
+                              plan, {"plan": ("plan", False)})["plan"]
+        with GateSplit() as split_first:
+            wit_first = first_layer(torch, cfg, params, local, plan, prompts)
+        with GateSplit() as split, torch.no_grad():
+            make_prefill_step(cfg, local, "plan", plan,
+                              cache_len=PROMPT + GEN, device=DEVICE)(
+                params, {"tokens": prompts})
     want = [{"grid": digest(torch, isl["grid"][r * e_loc:(r + 1) * e_loc]),
              "eids": isl["eids"][r:r + 1].cpu(),
-             "y": isl["y"][r * b:(r + 1) * b].cpu()} for r in range(4)]
-    del isl, x, params
+             "y": isl["y"][r * b:(r + 1) * b].cpu(),
+             "wit_y": wit_isl["y"][r * b:(r + 1) * b].cpu()}
+            for r in range(4)]
+    del isl, wit_isl, x, params
     free(torch)
     summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
 
@@ -5243,18 +5459,30 @@ def phase_tp_serve(torch, kernels):
         raise AssertionError(f"{label}: a decision planted at the median "
                              f"margin ({control}) passes the routing gate")
 
-    errs, route_eq = [], []
+    summary["witness"] = tp_witness(torch, label, outs, wit, loc, tokens,
+                                    routes, logits, want, split.counts)
+
+    errs, route_eq, wit_errs = [], [], []
     for o in outs:
         dp = dp_index(o["coords"], TP_MESH)
         rows = slice(dp * b, (dp + 1) * b)
         attn, y, eids = o["first_layer"]
         errs.append((rel_err(torch, attn, loc_first[0][rows].cpu()),
                      rel_err(torch, y, loc_first[1][rows].cpu())))
+        wit_errs.append((rel_err(torch, attn, wit_first[0][rows].cpu()),
+                         rel_err(torch, y, wit_first[1][rows].cpu())))
         route_eq.append(bool(torch.equal(eids[0], loc_first[2][dp].cpu())))
     worst = tuple(max(e[i] for e in errs) for i in range(2))
+    wit_worst = tuple(max(e[i] for e in wit_errs) for i in range(2))
+    summary["witness"]["first_layer"] = {
+        "attention": wit_worst[0], "moe": wit_worst[1],
+        "stacked_gates_apart": split_first.counts[0]}
     log(f"{label}[first layer, bf16, identical inputs]: attention max rel "
         f"diff {worst[0]:.3e}, MoE {worst[1]:.3e} against LocalMesh (limit "
-        f"2e-2); routing equal {all(route_eq)}")
+        f"2e-2); routing equal {all(route_eq)}; against the witness "
+        f"(reported) {wit_worst[0]:.3e} and {wit_worst[1]:.3e}, where "
+        f"{split_first.counts[0]} bf16 gates of the stacked router product "
+        f"differ from each rank's own")
     if not (worst[0] < 2e-2 and worst[1] < 2e-2 and all(route_eq)):
         raise AssertionError(f"{label}: first layer {worst}, routing equal "
                              f"{route_eq}")
@@ -5359,6 +5587,9 @@ def phase_tp_dense(torch, kernels):
     summary["oracle"] = {"prefill_ms": loc["prefill_s"] * 1e3,
                          "decode_ms_per_step": loc["decode_s"]
                          / loc["decode_steps"] * 1e3}
+    with TPRounding(tp):
+        wit = serve(torch, cfg, params, local, None, None, prompts, kernels,
+                    keep_logits=True)
     del params
     free(torch)
     summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
@@ -5442,6 +5673,19 @@ def phase_tp_dense(torch, kernels):
         f"oracle gap): {gaps} (limit {TP_BF16_TIE}; {within} of "
         f"{oracle_gaps.numel()} oracle choices lie within it, their median "
         f"gap {control:.3e})")
+    w = summary["witness"] = witness_tokens(
+        torch, wit, loc, tokens, logits,
+        torch.zeros(PROC_BATCH, dtype=torch.bool))
+    log(f"{label}[bf16 against the witness, the oracle with TP's rounding "
+        f"of the row-parallel products alone]: prefill logits max rel diff "
+        f"{w['logits_rel_diff']:.3e} (bit-identical {w['logits_equal']}); "
+        f"greedy tokens equal in {w['sequences_same_tokens']} of "
+        f"{PROC_BATCH} (the plain oracle's in "
+        f"{w['oracle_sequences_same_tokens']}); each sequence whose tokens "
+        f"differ (sequence, step, witness gap): {w['token_gaps']} (limit "
+        f"{BF16_TOKEN_TIE}; one planted at the median gap reads "
+        f"{w['planted_token_gap']:.3e})")
+    check_witness_tokens(label, w)
     if not all(g <= TP_BF16_TIE for _, _, g in gaps):
         raise AssertionError(f"{label}: bf16 token gaps {gaps}")
     if not control > TP_BF16_TIE:

@@ -34,6 +34,7 @@ import torch
 import torch.distributed as torch_dist
 
 __all__ = ["LocalMesh", "ProcessMesh", "make_mesh", "make_production_mesh",
+           "parse_mesh",
            "resolve_device", "dp_axes", "slow_axis", "all_to_all",
            "ppermute", "axis_index", "pmean", "all_gather", "member_sum",
            "all_ranks"]
@@ -246,6 +247,18 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     return LocalMesh(shape, axes, resolve_device(device))
 
 
+def parse_mesh(text: str) -> Tuple[int, int, int]:
+    """A command line's ``POD,DATA`` or ``POD,DATA,MODEL`` as a (pod,
+    data, model) shape (model 1 when left out); raises ``ValueError``."""
+    try:
+        shape = tuple(int(v) for v in text.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"--mesh {text!r}: give POD,DATA or POD,DATA,MODEL")
+    return shape + (1,) * (3 - len(shape))
+
+
 def make_production_mesh(*, multi_pod: bool = False, process: bool = False,
                          device: Union[str, torch.device] = "cuda",
                          backend: Optional[str] = None,
@@ -307,15 +320,16 @@ def axis_index(mesh, axis: str) -> torch.Tensor:
         lambda: mesh.local_coords()[:, mesh.axis_names.index(axis)])
 
 
-def all_to_all(mesh, x: torch.Tensor, axes: AxisNames,
-               axis: int = 0) -> torch.Tensor:
+def all_to_all(mesh, x: torch.Tensor, axes: AxisNames, axis: int = 0,
+               span: str = "procmesh.all_to_all") -> torch.Tensor:
     """Tiled all-to-all over ``axes`` on a stacked ``x [local_size, ...]``.
 
     ``axis`` is the per-rank split (= concat) dimension, whose size must be
     a multiple of ``n = prod(sizes of axes)``.  Per rank it is
     ``lax.all_to_all(x, axes, axis, axis, tiled=True)``: chunk ``j`` goes to
     the group member with combined index ``j``, and the chunk received from
-    member ``j`` lands at position ``j``.
+    member ``j`` lands at position ``j``.  On a ``ProcessMesh`` it runs
+    inside the profiler range ``span``, its backward inside ``span.bwd``.
     """
     axes = _as_tuple(axes)
     r = mesh.local_size
@@ -327,7 +341,7 @@ def all_to_all(mesh, x: torch.Tensor, axes: AxisNames,
     if size % n:
         raise ValueError(f"dim {axis} of size {size} does not split {n} ways")
     if isinstance(mesh, ProcessMesh):
-        return _AllToAll.apply(mesh, x, axes, k, n)
+        return _AllToAll.apply(mesh, x, axes, k, n, span)
     # out[rank, ..., j, ...] = x[members[rank, j], ..., combined[rank], ...]
     xv = x.reshape(*x.shape[:k], n, size // n, *x.shape[k + 1:])
     src_rank = mesh.cached_index(("a2a_members", axes), x.device,
@@ -343,12 +357,13 @@ def all_to_all(mesh, x: torch.Tensor, axes: AxisNames,
 
 
 def all_gather(mesh, x: torch.Tensor, axes: AxisNames,
-               out_device=None) -> torch.Tensor:
+               out_device=None, span: str = "procmesh.all_to_all"
+               ) -> torch.Tensor:
     """``[local_size, n, ...]``: for each held rank, the ``x`` of every
     member of its group over ``axes``, by combined index (an all-to-all of
-    ``n`` copies), on ``out_device`` (default: ``x``'s).  A gather to the
-    host under gloo, whose transport is host memory, never lands on the
-    card."""
+    ``n`` copies, in the profiler range ``span``), on ``out_device``
+    (default: ``x``'s).  A gather to the host under gloo, whose transport
+    is host memory, never lands on the card."""
     axes = _as_tuple(axes)
     if out_device is not None:
         out_device = torch.device(out_device)
@@ -357,7 +372,7 @@ def all_gather(mesh, x: torch.Tensor, axes: AxisNames,
             x = x.to(out_device)
     n = mesh.axis_size(axes) if axes else 1
     rep = x.unsqueeze(1).expand(x.shape[0], n, *x.shape[1:]).contiguous()
-    out = all_to_all(mesh, rep, axes, axis=0)
+    out = all_to_all(mesh, rep, axes, axis=0, span=span)
     return out if out_device is None else out.to(out_device)
 
 
@@ -533,16 +548,16 @@ class _AllToAll(torch.autograd.Function):
     """The tiled ``all_to_all`` over the same axes is its own transpose."""
 
     @staticmethod
-    def forward(ctx, mesh, x, axes, k, n):
-        ctx.args = (mesh, axes, k, n)
-        return _proc_all_to_all(mesh, x, axes, k, n)
+    def forward(ctx, mesh, x, axes, k, n, span):
+        ctx.args = (mesh, axes, k, n, span)
+        return _proc_all_to_all(mesh, x, axes, k, n, span)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axes, k, n = ctx.args
+        mesh, axes, k, n, span = ctx.args
         return (None, _proc_all_to_all(mesh, g.contiguous(), axes, k, n,
-                                       "procmesh.all_to_all.bwd"),
-                None, None, None)
+                                       f"{span}.bwd"),
+                None, None, None, None)
 
 
 class _PPermute(torch.autograd.Function):

@@ -58,7 +58,7 @@ import torch
 from ..configs import ModelConfig, get_config, smoke_config
 from ..models import build_model
 from ..models.transformer import greedy_tokens
-from .mesh import make_mesh, resolve_device
+from .mesh import make_mesh, parse_mesh, resolve_device
 from .train import make_dist_context
 
 __all__ = ["make_dist_context", "make_serve_step", "make_prefill_step",
@@ -333,18 +333,6 @@ def _plan_dispatch_schedules(gen_len: int, use_plan_server: bool) -> dict:
     return out
 
 
-def parse_mesh(ap: argparse.ArgumentParser, text: str):
-    """``POD,DATA`` or ``POD,DATA,MODEL`` as a (pod, data, model) shape
-    (model 1 when left out)."""
-    try:
-        shape = tuple(int(v) for v in text.split(","))
-    except ValueError:
-        shape = ()
-    if len(shape) not in (2, 3) or min(shape) < 1:
-        ap.error(f"--mesh {text!r}: give POD,DATA or POD,DATA,MODEL")
-    return shape + (1,) * (3 - len(shape))
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -406,7 +394,10 @@ def main(argv=None):
         ap.error("--procs needs --mesh and --backend")
     mesh = plan = None
     if args.mesh:
-        shape = parse_mesh(ap, args.mesh)
+        try:
+            shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
         pod, data, _ = shape
         if not args.procs:
             mesh = make_mesh(shape, AXES, device)

@@ -67,7 +67,7 @@ from ..models.sharding import MeshRules
 from ..optim import AdamWConfig, OptState, adamw_update, cosine_schedule, \
     init_opt_state
 from .mesh import (ProcessMesh, all_gather, dp_axes, make_mesh,
-                   member_sum, resolve_device, slow_axis)
+                   member_sum, parse_mesh, resolve_device, slow_axis)
 
 __all__ = ["TrainOptions", "make_dist_context", "make_train_step",
            "init_train_state", "make_rules", "make_train_state_shapes",
@@ -562,9 +562,10 @@ def main(argv=None):
         ap.error("--procs needs --mesh and --backend")
     mesh = shape = None
     if args.mesh:
-        from .serve import parse_mesh
-
-        shape = parse_mesh(ap, args.mesh)
+        try:
+            shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
         if not args.procs:
             mesh = make_mesh(shape, ("pod", "data", "model"), device)
     opts = TrainOptions(peak_lr=args.lr,

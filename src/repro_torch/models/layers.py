@@ -17,7 +17,7 @@ reference returns a new one) to keep one copy of it in device memory.
 Under tensor parallelism (``tp``, a ``ProcessMesh`` whose "model" axis is
 above 1; ``models/tp.py``) attention runs on this process's heads, counted
 from its weights' widths: ``wq``/``wk``/``wv`` are column-parallel behind
-``copy_in`` and ``wo`` is row-parallel, followed by ``sum_out``; so are the
+``copy_in`` and ``wo`` is row-parallel (``row_parallel``); so are the
 MLP's ``w_gate``/``w_up`` and ``w_down`` (the GELU form's ``b_up`` sharded,
 ``b_down`` added once after the sum).  The replicated ``q_norm``/``k_norm``
 enter through ``copy_in`` too, which sums their gradients over the peers'
@@ -38,7 +38,7 @@ from ..configs.registry import ModelConfig
 # plain wrapper call
 from ..kernels.flash_attention import flash_attention_autograd as \
     flash_attention
-from .tp import copy_in, sum_out, tp_of
+from .tp import copy_in, row_parallel, tp_of
 
 NEG_INF = -1e30
 
@@ -303,7 +303,7 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
         out = mha_einsum(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
                          _band_mask(s, s, 0, eff, causal, x.device))
     out = out.reshape(b, s, h * cfg.resolved_head_dim)
-    out = sum_out(tp, out @ p.wo.to(out.dtype))
+    out = row_parallel(tp, torch.matmul, out, p.wo.to(out.dtype))
     if not return_kv:
         return out
     return out, (k, v)
@@ -353,7 +353,8 @@ def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bqkgs,bskd->bqkgd", probs, cache_v)
-    out = sum_out(tp, out.reshape(b, 1, h * dh) @ p.wo.to(x.dtype))
+    out = row_parallel(tp, torch.matmul, out.reshape(b, 1, h * dh),
+                       p.wo.to(x.dtype))
     return out, cache_k, cache_v
 
 
@@ -390,6 +391,7 @@ def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor,
     x = copy_in(tp, x)
     if cfg.act == "silu":
         h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
-        return sum_out(tp, h @ p.w_down.to(dt))
+        return row_parallel(tp, torch.matmul, h, p.w_down.to(dt))
     h = F.gelu(x @ p.w_up.to(dt) + p.b_up.to(dt), approximate="tanh")
-    return sum_out(tp, h @ p.w_down.to(dt)) + p.b_down.to(dt)
+    return row_parallel(tp, torch.matmul, h, p.w_down.to(dt)) \
+        + p.b_down.to(dt)

@@ -74,7 +74,7 @@ from ..kernels.grouped_matmul import grouped_matmul_autograd as \
 from ..launch.mesh import pmean
 from .dist import DistContext
 from .layers import dense_init, param
-from .tp import copy_in, sum_out, tp_mesh, tp_of
+from .tp import copy_in, row_parallel, tp_mesh, tp_of
 
 __all__ = ["MoE", "init_moe", "moe_apply"]
 
@@ -199,7 +199,7 @@ def _expert_ffn(cfg: ModelConfig, w_gate, w_up, w_down,
     tokens = copy_in(tp, tokens)
     h = F.silu(gmm(tokens, w_gate.to(dt), counts)) \
         * gmm(tokens, w_up.to(dt), counts)
-    return sum_out(tp, gmm(h, w_down.to(dt), counts))
+    return row_parallel(tp, gmm, h, w_down.to(dt), counts)
 
 
 def _moe_tp(cfg: ModelConfig, dist: Optional[DistContext], p: MoE):

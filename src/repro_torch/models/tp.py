@@ -32,10 +32,10 @@ from typing import Optional
 
 import torch
 
-from ..launch.mesh import ProcessMesh, _proc_all_to_all, member_sum
+from ..launch.mesh import ProcessMesh, all_gather, member_sum
 
 __all__ = ["tp_mesh", "tp_of", "vocab_slice", "copy_in", "sum_out",
-           "max_over", "argmax_over"]
+           "row_parallel", "max_over", "argmax_over"]
 
 AXIS = ("model",)
 
@@ -78,10 +78,8 @@ def vocab_slice(tp: ProcessMesh, ids: torch.Tensor, n_loc: int):
 
 def _gather(tp: ProcessMesh, x: torch.Tensor, span: str) -> torch.Tensor:
     """``[n, *x.shape]``: every model peer's ``x``, by model coordinate."""
-    n = tp.axis_size(AXIS)
-    rep = x.unsqueeze(0).expand(n, *x.shape).contiguous()
     with torch.no_grad():
-        return _proc_all_to_all(tp, rep, AXIS, 0, n, span)
+        return all_gather(tp, x.unsqueeze(0), AXIS, span=span)[0]
 
 
 def _sum(tp: ProcessMesh, x: torch.Tensor, span: str) -> torch.Tensor:
@@ -124,11 +122,18 @@ def sum_out(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
     return x if tp is None else _SumOut.apply(tp, x)
 
 
-def max_over(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
+def row_parallel(tp: Optional[ProcessMesh], product, x: torch.Tensor,
+                 w: torch.Tensor, *extra) -> torch.Tensor:
+    """A row-parallel product: ``product(x, w, *extra)`` on this process's
+    slice of the contraction (``x``'s last dim, ``w``'s second to last:
+    attention's ``wo``, the MLP's and the experts' ``w_down``), each
+    peer's partial output rounded to its dtype, then ``sum_out``."""
+    return sum_out(tp, product(x, w, *extra))
+
+
+def max_over(tp: ProcessMesh, x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of the peers' ``x`` (no gradient: the cross
     entropy's shift, which its value does not depend on)."""
-    if tp is None:
-        return x.detach()
     return _gather(tp, x.detach(), "procmesh.tp_max").amax(0)
 
 

@@ -377,12 +377,9 @@ def _phys_len(cfg: ModelConfig, seq_len: int, full_attn: bool) -> int:
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                      device="cuda", kv_heads: Optional[int] = None
-                      ) -> List[Dict[str, Any]]:
-    """Zero caches of ``kv_heads`` heads (default: all of them; a process
-    under TP holds its own, its ``wk``'s width over the head dim)."""
+                      device="cuda") -> List[Dict[str, Any]]:
     kinds = layer_kinds(cfg)
-    kv, dh = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     compute = getattr(torch, cfg.compute_dtype)
     cache = []
     for i, kind in enumerate(kinds):

@@ -23,26 +23,35 @@ residual stream after every layer bit for bit the same on a DP rank's model
 peers; and on an identical MoE input each process's token grid and
 dispatch exchange bit for bit its slice of the stacked run's, its return
 exchange and output within 1e-5 of it (they carry the sum over "model"),
-the output the same bits on every model peer.  Each refusal of
-``convert.shard_module`` raises a ``ValueError``.  One spawn a mesh; the
-reference runs once, in one subprocess on 12 fake devices.
+the output the same bits on every model peer.  In bf16 the gathered
+prefill logits are bit for bit the stacked run's with each row-parallel
+product rounded per peer before the sum (``_TPRounding``).  Each refusal of
+``convert.shard_module`` raises a ``ValueError``.  ``serve --procs --mesh
+2,2,2`` on the command line prints the tokens of the stacked mesh.  One
+spawn a mesh; the reference runs once, in one subprocess on 12 fake
+devices.
 """
 
+import contextlib
 import dataclasses
 import functools
+import io
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
-from conftest import run_subprocess
+from conftest import REPO, SRC, run_subprocess
 from test_torch_serve_procs import _unflatten
 
 from repro_torch.configs import smoke_config
-from repro_torch.convert import from_jax_params, shard_module
+from repro_torch.convert import from_jax_params, recast, shard_module
 from repro_torch.launch import serve
-from repro_torch.launch.mesh import ProcessMesh, make_mesh
+from repro_torch.launch.mesh import ProcessMesh, make_mesh, parse_mesh
 from repro_torch.launch.shardings import shard_tensor
-from repro_torch.models import moe, transformer
+from repro_torch.models import layers, moe, transformer
 
 AXES = ("pod", "data", "model")
 B, S, STEPS = 12, 8, 3
@@ -203,6 +212,10 @@ def _hook(mesh, cfg, shards, rows, serve_rows, *, name, impls, plans):
         transformer._block_prefill = real
     out["stream"] = stream
     out["cache"] = [(c["k"].numpy(), c["v"].numpy()) for c in cache]
+    bf16 = smoke_config(CASES[name][0])
+    prefill = serve.make_prefill_step(bf16, mesh, impls[0], plans[0],
+                                      cache_len=S + STEPS)
+    out["bf16"] = prefill(recast(params, bf16), {"tokens": rows})[0]
     if cfg.moe is not None:
         x = shard_tensor(_moe_input(cfg), spec + (None,), mesh)
         dist = serve.make_dist_context(cfg, mesh, impls[0], plans[0])
@@ -254,6 +267,57 @@ def local(ref):
             out[(name, "moe")] = _moe_run(cfg, module.blocks[0].moe,
                                           _moe_input(cfg), dist)
     return out
+
+
+class _TPRounding:
+    """While active, each row-parallel product (``tp.row_parallel``) of a
+    run on whole weights computes what ``parts`` model peers compute under
+    TP: each contiguous slice of the contraction's product rounded to its
+    dtype, the slices added in f32 in peer order and rounded once more."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def __enter__(self):
+        self.real = layers.row_parallel
+
+        def split(tp, product, x, w, *extra):
+            assert tp is None
+            n = w.shape[-2] // self.parts
+            outs = [product(x[..., i * n:(i + 1) * n].contiguous(),
+                            w[..., i * n:(i + 1) * n, :].contiguous(),
+                            *extra) for i in range(self.parts)]
+            return sum(o.float() for o in outs).to(outs[0].dtype)
+        layers.row_parallel = moe.row_parallel = split
+        return self
+
+    def __exit__(self, *exc):
+        layers.row_parallel = moe.row_parallel = self.real
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bf16_is_the_whole_model_with_tp_rounding(ref, procs, name):
+    """In bf16 each peer rounds its partial product before the sum over
+    "model", one rounding more than the whole product: the processes'
+    prefill logits, gathered, are bit for bit the stacked run's with that
+    rounding alone (``_TPRounding``), and not the plain stacked run's."""
+    arch, shape, impls = CASES[name]
+    cfg = smoke_config(arch)
+    params = recast(_module(ref, name), cfg)
+    prefill = serve.make_prefill_step(
+        cfg, make_mesh(shape[:2] + (1,), AXES, device="cpu"), impls[0],
+        _plan(name, impls[0]), cache_len=S + STEPS, device="cpu")
+    batch = {"tokens": torch.from_numpy(ref[f"{name}/prompts"])}
+    plain = prefill(params, batch)[0]
+    with _TPRounding(shape[2]):
+        witness = prefill(params, batch)[0]
+    ranks = _by_coords(procs[name]["ranks"])
+    got = torch.cat([torch.cat([ranks[(p, d, m)]["bf16"]
+                                for m in range(shape[2])], -1)
+                     for p in range(shape[0]) for d in range(shape[1])])
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, witness)
+    assert not torch.equal(got, plain)
 
 
 def _served(procs, name, impl):
@@ -428,3 +492,41 @@ def test_shard_module_cuts_the_model_slices(ref):
         n = w.shape[dim] // 2
         assert torch.equal(own[name], w.narrow(dim, n, n)), name
     assert torch.equal(own["final_norm.scale"], whole["final_norm.scale"])
+
+
+def _samples(text):
+    return [ln for ln in text.splitlines() if ln.startswith("sample:")]
+
+
+def test_serve_cli_with_tp_on_processes_and_stacked(tmp_path):
+    """``serve --procs --mesh 2,2,2`` (8 gloo processes, each holding its
+    "model" slice) prints the greedy tokens that ``serve --mesh 2,2,2``
+    (the stacked mesh, whole weights) and ``--mesh 2,2`` print."""
+    args = ["--arch", "megatron-moe-32e", "--smoke", "--device", "cpu",
+            "--batch", "4", "--prompt-len", "8", "--gen-len", "4"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args, "--mesh",
+         "2,2,2", "--procs", "--backend", "gloo", "--init-method",
+         f"file://{tmp_path / 'store'}"], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC), cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "on 8 processes (gloo, cpu)" in proc.stdout
+    for mesh in ("2,2,2", "2,2"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(args + ["--mesh", mesh])
+        assert _samples(buf.getvalue()) == _samples(proc.stdout), mesh
+
+
+@pytest.mark.parametrize("text,shape", [("2,3", (2, 3, 1)),
+                                        ("2,2,2", (2, 2, 2)),
+                                        ("2", None), ("2,2,2,2", None),
+                                        ("2,0,2", None), ("2,x", None)])
+def test_parse_mesh(text, shape):
+    if shape is None:
+        with pytest.raises(ValueError, match="POD,DATA"):
+            parse_mesh(text)
+        with pytest.raises(SystemExit):
+            serve.main(["--smoke", "--device", "cpu", "--mesh", text])
+    else:
+        assert parse_mesh(text) == shape
