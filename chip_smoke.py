@@ -222,6 +222,29 @@ Phases (each raises on failure; none is caught):
    parameters 1e-5) refusing a planted copy on the MoE's ``x``.  Reported
    per process: prefill ms, decode ms/step or step ms, peak GB, the shares
    of a traced prefill or step in the exchange and the sums over "model".
+12. tensor parallelism over "model" where it cuts through the kv heads, on
+   the reference's TP width: megatron-moe-32e at its published widths (32
+   heads over 8 kv heads) on (pod 1, data 1, model 16), 16 processes
+   through ``serve_procs`` and ``train_procs`` (each process projects its
+   half of a kv head's key and value columns, gathers them over "model"
+   and keeps the kv head its 2 query heads read; its oracles run on
+   ``LocalMesh((1, 1, 1))``, whole weights).  (a) 2 of 24 layers, 32
+   prompts of 128 tokens on every process and 15 decode steps: the f32
+   prefill within 1e-4, routing apart only at a near tie, tokens equal,
+   each process's decode cache (its one kv head) put together with its
+   peers' within 1e-5 of the oracle's, the replicas bit-identical; the
+   planted fault (each process reading the next kv head) must fail the f32
+   gate; bf16 launches equal to the oracle's, streams and tokens
+   bit-identical on model peers, held to the witness (``TPRounding`` over
+   16 peers) at ``PROC_BF16_APART_MAX`` sequences routed apart (the plain
+   oracle must fail that) and ``BF16_TOKEN_TIE``.  (b) 1 layer trained,
+   8 x 512 tokens on every process, 3 steps: launches equal, losses within
+   2e-2, replicated gradients bit-identical on model peers; the f32 gate
+   of phases 9 and 11 on 8 x 128 tokens, refusing a planted fault (the kv
+   gather's backward without its sum over "model").  Reported per
+   process: prefill ms, decode ms/step, step ms, peak GB, the card's GB,
+   the shares of a traced prefill in ``procmesh.tp_gather`` and
+   ``procmesh.tp_sum``.
 
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
@@ -236,8 +259,8 @@ results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
 megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
 and flash_attention_bwd, mixtral's plan run for pack and unpack;
-``launches_by_path`` lists every path's counts, phases 7's to 11's
-too (phases 8's to 11's are rank 0's, equal in every process).  It exits
+``launches_by_path`` lists every path's counts, phases 7's to 12's
+too (phases 8's to 12's are rank 0's, equal in every process).  It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.
 """
@@ -350,6 +373,15 @@ TP_TRAIN_PATH = "megatron-moe-32e tp train procs (2,2,2)"
 TP_LABEL = ("processes sharing one GPU's SMs, exchanging and summing over "
             "'model' through pinned host memory over gloo: not a multi-GPU "
             "time")
+# phase 12: tensor parallelism over "model" where it cuts through the kv
+# heads: megatron-moe-32e (32 heads over 8 kv heads) on (1, 1, 16), the
+# reference's TP width, 16 processes sharing the card; served (KV_LAYERS
+# layers, PROC_BATCH x PROMPT tokens on every process: no DP axis) and
+# trained (1 layer, KV_TRAIN_BATCH x TRAIN_SEQ tokens, the rows a process
+# of phase 11 (c); the f32 gate on KV_TRAIN_BATCH x F32_TRAIN_SEQ)
+KV_MESH, KV_LAYERS, KV_TRAIN_BATCH = (1, 1, 16), 2, 8
+KV_PATH = "megatron-moe-32e tp procs (1,1,16)"
+KV_TRAIN_PATH = "megatron-moe-32e tp train procs (1,1,16)"
 # phase 9's f32 gate: an element whose oracle gradient stays within
 # NOISE_GRAD of its tensor slice's largest, every step, lies at the f32
 # noise floor of the gradient sums (the processes' and the stacked mesh's
@@ -3470,16 +3502,17 @@ class GradSpy:
         self.train.adamw_update = self.real
 
 
-def local_oracle(torch, cfg, batch, seq, steps, kernels, keep=False):
+def local_oracle(torch, cfg, batch, seq, steps, kernels, keep=False,
+                 shape=PROC_MESH):
     """Phase 9's oracle: ``steps`` AdamW steps of fresh parameters from the
-    seed on ``LocalMesh((2, 2, 1))``, every rank stacked in this process;
-    counts set to 0 just before each step and read just after.  With
-    ``keep`` the gradients of each step, the final parameters and the
-    routing margins stay (on the card)."""
+    seed on ``LocalMesh(shape)`` (default (2, 2, 1)), every rank stacked in
+    this process; counts set to 0 just before each step and read just
+    after.  With ``keep`` the gradients of each step, the final parameters
+    and the routing margins stay (on the card)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import init_train_state, make_train_step
 
-    mesh = make_mesh(PROC_MESH, AXES, torch.device(DEVICE))
+    mesh = make_mesh(shape, AXES, torch.device(DEVICE))
     params = stack_params(torch, cfg, train=True)
     state = init_train_state(params)
     step = make_train_step(cfg, mesh, proc_train_options(steps),
@@ -3541,7 +3574,8 @@ def traced_step(torch, run):
     tp_us = busy_us([(e.time_range.start, e.time_range.end) for e in tp])
     sync_us = sum(e.time_range.elapsed_us() for e in sync)
     return res, {"host_ms": host_us / 1e3, "exchange_share": ex_us / host_us,
-                 "tp_share": tp_us / host_us, "tp_sums": len(tp),
+                 "tp_share": tp_us / host_us,
+                 "tp_sums": sum(":" not in e.name for e in tp),
                  "sync_share": sync_us / host_us,
                  "collectives": len(inside),
                  "backward_collectives": sum(e.name.endswith(".bwd")
@@ -3715,7 +3749,8 @@ def pmean_local():
         M._pmean_backward = real
 
 
-def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local):
+def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
+                   batch=TRAIN_BATCH, noise_unit="process"):
     """One rank of phase 9 (b): the first step's gradients under the
     planted fault ``plant()`` (default: ``pmean``'s backward a local ``1 /
     n``; no update),
@@ -3742,7 +3777,7 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local):
                                device=DEVICE)
         with GradSpy(update=False, on_grads=lambda i, g: grad_stats(
                 torch, mesh, specs, g, want["grads"][0])) as spy:
-            step(state, train_batches(cfg, TRAIN_BATCH, F32_TRAIN_SEQ, 1)[0])
+            step(state, train_batches(cfg, batch, F32_TRAIN_SEQ, 1)[0])
         fault = spy.grads[0]
         del state, step, spy
     free(torch)
@@ -3760,7 +3795,7 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local):
             torch, mesh, specs, g, want["grads"][i])) as spy, \
             RouteRecorder() as rec:
         res = train(each_step=each)
-    grads = spy.grads
+    grads, card = spy.grads, card_used_gb(torch)
 
     def worst(t, mask):
         return float(t[mask].max()) if mask.any() else 0.0
@@ -3770,19 +3805,43 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local):
         w = shard_tensor(want["final"][k], specs[k], mesh)
         p = p.detach()
         # each element's oracle gradient over its slice's largest, the
-        # largest over the steps
-        ratio = torch.zeros_like(p)
+        # largest over the steps; the slice is this process's, or with
+        # ``noise_unit="dp"`` its DP rank's (its model peers' slices
+        # together)
+        unit = {"process": specs[k], "dp": tuple(
+            None if e == "model" else e for e in specs[k])}
+        ratios = {u: torch.zeros_like(p) for u in unit}
         for g in want["grads"]:
-            g = shard_tensor(g[k], specs[k], mesh).abs()
-            ratio = torch.maximum(ratio, g / g.max().clamp(min=1e-30))
+            mine = shard_tensor(g[k], specs[k], mesh).abs()
+            for u, spec in unit.items():
+                lo, hi = torch.aminmax(shard_tensor(g[k], spec, mesh))
+                top = torch.maximum(hi, -lo)      # no |g| copy of a whole
+                ratios[u] = torch.maximum(ratios[u],
+                                          mine / top.clamp(min=1e-30))
+        ratio = ratios[noise_unit]
         noise = ratio <= NOISE_GRAD
         d = (p - w).abs()
+        other = "dp" if noise_unit == "process" else "process"
         params[k] = {"strict": worst(d, ~noise), "largest": float(
             w.abs().max()), "noise": worst(d, noise),
             "n_noise": int(noise.sum()), "n": d.numel(),
-            "scan": {t: worst(d, ratio > t) for t in NOISE_GRAD_SCAN}}
-        del d, ratio
+            "scan": {t: worst(d, ratio > t) for t in NOISE_GRAD_SCAN},
+            "strict_other_unit": worst(d, ratios[other] > NOISE_GRAD)}
+        del ratios
+        # the worst strict element: its gradient ratio, each step's oracle
+        # gradient over its slice's largest, and the two updates
+        at = int(torch.where(noise, torch.zeros_like(d), d).argmax())
         x = init.pop(k).to(p.device)
+        params[k]["worst_at"] = {
+            "ratio": float(ratio.reshape(-1)[at]),
+            "oracle_grads": [float(shard_tensor(g[k], specs[k], mesh)
+                                   .reshape(-1)[at]
+                                   / shard_tensor(g[k], specs[k], mesh)
+                                   .abs().max().clamp(min=1e-30))
+                             for g in want["grads"]],
+            "update": float((p - x).reshape(-1)[at]),
+            "oracle_update": float((w - x).reshape(-1)[at])}
+        del d, ratio
         params[k]["skipped"] = worst((x - w).abs(), noise)
         params[k]["flipped"] = worst((2 * x - p - w).abs(), noise)
         del x, noise
@@ -3793,7 +3852,7 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local):
     gc.collect()
     return {"rank": mesh.rank, "metrics": res["metrics"], "grads": grads,
             "fault": fault, "params": params, "launches": launches,
-            "routes": [e.cpu() for e in rec.eids]}
+            "routes": [e.cpu() for e in rec.eids], "card_gb": card}
 
 
 def rel_norms(stats):
@@ -3810,29 +3869,37 @@ def rel_norms(stats):
 
 def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
                          label="train-procs", plant=pmean_local,
-                         fault_name="pmean's backward a local 1 / n"):
-    """Phase 9 (b): 1 layer in f32, TRAIN_BATCH x F32_TRAIN_SEQ tokens,
-    F32_PROC_STEPS steps on the processes of ``shape`` (phase 11 (c): with
-    TP over "model", and its own planted fault ``plant``) against the
-    stacked oracle on the same DP shape:
+                         fault_name="pmean's backward a local 1 / n",
+                         batch=TRAIN_BATCH, noise_unit="process"):
+    """Phase 9 (b): 1 layer in f32, ``batch`` (TRAIN_BATCH) x
+    F32_TRAIN_SEQ tokens, F32_PROC_STEPS steps on the processes of
+    ``shape`` (phases 11 (c) and 12 (b): with TP over "model", and their
+    own planted faults ``plant``) against the stacked oracle on the same
+    DP shape:
     metrics within a relative 1e-5, every gathered gradient within a
     relative norm of 1e-4, every parameter after the last step within 1e-5
     of its tensor's largest value (those at the gradients' noise floor,
-    ``NOISE_GRAD``, within ``NOISE_STEP`` x the peak rate), a routing
-    difference only at a near tie; the planted fault must fail the
-    gradient gate and the two planted controls the parameter gate."""
+    ``NOISE_GRAD`` of the largest of the slice that ``noise_unit`` names,
+    within ``NOISE_STEP`` x the peak rate), a routing difference only at
+    a near tie; the planted fault must fail the gradient gate and the two
+    planted controls the parameter gate.  ``noise_unit`` is "process" (a
+    process's slice: phases 9 and 11) or "dp" (a DP rank's, its model
+    peers' slices together: phase 12, where a process's slice of the
+    vocabulary is 1/16 of it); the other unit's reading is logged."""
     from repro_torch.launch.train import train_procs
 
     cfg = train_config(n_layers=1, compute_dtype="float32")
-    oracle = local_oracle(torch, cfg, TRAIN_BATCH, F32_TRAIN_SEQ,
-                          F32_PROC_STEPS, kernels, keep=True)
+    oracle = local_oracle(torch, cfg, batch, F32_TRAIN_SEQ,
+                          F32_PROC_STEPS, kernels, keep=True,
+                          shape=shape[:2] + (1,))
     want = {"grads": oracle.pop("grads"), "final": oracle.pop("final")}
     res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
-                      proc_data(cfg, TRAIN_BATCH, F32_TRAIN_SEQ), shape,
+                      proc_data(cfg, batch, F32_TRAIN_SEQ), shape,
                       PROC_BACKEND, DEVICE,
                       proc_train_options(F32_PROC_STEPS), F32_PROC_STEPS,
                       hook=functools.partial(f32_proc_child, want=want,
-                                             plant=plant),
+                                             plant=plant, batch=batch,
+                                             noise_unit=noise_unit),
                       timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
     del want
     free(torch)
@@ -3857,6 +3924,11 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
         return max(o["params"][k][key] for o in outs for k in o["params"])
 
     param_err = over_largest(lambda e: e["strict"])
+    other_err = over_largest(lambda e: e["strict_other_unit"])
+    worst_param = max(((o["params"][k]["strict"] / o["params"][k]["largest"],
+                        k, o["rank"], o["params"][k]["worst_at"])
+                       for o in outs for k in o["params"]),
+                      key=lambda e: e[0])
     scan = {t: over_largest(lambda e: e["scan"][t]) for t in NOISE_GRAD_SCAN}
     noise_err, skipped, flipped = most("noise"), most("skipped"), \
         most("flipped")
@@ -3868,11 +3940,13 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
     routes = [torch.cat([o["routes"][i] for o in outs[::shape[2]]])
               for i in range(len(oracle["routes"]))]
     flips, n_dec, tie = near_tie_flips(torch, oracle["routes"], routes,
-                                       oracle["margins"], TRAIN_BATCH)
+                                       oracle["margins"], batch)
     launches_equal = all(o["launches"] == oracle["launches"] for o in outs)
-    log(f"{label}[f32]: 1 layer, {TRAIN_BATCH} x {F32_TRAIN_SEQ} tokens, "
+    log(f"{label}[f32]: 1 layer, {batch} x {F32_TRAIN_SEQ} tokens, "
         f"{F32_PROC_STEPS} steps on {len(outs)} processes {shape} against "
-        f"the stacked oracle: "
+        f"the stacked oracle (the noise class measured against the largest "
+        f"of {'a process' if noise_unit == 'process' else 'a DP rank'}'s "
+        f"slice): "
         f"metrics max rel diff {metric_err:.3e} (limit 1e-5); gradients, "
         f"relative norm of the gathered whole, worst {worst_grad:.3e} "
         f"(limit 1e-4; step 0's worst {worst_key} "
@@ -3885,10 +3959,17 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
         f"decisions differ, "
         f"each sequence's first at an oracle margin of at most {tie:.3e} "
         f"(near-tie limit {NEAR_TIE}); launches equal to the oracle's "
-        f"{launches_equal}")
+        f"{launches_equal}; the card {max(o['card_gb'] for o in outs):.2f} "
+        f"GB in use after the steps")
     log(f"{label}[f32 noise class]: the worst element outside it, over "
         "its tensor's largest, if NOISE_GRAD were " + ", ".join(
-            f"{t}: {v:.3e}" for t, v in scan.items()) + " (limit 1e-5)")
+            f"{t}: {v:.3e}" for t, v in scan.items()) + " (limit 1e-5); "
+        f"it lies in {worst_param[1]} (rank {worst_param[2]}) at "
+        f"{worst_param[0]:.3e}: {json.dumps(worst_param[3])}; with the "
+        f"class measured against the largest of "
+        f"{'a DP rank' if noise_unit == 'process' else 'a process'}'s "
+        f"slice instead of {'a process' if noise_unit == 'process' else 'a DP rank'}'s "
+        f"(reported): {other_err:.3e}")
     refused = min(skipped, flipped) > NOISE_STEP * rate
     log(f"{label}[f32 planted controls]: the noise class's update "
         f"skipped {skipped / rate:.4f} x the rate, its sign flipped "
@@ -5013,8 +5094,10 @@ def token_control(torch, oracle):
 def tp_shares(torch, prefill, params, batch):
     """One prefill under torch.profiler (host activity): the shares of its
     host time inside the exchanges (the ``procmesh.*`` ranges but the TP
-    sums) and inside the sums over "model" (``procmesh.tp_*``), host
-    staging included."""
+    sums) and inside the operators over "model" (``procmesh.tp_*``), all
+    and by range name (``procmesh.tp_sum``, ``procmesh.tp_gather``, ...;
+    a sum's own ``:scatter`` and ``:gather`` ranges lie inside its range
+    and are not counted apart), host staging included."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5031,9 +5114,15 @@ def tp_shares(torch, prefill, params, batch):
         return busy_us([(e.time_range.start, e.time_range.end)
                         for e in events])
 
+    tops = [e for e in tp if ":" not in e.name]
+    names = sorted({e.name for e in tops})
     return {"host_ms": host_us / 1e3, "exchange_share": busy(ex) / host_us,
             "tp_share": busy(tp) / host_us, "exchanges": len(ex),
-            "tp_sums": len(tp)}
+            "tp_sums": len(tops),
+            "tp_by_span": {n: {"share": busy([e for e in tops
+                                              if e.name == n]) / host_us,
+                               "calls": sum(e.name == n for e in tops)}
+                           for n in names}}
 
 
 def dp_index(coords, shape):
@@ -5829,6 +5918,401 @@ def phase_tp(torch, kernels):
     return launches, train, summary
 
 
+def kv_config(**over):
+    """megatron-moe-32e at its published widths, depth cut to KV_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return get_config(ARCH, **{"n_layers": KV_LAYERS, **over})
+
+
+class NextKVHead:
+    """While active, every process reads the next kv head (cyclically) in
+    place of each one its query heads read (``layers.kv_heads``): phase
+    12's planted fault on the serving path."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+
+    def __enter__(self):
+        self.real = real = self.layers.kv_heads
+
+        def shifted(n_heads, n_kv_heads, *place):
+            return tuple((k + 1) % n_kv_heads
+                         for k in real(n_heads, n_kv_heads, *place))
+        self.layers.kv_heads = shifted
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.kv_heads = self.real
+
+
+@contextlib.contextmanager
+def gather_bwd_unsummed():
+    """Phase 12 (b)'s planted fault on the training path: the backward of
+    the keys' and values' gather over "model" (``tp.gather_cols``) keeps
+    this process's own slice of the cotangent, without the peers' parts."""
+    from repro_torch.models import tp
+
+    real = tp._GatherCols.backward
+
+    def local(ctx, g):
+        c = g.shape[-1] // ctx.tp.axis_size("model")
+        return None, g.narrow(-1, tp.model_coord(ctx.tp) * c, c).contiguous()
+
+    tp._GatherCols.backward = staticmethod(local)
+    try:
+        yield
+    finally:
+        tp._GatherCols.backward = staticmethod(real)
+
+
+def kv_child(mesh, cfg32, shards, rows, serve_cli):
+    """One rank of phase 12 (a), the per-rank hook of ``serve_procs``: the
+    f32 serve of its shard (``serve_procs``' own: prefill and 15 greedy
+    steps gathered over "model") with its routing recorded; an f32 prefill
+    for its decode cache (the kv heads its query heads read) and one under
+    the planted fault (``NextKVHead``); the bf16 serving run; a prefill
+    with the residual stream's digest after every layer; the shares of a
+    traced prefill.  Returns host tensors and digests."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.convert import recast
+    from repro_torch.launch.serve import make_prefill_step
+
+    kernels = proc_kernels()
+    cfg = kv_config()
+    attn = shards[0].blocks[0].attn
+    out = {"rank": mesh.rank, "coords": mesh.rank_coords, "used_gb": {},
+           "shard_gb": param_gb(shards[0]),
+           "widths": (attn.wq.shape[-1], attn.wk.shape[-1]),
+           "experts": tuple(shards[0].blocks[0].moe.w_gate.shape)}
+    out["used_gb"]["after the parent's drop"] = card_used_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with RouteRecorder() as rec:         # the prefill's, then each step's
+        serve_cli()
+    out["f32_routes"] = [e.cpu() for e in rec.eids[:len(rec.eids) // GEN]]
+    pre32 = make_prefill_step(cfg32, mesh, None, None,
+                              cache_len=PROMPT + GEN, device=DEVICE)
+    with torch.no_grad():
+        _, cache = pre32(shards[0], {"tokens": rows})
+        out["cache"] = [(c["k"].cpu(), c["v"].cpu()) for c in cache]
+        del cache
+        with NextKVHead():
+            out["fault"] = pre32(shards[0], {"tokens": rows})[0].cpu()
+
+    shard = recast(shards.pop(), cfg)
+    free(torch)
+    run = serve(torch, cfg, shard, mesh, None, None, rows, kernels,
+                record=True, pick=tp_pick(cfg, mesh, None, None))
+    out["used_gb"]["serving"] = card_used_gb(torch)
+    out["serve"] = {k: run[k] for k in (
+        "prefill_s", "decode_s", "decode_steps", "step_ms_median",
+        "step_ms_max", "prefill_launches", "decode_launches",
+        "prefill_variants", "decode_variants")}
+    out["serve"].update(logits=run["logits"].cpu(),
+                        last_logits=run["last_logits"].cpu(),
+                        tokens=run["tokens"].cpu(),
+                        routes=[e.cpu() for e in run["routes"]])
+    del run
+    prefill = make_prefill_step(cfg, mesh, None, None,
+                                cache_len=PROMPT + GEN, device=DEVICE)
+    with torch.no_grad(), StreamRecorder(torch) as st:
+        prefill(shard, {"tokens": rows})
+    out["stream"] = st.digests
+    out["shares"] = tp_shares(torch, prefill, shard, {"tokens": rows})
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def kv_report(outs, summary, label):
+    """Each process's serving numbers, the shares of its traced prefill by
+    range (the kv gather, ``procmesh.tp_gather``, and the sums,
+    ``procmesh.tp_sum``) and the card's memory, logged and kept in
+    ``summary``."""
+    tp_report(outs, summary, label)
+    for o, r in zip(outs, summary["ranks"]):
+        spans = o["shares"]["tp_by_span"]
+        r["tp_by_span"] = spans
+        log(f"{label}[rank {o['rank']}]: traced prefill "
+            f"{o['shares']['host_ms']:.3f} ms by range over 'model': " +
+            "; ".join(f"{n} {v['share']:.4f} ({v['calls']} calls)"
+                      for n, v in spans.items()) + f"; {TP_LABEL}")
+
+
+def phase_kv_serve(torch, kernels):
+    """Phase 12 (a): megatron-moe-32e (KV_LAYERS layers) on 16 processes of
+    (1, 1, 16), where "model" cuts through the 8 kv heads, against
+    ``LocalMesh((1, 1, 1))`` (whole weights).  Returns rank 0's launch
+    counts and a summary."""
+    from repro_torch.convert import recast
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_prefill_step, serve_procs
+    from repro_torch.launch.shardings import whole_kv_heads
+    from repro_torch.models.tp import kv_heads
+
+    cfg = kv_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    local = make_mesh(KV_MESH[:2] + (1,), AXES, torch.device(DEVICE))
+    prompts = stack_prompts(torch, cfg, PROC_BATCH, PROMPT)
+    n, tp = ranks_of(KV_MESH), KV_MESH[2]
+    dh = cfg.resolved_head_dim
+    label = "kv[a]"
+    log(f"{label}: {cfg.name} layers={cfg.n_layers}/24 at its published "
+        f"widths on a {KV_MESH} mesh of {n} processes ({PROC_BACKEND}): "
+        f"{cfg.n_heads // tp} of {cfg.n_heads} heads and "
+        f"{cfg.n_kv_heads * dh // tp} of the {cfg.n_kv_heads * dh} key and "
+        f"value columns ({cfg.n_kv_heads} kv heads of {dh}: half a head), "
+        f"gathered over 'model' to the 1 kv head its heads read; "
+        f"{cfg.moe.num_experts} experts of [{cfg.d_model}, "
+        f"{cfg.d_ff // tp}] and {cfg.vocab // tp} of {cfg.vocab} vocabulary "
+        f"rows a process; {PROC_BATCH} prompts of {PROMPT} tokens on every "
+        f"process (no DP axis) and {GEN - 1} decode steps; {TP_LABEL}")
+    summary = {"label": TP_LABEL, "used_gb": {}}
+
+    torch.cuda.reset_peak_memory_stats()
+    params32 = stack_params(torch, cfg32)
+    loc32 = serve(torch, cfg32, params32, local, None, None, prompts,
+                  kernels, warmup=False, record="margins")
+    with torch.no_grad():
+        _, cache = make_prefill_step(cfg32, local, None, None,
+                                     cache_len=PROMPT + GEN, device=DEVICE)(
+            params32, {"tokens": prompts})
+    want_cache = [(c["k"].cpu(), c["v"].cpu()) for c in cache]
+    del cache
+    params = recast(params32, cfg)
+    loc = serve(torch, cfg, params, local, None, None, prompts, kernels,
+                record="margins", keep_logits=True)
+    check_run(torch, loc, cfg, PROC_BATCH, f"{label}[local oracle]",
+              ("grouped_matmul", "flash_attention"))
+    summary["oracle"] = {"prefill_ms": loc["prefill_s"] * 1e3,
+                         "decode_ms_per_step": loc["decode_s"]
+                         / loc["decode_steps"] * 1e3}
+    # the witness: the same run with TP's rounding of the row-parallel
+    # products alone (TPRounding)
+    with TPRounding(tp):
+        wit = serve(torch, cfg, params, local, None, None, prompts,
+                    kernels, record="margins", keep_logits=True)
+    del params
+    free(torch)
+    summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
+
+    holder = [params32]
+    del params32
+    t0 = time.perf_counter()
+    res = serve_procs(cfg32, holder, prompts, KV_MESH, PROC_BACKEND, DEVICE,
+                      None, None, GEN, hook=kv_child,
+                      timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    summary["processes_s"] = time.perf_counter() - t0
+    summary["used_gb"].update(res.get("card_used_gb", {}))
+    outs = sorted(res["ranks"], key=lambda o: o["coords"][2])
+    widths = {o["widths"] for o in outs}
+    experts = {o["experts"] for o in outs}
+    if widths != {(cfg.n_heads * dh // tp, cfg.n_kv_heads * dh // tp)} or \
+            experts != {(cfg.moe.num_experts, cfg.d_model, cfg.d_ff // tp)}:
+        raise AssertionError(f"{label}: wq/wk widths {widths}, expert "
+                             f"stacks {experts}")
+
+    # f32: serve_procs' gather against the oracle; the caches by kv head
+    err32 = rel_err(torch, res["logits"][0], loc32["logits"].cpu())
+    routes32 = [outs[0]["f32_routes"][i] for i in range(len(loc32["routes"]))]
+    flips32, n_dec, tie = near_tie_flips(torch, loc32["routes"], routes32,
+                                         loc32["margins"], PROC_BATCH)
+    same32 = bool(torch.equal(res["tokens"], loc32["tokens"].cpu()))
+    cache_err, held = 0.0, set()
+    for o in outs:
+        sel = kv_heads(cfg.n_heads, cfg.n_kv_heads, tp, o["coords"][2])
+        held.add(sel)
+        if {tuple(k.shape) for k, _ in o["cache"]} != {
+                (PROC_BATCH, PROMPT + GEN, len(sel), dh)}:
+            raise AssertionError(f"{label}: rank {o['rank']}'s cache "
+                                 f"{[tuple(k.shape) for k, _ in o['cache']]}")
+    for i, (k, v) in enumerate(want_cache):
+        for j, w in enumerate((k, v)):
+            # raises where two replicas of a kv head differ
+            got = whole_kv_heads([o["cache"][i][j] for o in outs], cfg)
+            cache_err = max(cache_err, rel_err(torch, got, w))
+    fault = rel_err(torch, torch.cat([o["fault"] for o in outs], -1),
+                    loc32["logits"].cpu())
+    log(f"{label}[f32]: serve_procs' prefill logits gathered over 'model', "
+        f"max rel diff {err32:.3e} against LocalMesh (limit 1e-4); {flips32} "
+        f"of {n_dec} routing decisions differ, each sequence's first at an "
+        f"oracle margin of at most {tie:.3e} (near-tie limit {NEAR_TIE}); "
+        f"greedy tokens of the prefill and {GEN - 1} steps equal {same32}; "
+        f"each process's decode cache holds kv heads "
+        f"{sorted(held)} (one a process, each on the {tp // cfg.n_kv_heads} "
+        f"peers whose heads read it, the replicas bit-identical), put "
+        f"together within {cache_err:.3e} of the oracle's (limit 1e-5); "
+        f"under the planted fault (every process reading the next kv head) "
+        f"the logits lie {fault:.3e} apart: the gate (1e-4) "
+        f"{'refuses' if fault > 1e-4 else 'PASSES'} it")
+    if not (err32 < 1e-4 and tie <= NEAR_TIE and same32
+            and cache_err <= 1e-5):
+        raise AssertionError(f"{label}: f32 prefill {err32}, routing tie "
+                             f"{tie}, tokens equal {same32}, cache "
+                             f"{cache_err}")
+    if not fault > 1e-4:
+        raise AssertionError(f"{label}: the planted fault (the next kv "
+                             f"head) passes the f32 gate ({fault})")
+    summary["f32"] = {"max_rel_diff": err32, "routing_differs": flips32,
+                      "first_difference_margin": tie, "tokens_equal": same32,
+                      "cache_rel_diff": cache_err,
+                      "planted_next_kv_head_rel_diff": fault}
+
+    # bf16: launches, the peers alike, held to the witness
+    want_l = run_counts(loc)
+    check_tp_launches(outs, want_l, label)
+    for o in outs:
+        check_run(torch, o["serve"], cfg, PROC_BATCH,
+                  f"{label}[rank {o['rank']}]",
+                  ("grouped_matmul", "flash_attention"),
+                  vocab=cfg.vocab // tp)
+    check_peers(outs, lambda o: o["serve"]["tokens"].tolist(), label,
+                "the greedy tokens")
+    check_peers(outs, lambda o: o["stream"], label,
+                "the residual stream's digest after a layer")
+    logits = torch.cat([o["serve"]["logits"] for o in outs], -1)
+    tokens = outs[0]["serve"]["tokens"]
+    routes = outs[0]["serve"]["routes"]
+    w_routes = [e.cpu() for e in wit["routes"]]
+    n_flip, n_dec, per_layer, per_seq = route_flips(torch, w_routes, routes,
+                                                    PROC_BATCH)
+    o_flip, _, o_layer, o_seq = route_flips(
+        torch, w_routes, [e.cpu() for e in loc["routes"]], PROC_BATCH)
+    w = witness_tokens(torch, wit, loc, tokens, logits, per_seq)
+    w.update(routing_differs=n_flip, per_layer=per_layer,
+             sequences_routed_apart=int(per_seq.sum()),
+             oracle_routing_differs=o_flip, oracle_per_layer=o_layer,
+             oracle_sequences_routed_apart=int(o_seq.sum()),
+             oracle_logits_rel_diff=rel_err(torch, logits,
+                                            loc["logits"].cpu()))
+    summary["witness"] = w
+    log(f"{label}[bf16]: every process launched each kernel as often as the "
+        f"oracle (prefill {want_l['prefill']}, decode {want_l['decode']}): "
+        f"flash_attention on {cfg.n_heads // tp} heads over 1 kv head, "
+        f"grouped_matmul on TMA alone at [{cfg.moe.num_experts}, rows, "
+        f"{cfg.d_model}] @ [{cfg.moe.num_experts}, {cfg.d_model}, "
+        f"{cfg.d_ff // tp}]; the residual stream after each of the "
+        f"{cfg.n_layers} layers and the greedy tokens bit-identical on the "
+        f"{tp} model peers; against the witness (the oracle with TP's "
+        f"rounding of the row-parallel products alone): routing differs in "
+        f"{n_flip} of {n_dec} decisions (per layer {per_layer}), in "
+        f"{w['sequences_routed_apart']} of {PROC_BATCH} sequences (limit "
+        f"{PROC_BF16_APART_MAX}); the plain oracle against it: {o_flip} "
+        f"decisions (per layer {o_layer}), "
+        f"{w['oracle_sequences_routed_apart']} sequences; prefill logits max "
+        f"rel diff {w['logits_rel_diff']:.3e} (bit-identical "
+        f"{w['logits_equal']}; {w['oracle_logits_rel_diff']:.3e} from the "
+        f"plain oracle's); greedy tokens equal in "
+        f"{w['sequences_same_tokens']} of {PROC_BATCH} (the plain oracle's "
+        f"in {w['oracle_sequences_same_tokens']}); each sequence routed "
+        f"alike whose tokens differ (sequence, step, witness gap): "
+        f"{w['token_gaps']} (limit {BF16_TOKEN_TIE}; one planted at the "
+        f"median gap reads {w['planted_token_gap']:.3e})")
+    check_witness_tokens(label, w)
+    if not w["sequences_routed_apart"] <= PROC_BF16_APART_MAX:
+        raise AssertionError(f"{label}: {w['sequences_routed_apart']} "
+                             f"sequences routed apart from the witness")
+    if not w["oracle_sequences_routed_apart"] > PROC_BF16_APART_MAX:
+        raise AssertionError(f"{label}: the plain oracle passes the "
+                             f"witness's routing gate")
+    kv_report(outs, summary, label)
+    r0 = next(o for o in outs if o["rank"] == 0)
+    return {"prefill": r0["serve"]["prefill_launches"],
+            "decode": r0["serve"]["decode_launches"]}, summary
+
+
+def phase_kv_train(torch, kernels):
+    """Phase 12 (b): megatron-moe-32e (1 layer) trained on 16 processes of
+    (1, 1, 16) through ``train_procs`` against the stacked oracle on (1, 1,
+    1); then the f32 gate with the kv gather's backward unsummed planted.
+    Returns rank 0's launches over its steps and a summary."""
+    from repro_torch.launch.train import train_procs
+
+    cfg = train_config(n_layers=1)
+    tokens = KV_TRAIN_BATCH * TRAIN_SEQ
+    label = "kv[b]"
+    log(f"{label}: {cfg.name} layers={cfg.n_layers}/24 at its published "
+        f"widths on a {KV_MESH} mesh of {ranks_of(KV_MESH)} processes "
+        f"({PROC_BACKEND}) through train_procs; {KV_TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step on every process (no DP axis), "
+        f"{TRAIN_PROC_STEPS} AdamW steps; {TP_LABEL}")
+    oracle = local_oracle(torch, cfg, KV_TRAIN_BATCH, TRAIN_SEQ,
+                          TRAIN_PROC_STEPS, kernels,
+                          shape=KV_MESH[:2] + (1,))
+    summary = {"label": TP_LABEL, "oracle": {
+        "step_ms": oracle["step_ms"], "peak_gb": oracle["peak_gb"]}}
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
+                      proc_data(cfg, KV_TRAIN_BATCH, TRAIN_SEQ), KV_MESH,
+                      PROC_BACKEND, DEVICE,
+                      proc_train_options(TRAIN_PROC_STEPS), TRAIN_PROC_STEPS,
+                      hook=tp_train_child, timeout=PROC_TIMEOUT_S,
+                      join_timeout=PROC_JOIN_S)
+    summary["processes_s"] = time.perf_counter() - t0
+    outs = res["ranks"]
+    check_proc_launches(outs, oracle, cfg.n_layers, label)
+    check_peers(outs, lambda o: o["replicated"], label,
+                "a gradient of a leaf replicated over 'model'")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(res["metrics"], oracle["metrics"])]
+    log(f"{label}: every process launched each kernel as often as the "
+        f"oracle each step ({oracle['launches'][0]}); the gradients of the "
+        f"{len(outs[0]['replicated'][0])} leaves replicated over 'model' "
+        f"bit-identical on the {KV_MESH[2]} model peers every step; step "
+        f"losses {[round(m['loss'], 6) for m in res['metrics']]} against "
+        f"the oracle's, relative differences {[f'{d:.3e}' for d in diffs]} "
+        f"(limit 2e-2)")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"{label}: step losses against the oracle "
+                             f"{diffs}")
+    summary.update(loss_diffs=diffs, card_used_gb=res.get("card_used_gb",
+                                                          {}), ranks=[])
+    for o in outs:
+        ms = o["train"]["step_ms"]
+        r = {"rank": o["rank"], "coords": list(o["coords"]), "step_ms": ms,
+             "tokens_per_s": tokens / ms[1] * 1e3,
+             "peak_gb": o["peak_gb"], "card_gb": max(o["card_gb"]),
+             "shard_gb": o["shard_gb"], **o["trace"]}
+        summary["ranks"].append(r)
+        log(f"{label}[rank {o['rank']} {tuple(o['coords'])}]: step ms "
+            f"{[round(x, 3) for x in ms]} (step {TRAIN_PROC_STEPS - 1} "
+            f"traced); {r['tokens_per_s']:.1f} tokens/s at step 1; peak "
+            f"{o['peak_gb']:.2f} GB (f32 shard {o['shard_gb']:.2f} GB); the "
+            f"card {r['card_gb']:.2f} GB in use; traced step "
+            f"{r['host_ms']:.3f} ms: operators over 'model' "
+            f"{r['tp_share']:.4f} ({r['tp_sums']} calls), gradient sync "
+            f"{r['sync_share']:.4f}; {TP_LABEL}")
+    counts = {k: sum(step[k] for step in outs[0]["launches"])
+              for k in outs[0]["launches"][0]}
+    free(torch)
+    torch.cuda.ipc_collect()
+    summary["f32"] = train_procs_f32_gate(
+        torch, kernels, KV_MESH, label, gather_bwd_unsummed,
+        "the kv gather's backward keeping its own cotangent slice, without "
+        "the sum over 'model'", batch=KV_TRAIN_BATCH, noise_unit="dp")
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    return counts, summary
+
+
+def phase_kv(torch, kernels):
+    """Phase 12: megatron-moe-32e on (1, 1, 16), where "model" cuts through
+    the kv heads: (a) served, (b) trained.  Returns the serving launches,
+    the training's and a summary."""
+    summary = {}
+    t0 = time.perf_counter()
+    serving, summary["a"] = phase_kv_serve(torch, kernels)
+    summary["a_s"] = time.perf_counter() - t0
+    free(torch)
+    t0 = time.perf_counter()
+    train, summary["b"] = phase_kv_train(torch, kernels)
+    summary["b_s"] = time.perf_counter() - t0
+    return {KV_PATH: serving}, train, summary
+
+
 
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
@@ -5983,6 +6467,13 @@ def main() -> int:
     launches.update(tp_launches)
     log(f"phase tp: {time.perf_counter() - t0:.1f} s; {json.dumps(tp)}")
 
+    # 12. tensor parallelism over "model" where it cuts through the kv
+    # heads: megatron-moe-32e on (1, 1, 16), served and trained
+    t0 = time.perf_counter()
+    kv_launches, kv_train_launches, kv = phase_kv(torch, kernels)
+    launches.update(kv_launches)
+    log(f"phase kv: {time.perf_counter() - t0:.1f} s; {json.dumps(kv)}")
+
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for
     # pack and unpack, which training does not launch: the main path of
@@ -6011,6 +6502,8 @@ def main() -> int:
                 f"process)"] = split_train_launches[name]
         by_path[f"{TP_TRAIN_PATH} ({TRAIN_PROC_STEPS} steps, rank 0)"] = \
             tp_train_launches[name]
+        by_path[f"{KV_TRAIN_PATH} ({TRAIN_PROC_STEPS} steps, rank 0)"] = \
+            kv_train_launches[name]
         for path, counts in stack_launches.items():
             if name in counts:
                 by_path[path] = counts[name]

@@ -42,6 +42,20 @@ rank's prompts go to each of its model peers (8 processes here):
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,2,2 --procs \\
         --backend gloo
+
+"model" must divide the query heads, not the kv heads: where it cuts
+through them (the reference's 16-way TP over 8 kv heads) the keys' and
+values' columns are gathered over "model" after the projection and each
+process keeps the kv heads its query heads read.  The smoke llama3.2-1b
+(8 heads, 2 kv heads) on 8 processes, and megatron-moe-32e at its
+published widths (32 heads, 8 kv heads) on 16 processes sharing one card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama3.2-1b --smoke --device cpu --mesh 1,1,8 --procs \\
+        --backend gloo --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch megatron-moe-32e --n-layers 2 --mesh 1,1,16 --procs \\
+        --backend gloo --batch 32 --prompt-len 128 --gen-len 16
 """
 
 from __future__ import annotations
@@ -359,7 +373,9 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="POD,DATA[,MODEL]",
                     help="serve on a local (POD, DATA, MODEL) mesh stacked "
                          "on the device (MODEL defaults to 1; the stacked "
-                         "mesh keeps whole weights); default: no mesh")
+                         "mesh keeps whole weights; with --procs, TP over "
+                         "MODEL, which must divide the query heads); "
+                         "default: no mesh")
     ap.add_argument("--procs", action="store_true",
                     help="serve the --mesh on one process per rank")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),

@@ -26,9 +26,17 @@ parameter names).
 ``gather_tensor`` puts the slices back together (on a ``ProcessMesh``, over
 its process groups).  On a ``ProcessMesh`` the model code runs the "model"
 slices these specs cut (``models/tp.py``), with one deviation: the decode
-cache holds this process's kv heads where ``_CACHE_TABLE`` shards
-``head_dim`` (the same bytes a process and the same math); ``cache_specs``
-stays the reference's table.
+cache holds the kv heads this process's query heads read (``tp.kv_heads``)
+where ``_CACHE_TABLE`` shards ``head_dim``.  Where "model" divides the kv
+heads those are this process's own, the same bytes a process as the
+reference's.  Where it cuts through them (8 kv heads on the reference's
+16-way "model"), each kv head is replicated on the peers whose query heads
+read it: twice the reference's cache bytes for megatron-moe-32e at 16, and
+no exchange inside attention, where the reference sums the ``dh``-partial
+scores ``[B, H, S]`` over "model" in f32 every layer and step, as many
+bytes over the fabric as the replicas add to the cache.  ``cache_specs``
+stays the reference's table; ``whole_kv_heads`` puts the model peers'
+caches back together.
 """
 
 from __future__ import annotations
@@ -40,12 +48,14 @@ import torch
 
 from ..configs.registry import ModelConfig
 from ..models.dist import choose_ep_axes
+from ..models.tp import kv_heads
 from .mesh import ProcessMesh, all_gather
 
 __all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
            "spec_tree", "param_tree", "cache_tree", "module_specs",
            "shard_tensor", "gather_tensor", "tree_map_with_path",
-           "flatten_with_path", "named_params", "sharded_axes"]
+           "flatten_with_path", "named_params", "sharded_axes",
+           "whole_kv_heads"]
 
 Spec = Tuple[Any, ...]
 
@@ -469,3 +479,26 @@ def gather_tensor(local: torch.Tensor, spec: Spec, mesh,
     for part, c in zip(parts, coords):
         out[_slices(shape, spec, mesh, c)] = part
     return out
+
+
+def whole_kv_heads(parts, cfg: ModelConfig) -> torch.Tensor:
+    """A decode cache's whole keys or values ``[B, S_phys, K, Dh]`` from the
+    model peers' ``[B, S_phys, K_sel, Dh]`` (``parts``, by model
+    coordinate): each kv head from the first peer that reads it
+    (``tp.kv_heads``).  Raises when its replicas on the peers that share it
+    are not bit for bit the same."""
+    n = len(parts)
+    whole = [None] * cfg.n_kv_heads
+    for coord, part in enumerate(parts):
+        sel = kv_heads(cfg.n_heads, cfg.n_kv_heads, n, coord)
+        if part.shape[2] != len(sel):
+            raise ValueError(f"model coordinate {coord} holds "
+                             f"{part.shape[2]} kv heads; it reads {sel}")
+        for j, head in enumerate(sel):
+            t = part[:, :, j]
+            if whole[head] is None:
+                whole[head] = t
+            elif not torch.equal(whole[head], t):
+                raise ValueError(f"the replicas of kv head {head} differ "
+                                 f"on model coordinate {coord}")
+    return torch.stack(whole, 2)

@@ -42,11 +42,17 @@ per-process program rather than a fabric), rank 0 printing the steps:
         --backend gloo --batch 12 --seq 16 --steps 2
 
 ``--mesh POD,DATA,MODEL`` adds tensor parallelism over "model" on the
-processes (``models/tp.py``; 8 here):
+processes (``models/tp.py``; 8 here).  "model" must divide the query
+heads; where it cuts through the kv heads, as on (2, 1, 4) for the smoke
+config's 4 heads over 2 kv heads, the keys' and values' columns are
+gathered over "model" and their gradients summed back:
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,2,2 --procs \\
         --backend gloo --batch 8 --seq 32 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 2,1,4 --procs \\
+        --backend gloo --batch 8 --seq 16 --steps 2
 """
 
 from __future__ import annotations
@@ -533,7 +539,9 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="POD,DATA[,MODEL]",
                     help="train on a local (POD, DATA, MODEL) mesh stacked "
                          "on the device (MODEL defaults to 1; the stacked "
-                         "mesh keeps whole weights); default: no mesh")
+                         "mesh keeps whole weights; with --procs, TP over "
+                         "MODEL, which must divide the query heads); "
+                         "default: no mesh")
     ap.add_argument("--procs", action="store_true",
                     help="train the --mesh on one process per rank")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),

@@ -15,13 +15,22 @@ PyTorch, as the reference's.  The decode cache is updated in place (the
 reference returns a new one) to keep one copy of it in device memory.
 
 Under tensor parallelism (``tp``, a ``ProcessMesh`` whose "model" axis is
-above 1; ``models/tp.py``) attention runs on this process's heads, counted
-from its weights' widths: ``wq``/``wk``/``wv`` are column-parallel behind
+above 1; ``models/tp.py``) attention runs on this process's query heads,
+counted from ``wq``'s width, and on the kv heads they read
+(``tp.kv_heads``): ``wq``/``wk``/``wv`` are column-parallel behind
 ``copy_in`` and ``wo`` is row-parallel (``row_parallel``); so are the
 MLP's ``w_gate``/``w_up`` and ``w_down`` (the GELU form's ``b_up`` sharded,
-``b_down`` added once after the sum).  The replicated ``q_norm``/``k_norm``
-enter through ``copy_in`` too, which sums their gradients over the peers'
-heads.  The kernels run unchanged on the local heads.
+``b_down`` added once after the sum).  Where "model" divides the kv heads a
+process's ``wk``/``wv`` columns are exactly the kv heads it reads; where it
+cuts through them, the peers' columns are gathered over "model"
+(``tp.gather_cols``, the reference's "one small K*dh all-gather after the
+projection") and each process keeps the kv heads it reads, replicated on
+the peers that share them, in the prefill's keys and values and the decode
+cache alike.  ``k_norm`` and RoPE run after the gather, on whole heads.
+The replicated ``q_norm``/``k_norm`` (and a ``wk``/``wv`` that
+``_drop_uneven`` keeps whole) enter through ``copy_in`` too, which sums
+their gradients over the peers' heads.  The kernels run unchanged on the
+local heads.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from ..configs.registry import ModelConfig
 # plain wrapper call
 from ..kernels.flash_attention import flash_attention_autograd as \
     flash_attention
-from .tp import copy_in, row_parallel, tp_of
+from .tp import copy_in, gather_cols, kv_heads, model_coord, row_parallel, \
+    tp_of
 
 NEG_INF = -1e30
 
@@ -164,11 +174,14 @@ class Attention(nn.Module):
                                            device=device))
 
 
-def _heads(cfg: ModelConfig, p: Attention) -> Tuple[int, int]:
-    """(query heads, kv heads) that ``p`` holds: all of them, or this
-    process's share under TP."""
-    dh = cfg.resolved_head_dim
-    return p.wq.shape[-1] // dh, p.wk.shape[-1] // dh
+def _heads(cfg: ModelConfig, p: Attention, tp=None
+           ) -> Tuple[int, Tuple[int, ...]]:
+    """(the query heads ``p`` holds, from ``wq``'s width; the kv heads they
+    read, ``tp.kv_heads``): every head, or this process's share under TP
+    (``tp`` as ``_attn_tp`` gives it)."""
+    place = () if tp is None else (tp.axis_size("model"), model_coord(tp))
+    return (p.wq.shape[-1] // cfg.resolved_head_dim,
+            kv_heads(cfg.n_heads, cfg.n_kv_heads, *place))
 
 
 def _attn_tp(cfg: ModelConfig, p: Attention, tp):
@@ -176,16 +189,54 @@ def _attn_tp(cfg: ModelConfig, p: Attention, tp):
     return tp_of(tp, p.wq.shape[-1], cfg.n_heads * cfg.resolved_head_dim)
 
 
+def _take_heads(t: torch.Tensor, sel: Tuple[int, ...]) -> torch.Tensor:
+    """``t [B, S, K, Dh]``'s heads ``sel`` (a head repeated where ``sel``
+    repeats it), ``[B, S, len(sel), Dh]``: a view when ``sel`` is one
+    range."""
+    if sel == tuple(range(sel[0], sel[0] + len(sel))):
+        return t.narrow(2, sel[0], len(sel))
+    return torch.cat([t.narrow(2, head, 1) for head in sel], 2)
+
+
+def _project_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor, tp,
+                sel: Tuple[int, ...]):
+    """k, v ``[B, S, len(sel), Dh]`` of the kv heads ``sel`` (``x`` already
+    inside the TP region).  A process whose ``wk``/``wv`` columns are
+    those heads projects them alone; else the peers' column slices are
+    gathered over "model" (``gather_cols``) or, for a whole ``wk``/``wv``,
+    every head is projected, and the heads ``sel`` kept."""
+    b, s, _ = x.shape
+    n_kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    wk, wv = p.wk.to(x.dtype), p.wv.to(x.dtype)
+    cols = wk.shape[-1]
+    kv_tp = tp_of(tp, cols, n_kv * dh)
+    if kv_tp is not None and cols == len(sel) * dh \
+            and model_coord(kv_tp) * cols == sel[0] * dh:
+        return (x @ wk).reshape(b, s, len(sel), dh), \
+            (x @ wv).reshape(b, s, len(sel), dh)
+    if kv_tp is not None:
+        kk, v = gather_cols(kv_tp, torch.stack([x @ wk, x @ wv])).unbind(0)
+    else:
+        # whole weights (no TP, or a leaf its spec keeps whole: its
+        # gradient summed over the peers that read it)
+        wk, wv = copy_in(tp, wk), copy_in(tp, wv)
+        kk, v = x @ wk, x @ wv
+    kk, v = kk.reshape(b, s, n_kv, dh), v.reshape(b, s, n_kv, dh)
+    if sel == tuple(range(n_kv)):
+        return kk, v
+    # contiguous, as the other paths' projections are
+    return _take_heads(kk, sel).contiguous(), _take_heads(v, sel).contiguous()
+
+
 def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                  positions: torch.Tensor, rope: bool = True, tp=None):
-    """q, k, v of the heads ``p`` holds; ``tp`` (or None) as
-    ``_attn_tp`` gives it."""
+    """q, k, v of the query heads ``p`` holds and the kv heads they read
+    (``_heads``); ``tp`` (or None) as ``_attn_tp`` gives it."""
     b, s, _ = x.shape
-    (h, k), dh = _heads(cfg, p), cfg.resolved_head_dim
+    (h, sel), dh = _heads(cfg, p, tp), cfg.resolved_head_dim
     x = copy_in(tp, x)
     q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, dh)
-    kk = (x @ p.wk.to(x.dtype)).reshape(b, s, k, dh)
-    v = (x @ p.wv.to(x.dtype)).reshape(b, s, k, dh)
+    kk, v = _project_kv(cfg, p, x, tp, sel)
     if cfg.qk_norm:
         q = rms_head_norm(q, copy_in(tp, p.q_norm))
         kk = rms_head_norm(kk, copy_in(tp, p.k_norm))
@@ -284,12 +335,14 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     projections (no copy; the kernel reads through the strides and writes
     ``[B, S, H, D]``); False runs the reference's plain math.  ``use_window=False``
     drops the window.  With ``return_kv`` also returns the (pre-GQA-repeat)
-    keys/values.  ``tp``: the ``ProcessMesh`` of a TP run (the heads ``p``
-    holds, their partial ``wo`` products summed over "model"), or None."""
+    keys/values of the kv heads read (``_heads``).  ``tp``: the
+    ``ProcessMesh`` of a TP run (the query heads ``p`` holds and the kv
+    heads they read, their partial ``wo`` products summed over "model"), or
+    None."""
     b, s, _ = x.shape
-    h, kv = _heads(cfg, p)
     tp = _attn_tp(cfg, p, tp)
     q, k, v = _project_qkv(cfg, p, x, positions, tp=tp)
+    h, kv = q.shape[2], k.shape[2]
     eff = window if (window is not None and use_window) else None
     if use_kernel:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -333,15 +386,15 @@ def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                      *, window: Optional[int] = None, tp=None):
     """One-token decode against a (ring-buffered, if windowed) KV cache.
 
-    x [B, 1, d]; caches [B, S_phys, K, Dh] (the kv heads ``p`` holds),
-    written in place at ``pos``.  Returns (out [B, 1, d], cache_k,
-    cache_v); ``tp`` as ``attention_apply``'s."""
-    b = x.shape[0]
-    (h, kv), dh = _heads(cfg, p), cfg.resolved_head_dim
+    x [B, 1, d]; caches [B, S_phys, K, Dh] (the kv heads the query heads of
+    ``p`` read, ``_heads``), written in place at ``pos``.  Returns (out [B,
+    1, d], cache_k, cache_v); ``tp`` as ``attention_apply``'s."""
+    b, dh = x.shape[0], cfg.resolved_head_dim
     tp = _attn_tp(cfg, p, tp)
     s_phys = cache_k.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x, positions, tp=tp)
+    h, kv = q.shape[2], k_new.shape[2]
     slot = pos if window is None else pos % s_phys
     cache_k[:, slot] = k_new[:, 0]
     cache_v[:, slot] = v_new[:, 0]

@@ -14,11 +14,21 @@ between two operators, each an ``autograd.Function``:
 Both sums add the peers' parts in member order (``launch/mesh.member_sum``,
 in f32), so every model peer holds the same bits: two peers whose residual
 streams differ by an ulp could route a token differently.  An all-reduce's
-order is the backend's and gives no such promise.  ``max_over`` (the cross
-entropy's shift) and ``argmax_over`` (greedy decoding over vocabulary
-shards, the lowest global index first among ties, as ``torch.argmax`` and
-``jnp.argmax``) complete the set.  Each collective runs inside a
-``procmesh.tp_*`` profiler range, a backward inside ``procmesh.tp_*.bwd``.
+order is the backend's and gives no such promise.  Beyond two peers a sum
+is a scatter of ``1 / n`` chunks, each peer's member-order sum of its
+chunk, and a gather of the sums (about twice the operand's bytes a process
+at any ``n``).  ``max_over`` (the cross entropy's shift) and
+``argmax_over`` (greedy decoding over vocabulary shards, the lowest global
+index first among ties, as ``torch.argmax`` and ``jnp.argmax``) complete
+the set.  ``gather_cols`` joins the peers' column slices of a projection
+(the keys' and values' ``K·dh`` columns where "model" cuts through a kv
+head, as the reference's GSPMD gathers them after the projection); its
+backward sums the cotangent over "model" in member order, keeping this
+process's slice (the scatter alone).  ``kv_heads`` names the kv heads a
+process's query heads read.  Each operator's collectives run inside a
+``procmesh.tp_*`` profiler range (a sum's two beyond two peers inside
+``procmesh.tp_*:scatter`` and ``:gather`` within it), a backward's inside
+``procmesh.tp_*.bwd``.
 
 ``tp`` below is the ``ProcessMesh`` whose "model" group the collectives run
 over, or None: on a ``LocalMesh`` (which keeps whole weights), where
@@ -28,14 +38,15 @@ the identity (``tp_of``).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from ..launch.mesh import ProcessMesh, all_gather, member_sum
+from ..launch.mesh import ProcessMesh, all_gather, all_to_all, member_sum
 
 __all__ = ["tp_mesh", "tp_of", "vocab_slice", "copy_in", "sum_out",
-           "row_parallel", "max_over", "argmax_over"]
+           "row_parallel", "gather_cols", "kv_heads", "model_coord",
+           "max_over", "argmax_over"]
 
 AXIS = ("model",)
 
@@ -62,7 +73,7 @@ def tp_of(tp: Optional[ProcessMesh], local: int, whole: int
     return tp
 
 
-def _model_coord(tp: ProcessMesh) -> int:
+def model_coord(tp: ProcessMesh) -> int:
     """This process's coordinate on "model"."""
     return tp.rank_coords[tp.axis_names.index("model")]
 
@@ -71,7 +82,7 @@ def vocab_slice(tp: ProcessMesh, ids: torch.Tensor, n_loc: int):
     """(the ids as rows of this process's contiguous ``n_loc``-row slice
     of the vocabulary, 0 for the ids outside it; whether each id is
     inside)."""
-    local = ids - _model_coord(tp) * n_loc
+    local = ids - model_coord(tp) * n_loc
     owned = (local >= 0) & (local < n_loc)
     return torch.where(owned, local, torch.zeros_like(local)), owned
 
@@ -82,9 +93,37 @@ def _gather(tp: ProcessMesh, x: torch.Tensor, span: str) -> torch.Tensor:
         return all_gather(tp, x.unsqueeze(0), AXIS, span=span)[0]
 
 
+def _scatter_sum(tp: ProcessMesh, chunks: torch.Tensor,
+                 span: str) -> torch.Tensor:
+    """This process's chunk of the peers' ``chunks [n, ...]`` (chunk ``j``
+    for model coordinate ``j``): the peers' copies of it added in member
+    order in f32, rounded to the chunks' dtype (a reduce-scatter whose bits
+    do not depend on the backend)."""
+    with torch.no_grad():
+        got = all_to_all(tp, chunks.unsqueeze(0), AXIS, span=span)[0]
+    return member_sum(p.float() for p in got).to(chunks.dtype)
+
+
 def _sum(tp: ProcessMesh, x: torch.Tensor, span: str) -> torch.Tensor:
-    parts = _gather(tp, x.contiguous(), span)
-    return member_sum(p.float() for p in parts).to(x.dtype)
+    """The peers' ``x`` added in member order in f32, rounded to ``x``'s
+    dtype (the same bits either way).  Two peers gather each other's ``x``:
+    twice its bytes a process in one collective.  More peers each add their
+    ``1 / n`` of the elements (``_scatter_sum``), then gather the sums:
+    about twice ``x``'s bytes in two collectives, where a gather of every
+    peer's ``x`` would move ``n`` times them (at 16 peers more than the
+    card holds for the MoE's grid)."""
+    n = tp.axis_size("model")
+    if n <= 2:
+        parts = _gather(tp, x.contiguous(), span)
+        return member_sum(p.float() for p in parts).to(x.dtype)
+    with torch.profiler.record_function(span):
+        flat = x.reshape(-1)
+        pad = -flat.numel() % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        mine = _scatter_sum(tp, flat.reshape(n, -1), f"{span}:scatter")
+        whole = _gather(tp, mine, f"{span}:gather").reshape(-1)
+    return whole[:x.numel()].reshape(x.shape)
 
 
 class _CopyIn(torch.autograd.Function):
@@ -110,6 +149,22 @@ class _SumOut(torch.autograd.Function):
         return None, g
 
 
+class _GatherCols(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, tp, x):
+        ctx.tp = tp
+        parts = _gather(tp, x.contiguous(), "procmesh.tp_gather")
+        return parts.movedim(0, -2).reshape(*x.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.tp.axis_size("model")
+        chunks = g.reshape(*g.shape[:-1], n, -1).movedim(-2, 0)
+        return None, _scatter_sum(ctx.tp, chunks.contiguous(),
+                                  "procmesh.tp_gather.bwd")
+
+
 def copy_in(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
     """Enter the TP region: ``x`` as it is; its gradient summed over
     "model"."""
@@ -131,6 +186,32 @@ def row_parallel(tp: Optional[ProcessMesh], product, x: torch.Tensor,
     return sum_out(tp, product(x, w, *extra))
 
 
+def gather_cols(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
+    """``[..., n · c]``: every model peer's ``x [..., c]`` (a column slice)
+    joined along the last dim by model coordinate, no arithmetic; its
+    gradient summed over "model" in member order (f32), this process's
+    ``c`` columns kept."""
+    return x if tp is None else _GatherCols.apply(tp, x)
+
+
+def kv_heads(n_heads: int, n_kv_heads: int, n: int = 1,
+             coord: int = 0) -> Tuple[int, ...]:
+    """The kv heads that the query heads of model coordinate ``coord`` of
+    ``n`` read, in order (every kv head for ``n`` 1): global q head ``i``
+    reads kv head ``i // (n_heads / n_kv_heads)``, and coordinate ``coord``
+    holds the contiguous ``n_heads / n`` q heads from ``coord · n_heads /
+    n``.  One entry a kv head when each is read by as many of those q heads
+    (q head ``j`` then reads entry ``j // (heads / entries)``); else, where
+    the slice's edge cuts a GQA group, one entry a q head."""
+    h_loc, group = n_heads // n, n_heads // n_kv_heads
+    per_q = tuple((coord * h_loc + j) // group for j in range(h_loc))
+    heads = tuple(sorted(set(per_q)))
+    if h_loc % len(heads) or any(per_q.count(k) != h_loc // len(heads)
+                                 for k in heads):
+        return per_q
+    return heads
+
+
 def max_over(tp: ProcessMesh, x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of the peers' ``x`` (no gradient: the cross
     entropy's shift, which its value does not depend on)."""
@@ -147,7 +228,7 @@ def argmax_over(tp: Optional[ProcessMesh], logits: torch.Tensor
     if tp is None:
         return idx
     best = logits.gather(-1, idx[..., None])[..., 0]
-    glob = idx + _model_coord(tp) * logits.shape[-1]
+    glob = idx + model_coord(tp) * logits.shape[-1]
     both = _gather(tp, torch.stack([best.double(), glob.double()]),
                    "procmesh.tp_argmax")                 # [n, 2, ...]
     # the first peer holding the largest value: ties go to the lowest

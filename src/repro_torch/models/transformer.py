@@ -35,9 +35,12 @@ vocabulary-sharded ``embed`` looks up this process's rows, writes zero for
 ids outside them and sums over "model" (exact: one peer contributes); the
 head gives this process's vocabulary shard of the logits (the tied head is
 its ``embed`` shard's transpose), and ``lm_loss`` is then a
-vocabulary-parallel cross entropy.  The decode cache holds this process's
-kv heads.  A leaf its spec keeps whole (an odd vocabulary) takes the whole
-path, with no collective.
+vocabulary-parallel cross entropy.  The prefill's cache, and so the decode
+cache, holds the kv heads this process's query heads read
+(``layers._heads``): its own where "model" divides the kv heads, else
+gathered over "model" and replicated on the peers that share one.  A leaf
+its spec keeps whole (an odd vocabulary) takes the whole path, with no
+collective.
 """
 
 from __future__ import annotations
