@@ -218,8 +218,11 @@ Phases (each raises on failure; none is caught):
    launches equal, tokens held to the witness as in (a).  (c)
    megatron-moe-32e (1 layer) trained on (2, 2, 2): bf16 launches equal,
    losses within 2e-2, replicated leaves' gradients bit-identical on model
-   peers; the f32 gate (metrics 1e-5, gradients a relative norm of 1e-4,
-   parameters 1e-5) refusing a planted copy on the MoE's ``x``.  Reported
+   peers (in (a)'s 8 processes after their serving, through
+   ``train_procs``' per-rank path on the parent's shared model: one start
+   of the processes for both); the f32 gate (metrics 1e-5, gradients a
+   relative norm of 1e-4, parameters 1e-5) refusing a planted copy on the
+   MoE's ``x``.  Reported
    per process: prefill ms, decode ms/step or step ms, peak GB, the shares
    of a traced prefill or step in the exchange and the sums over "model".
 12. tensor parallelism over "model" where it cuts through the kv heads, on
@@ -238,13 +241,39 @@ Phases (each raises on failure; none is caught):
    bit-identical on model peers, held to the witness (``TPRounding`` over
    16 peers) at ``PROC_BF16_APART_MAX`` sequences routed apart (the plain
    oracle must fail that) and ``BF16_TOKEN_TIE``.  (b) 1 layer trained,
-   8 x 512 tokens on every process, 3 steps: launches equal, losses within
-   2e-2, replicated gradients bit-identical on model peers; the f32 gate
+   8 x 512 tokens on every process, 3 steps (in (a)'s processes, as phase
+   11 (c) in 11 (a)'s): launches equal, losses within 2e-2, replicated
+   gradients bit-identical on model peers; the f32 gate
    of phases 9 and 11 on 8 x 128 tokens, refusing a planted fault (the kv
    gather's backward without its sum over "model").  Reported per
    process: prefill ms, decode ms/step, step ms, peak GB, the card's GB,
    the shares of a traced prefill in ``procmesh.tp_gather`` and
    ``procmesh.tp_sum``.
+13. tensor parallelism over "model" where it cuts through a query head,
+   each cell in one spawn of ``serve_procs`` whose per-rank hook serves,
+   then trains a 1-layer model each process makes from the seed through
+   ``train_procs``' per-rank path twice (bf16, then the f32 gate).  (a)
+   internvl2-1b at its published widths (2 of 24 layers; 14 heads over 2
+   kv heads of 64) on (1, 1, 16), 16 processes: 56 of a 64-wide head's
+   columns a process, the peers' query columns gathered and the 1 or 2
+   whole heads they touch computed, this process's columns of their
+   output kept; 8 requests of its 256 patch positions + 128 tokens on
+   every process and 15 decode steps.  (b) whisper-tiny (2 + 2 of its 4 +
+   4 layers, 1500 frames; 6 heads: 1.5 a process) on (1, 2, 4), 8
+   processes, served through ``serve_procs`` with the frames in
+   ``extras`` (the encoder and cross K/V, then the decode step over an
+   8-token prompt) and 15 decode steps.  Gated in each: the f32 prompt
+   pass within 1e-4 of ``LocalMesh`` (whisper's teacher-forced forward
+   too), tokens equal, the caches (and cross caches) by kv head within
+   1e-5, the replicas bit-identical, the planted fault (each process
+   keeping its neighbour's columns) refused; bf16 launches equal, each
+   shared query head's output bit-identical on its peers, streams and
+   tokens bit-identical on model peers, tokens held to the witness at
+   ``BF16_TOKEN_TIE``; trained (internvl2-1b 1 layer, 1 x 384 positions;
+   whisper 8 x 64 tokens), 2 steps: launches equal, losses within 2e-2,
+   replicated gradients bit-identical, and the f32 gate refusing the same
+   planted fault (a leaf initialised at zero, whisper's biases, is held
+   in the noise class).  Reported per process as phase 12.
 
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
@@ -259,8 +288,8 @@ results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
 megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
 and flash_attention_bwd, mixtral's plan run for pack and unpack;
-``launches_by_path`` lists every path's counts, phases 7's to 12's
-too (phases 8's to 12's are rank 0's, equal in every process).  It exits
+``launches_by_path`` lists every path's counts, phases 7's to 13's
+too (phases 8's to 13's are rank 0's, equal in every process).  It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.
 """
@@ -382,6 +411,32 @@ TP_LABEL = ("processes sharing one GPU's SMs, exchanging and summing over "
 KV_MESH, KV_LAYERS, KV_TRAIN_BATCH = (1, 1, 16), 2, 8
 KV_PATH = "megatron-moe-32e tp procs (1,1,16)"
 KV_TRAIN_PATH = "megatron-moe-32e tp train procs (1,1,16)"
+# phase 13: tensor parallelism over "model" where it cuts through a query
+# head.  (a) internvl2-1b (14 heads over 2 kv heads of 64) on (1, 1, 16),
+# the reference's TP width: 56 of a 64-wide head's columns a process, the
+# 1 or 2 whole query heads they touch computed; served (HEAD_LAYERS of 24
+# layers, HEAD_BATCH rows of its 256 patch positions + HEAD_TOKENS tokens
+# on every process, no DP axis) and trained (1 layer, HEAD_TRAIN_BATCH x
+# HEAD_TRAIN_SEQ, the f32 gate alike: the whole 151655-row embedding, its
+# gradient and moments on every process, and a step's logits fill the
+# card at 16 processes).  (b) whisper-tiny (6 heads of 64: 1.5 a process)
+# at its published widths on (1, 2, 4), 8 processes, ENCDEC_LAYERS +
+# ENCDEC_LAYERS of its 4 + 4 layers: served (ENCDEC_BATCH requests of
+# ENCDEC_PROMPT tokens over 1500 frames: each prompt token is a decode
+# step) and trained (ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ; a step's
+# gradient sync over "data" is one host-staged gather a leaf).  Each cell
+# is one spawn (head_cell_child): starting and ending 16 processes on the
+# card takes about 45 s
+HEAD_ARCH, HEAD_MESH, HEAD_LAYERS, HEAD_TRAIN_STEPS = ("internvl2-1b",
+                                                       (1, 1, 16), 2, 2)
+HEAD_BATCH, HEAD_TOKENS = 8, 128
+HEAD_TRAIN_BATCH, HEAD_TRAIN_SEQ = 1, 384
+ENCDEC_MESH, ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_LAYERS = (1, 2, 4), 8, 8, 2
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 64
+HEAD_PATH = "internvl2-1b tp procs (1,1,16)"
+HEAD_TRAIN_PATH = "internvl2-1b tp train procs (1,1,16)"
+ENCDEC_PATH = "whisper-tiny tp procs (1,2,4)"
+ENCDEC_TRAIN_PATH = "whisper-tiny tp train procs (1,2,4)"
 # phase 9's f32 gate: an element whose oracle gradient stays within
 # NOISE_GRAD of its tensor slice's largest, every step, lies at the f32
 # noise floor of the gradient sums (the processes' and the stacked mesh's
@@ -1330,23 +1385,31 @@ def check_variants(run, label, want="tma", a2a=None):
 
 def serve(torch, cfg, params, mesh, impl, plan, prompts, kernels, *,
           use_kernel=True, decode=True, warmup=True, record=False,
-          keep_logits=False, pick=None):
+          keep_logits=False, pick=None, extras=None):
     """Prefill (a warm-up, then timed) and greedy decode of GEN tokens
     through the serving step builders.  Returns logits, tokens, timings,
     launch counts (counts set to 0 just before the timed prefill and before
     decode), with ``record`` the timed prefill's routing decisions and with
     ``keep_logits`` every step's logits (the prefill's first).  ``pick``
     makes a step's tokens of its logits (default: their argmax; under TP
-    ``tp_pick``, the argmax over the vocabulary shards)."""
-    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    ``tp_pick``, the argmax over the vocabulary shards).  ``extras`` joins
+    the prompts in the batch (``patch_embeds``, ``frames``); an
+    encoder-decoder's prefill is its serving's prompt pass (the encoder and
+    cross K/V, then the decode step over the prompt)."""
+    from repro_torch.launch.serve import (_encdec_prefill, make_prefill_step,
+                                          make_serve_step)
 
     prompt = prompts.shape[1]
     total = prompt + GEN
-    prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total,
-                                use_kernel=use_kernel, device=DEVICE)
     step = make_serve_step(cfg, mesh, impl, plan, use_kernel=use_kernel,
                            device=DEVICE)
-    batch = {"tokens": prompts}
+    if cfg.encdec:
+        def prefill(p, b):
+            return _encdec_prefill(cfg, mesh, p, b, total, step)
+    else:
+        prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total,
+                                    use_kernel=use_kernel, device=DEVICE)
+    batch = {"tokens": prompts, **(extras or {})}
     if warmup:
         prefill(params, batch)
     torch.cuda.synchronize()
@@ -2482,11 +2545,13 @@ def check_stack_launches(label, counts, want_attn, want_bwd=0):
                              f"flash_attention_bwd and nothing else")
 
 
-def check_stack_run(torch, run, cfg, batch, label, prefill_attn):
-    """Finite logits of the right shape, ``prefill_attn`` flash_attention
-    launches in the prefill and none in decode, nothing else launched."""
+def check_stack_run(torch, run, cfg, batch, label, prefill_attn,
+                    vocab=None):
+    """Finite logits of the right shape (``vocab`` columns, default the
+    whole vocabulary), ``prefill_attn`` flash_attention launches in the
+    prefill and none in decode, nothing else launched."""
     for t in (run["logits"], run["last_logits"]):
-        if tuple(t.shape) != (batch, cfg.vocab) or \
+        if tuple(t.shape) != (batch, vocab or cfg.vocab) or \
                 not bool(torch.isfinite(t.float()).all()):
             raise AssertionError(f"{label}: bad logits {tuple(t.shape)}")
     check_stack_launches(f"{label} prefill", run["prefill_launches"],
@@ -3582,12 +3647,12 @@ def traced_step(torch, run):
                                              for e in inside)}
 
 
-def train_proc_child(mesh, cfg, shards, train):
+def train_proc_child(mesh, cfg, shards, train, steps=TRAIN_PROC_STEPS):
     """One rank of phase 9 (a), the per-rank hook of ``train_procs``: the
     CLI's own training loop (``train()``) on this process's shard, each
     step's launches counted (the counts set to 0 just before the step and
-    read just after), its routing recorded, the last step traced; the
-    card's memory in use after each step."""
+    read just after), its routing recorded, the last of its ``steps``
+    steps traced; the card's memory in use after each step."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3600,7 +3665,7 @@ def train_proc_child(mesh, cfg, shards, train):
 
     def each(i, run):
         reset_launches(kernels)
-        if i == TRAIN_PROC_STEPS - 1:
+        if i == steps - 1:
             res, out["trace"] = traced_step(torch, run)
         else:
             res = run()
@@ -3750,7 +3815,8 @@ def pmean_local():
 
 
 def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
-                   batch=TRAIN_BATCH, noise_unit="process"):
+                   batch=TRAIN_BATCH, noise_unit="process",
+                   seq=F32_TRAIN_SEQ):
     """One rank of phase 9 (b): the first step's gradients under the
     planted fault ``plant()`` (default: ``pmean``'s backward a local ``1 /
     n``; no update),
@@ -3777,11 +3843,13 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
                                device=DEVICE)
         with GradSpy(update=False, on_grads=lambda i, g: grad_stats(
                 torch, mesh, specs, g, want["grads"][0])) as spy:
-            step(state, train_batches(cfg, batch, F32_TRAIN_SEQ, 1)[0])
+            step(state, train_batches(cfg, batch, seq, 1)[0])
         fault = spy.grads[0]
         del state, step, spy
     free(torch)
-    init = {k: p.detach().cpu() for k, p in module.named_parameters()}
+    # copies, also where the parameters already lie on the host
+    init = {k: p.detach().to("cpu", copy=True)
+            for k, p in module.named_parameters()}
     launches = []
 
     def each(i, run):
@@ -3796,59 +3864,97 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
             RouteRecorder() as rec:
         res = train(each_step=each)
     grads, card = spy.grads, card_used_gb(torch)
+    free(torch)   # the steps' cached blocks, before the reading below
 
     def worst(t, mask):
-        return float(t[mask].max()) if mask.any() else 0.0
+        # the largest of ``t`` (never negative) where ``mask`` holds, with
+        # no index tensor (a boolean index takes 16 bytes an element)
+        return float(torch.where(mask, t, torch.zeros_like(t)).max()) \
+            if mask.any() else 0.0
 
+    other = "dp" if noise_unit == "process" else "process"
     params = {}
     for k, p in module.named_parameters():
         w = shard_tensor(want["final"][k], specs[k], mesh)
         p = p.detach()
-        # each element's oracle gradient over its slice's largest, the
-        # largest over the steps; the slice is this process's, or with
-        # ``noise_unit="dp"`` its DP rank's (its model peers' slices
-        # together)
+        x = init.pop(k)
+        # a leaf initialised at zero (LayerNorm and MLP biases) holds its
+        # updates alone, so its tensor's largest value is the rate's
+        # scale, not a parameter's: a strict 1e-5 of it would hold Adam's
+        # normalised step to 1e-5 of itself, below the f32 noise of the
+        # gradient sums; its elements join the noise class (their ratio
+        # read as 0) and their strict reading is kept apart
+        zero = not bool(x.any())
+        mine = [shard_tensor(g[k], specs[k], mesh) for g in want["grads"]]
+        # each step's largest oracle gradient of the slice that is this
+        # process's, or with ``noise_unit="dp"`` its DP rank's (its model
+        # peers' slices together); no |g| copy of a whole
         unit = {"process": specs[k], "dp": tuple(
             None if e == "model" else e for e in specs[k])}
-        ratios = {u: torch.zeros_like(p) for u in unit}
-        for g in want["grads"]:
-            mine = shard_tensor(g[k], specs[k], mesh).abs()
-            for u, spec in unit.items():
-                lo, hi = torch.aminmax(shard_tensor(g[k], spec, mesh))
-                top = torch.maximum(hi, -lo)      # no |g| copy of a whole
-                ratios[u] = torch.maximum(ratios[u],
-                                          mine / top.clamp(min=1e-30))
-        ratio = ratios[noise_unit]
-        noise = ratio <= NOISE_GRAD
-        d = (p - w).abs()
-        other = "dp" if noise_unit == "process" else "process"
-        params[k] = {"strict": worst(d, ~noise), "largest": float(
-            w.abs().max()), "noise": worst(d, noise),
-            "n_noise": int(noise.sum()), "n": d.numel(),
-            "scan": {t: worst(d, ratio > t) for t in NOISE_GRAD_SCAN},
-            "strict_other_unit": worst(d, ratios[other] > NOISE_GRAD)}
-        del ratios
+        tops = {u: [torch.maximum(*(lambda lo, hi: (hi, -lo))(
+            *torch.aminmax(shard_tensor(g[k], spec, mesh)))).clamp(
+                min=1e-30) for g in want["grads"]]
+            for u, spec in unit.items()}
+        lo, hi = torch.aminmax(w)
+        e = {"strict": 0.0, "largest": float(torch.maximum(hi, -lo)),
+             "noise": 0.0, "n_noise": 0, "n": p.numel(),
+             "scan": dict.fromkeys(NOISE_GRAD_SCAN, 0.0),
+             "strict_other_unit": 0.0, "skipped": 0.0, "flipped": 0.0,
+             "zero_init": zero, "zero_init_strict": 0.0}
+        best, at = -1.0, 0
+        # elementwise, a block of rows at a time: a [151655, 896] table's
+        # temporaries on 16 processes at once overflow the card (phase 13)
+        row = p[0].numel()
+        step = max(1, (1 << 22) // row)
+        for r in range(0, p.shape[0], step):
+            n = min(step, p.shape[0] - r)
+            # each element's oracle gradient over its slice's largest, the
+            # largest over the steps
+            ratios = {u: torch.stack([m.narrow(0, r, n).abs() / top
+                                      for m, top in zip(mine, tops[u])])
+                      .amax(0) for u in unit}
+            if zero:
+                ratios = {u: torch.zeros_like(t) for u, t in ratios.items()}
+            ratio = ratios[noise_unit]
+            noise = ratio <= NOISE_GRAD
+            pc, wc = p.narrow(0, r, n), w.narrow(0, r, n)
+            xc = x.narrow(0, r, n).to(p.device)
+            d = (pc - wc).abs()
+            for key, t, mask in (
+                    ("strict", d, ~noise), ("noise", d, noise),
+                    ("strict_other_unit", d, ratios[other] > NOISE_GRAD),
+                    ("skipped", (xc - wc).abs(), noise),
+                    ("flipped", (2 * xc - pc - wc).abs(), noise)):
+                e[key] = max(e[key], worst(t, mask))
+            for t in NOISE_GRAD_SCAN:
+                e["scan"][t] = max(e["scan"][t], worst(d, ratio > t))
+            if zero:
+                e["zero_init_strict"] = max(e["zero_init_strict"],
+                                            float(d.max()))
+            e["n_noise"] += int(noise.sum())
+            # the worst strict element (the first of equals, as argmax)
+            strict = torch.where(noise, torch.zeros_like(d), d).reshape(-1)
+            i = int(strict.argmax())
+            if float(strict[i]) > best:
+                best, at = float(strict[i]), r * row + i
+            del ratios, ratio, noise, pc, wc, xc, d, strict
         # the worst strict element: its gradient ratio, each step's oracle
         # gradient over its slice's largest, and the two updates
-        at = int(torch.where(noise, torch.zeros_like(d), d).argmax())
-        x = init.pop(k).to(p.device)
-        params[k]["worst_at"] = {
-            "ratio": float(ratio.reshape(-1)[at]),
-            "oracle_grads": [float(shard_tensor(g[k], specs[k], mesh)
-                                   .reshape(-1)[at]
-                                   / shard_tensor(g[k], specs[k], mesh)
-                                   .abs().max().clamp(min=1e-30))
-                             for g in want["grads"]],
-            "update": float((p - x).reshape(-1)[at]),
-            "oracle_update": float((w - x).reshape(-1)[at])}
-        del d, ratio
-        params[k]["skipped"] = worst((x - w).abs(), noise)
-        params[k]["flipped"] = worst((2 * x - p - w).abs(), noise)
-        del x, noise
+        idx = tuple(int(j) for j in np.unravel_index(at, tuple(p.shape)))
+        e["worst_at"] = {
+            "ratio": float(torch.stack([m[idx].abs() / top for m, top in
+                                        zip(mine, tops[noise_unit])])
+                           .amax()),
+            "oracle_grads": [float(m[idx] / top) for m, top in
+                             zip(mine, tops["process"])],
+            "update": float(p[idx].cpu() - x[idx]),
+            "oracle_update": float(w[idx].cpu() - x[idx])}
+        params[k] = e
+        del x, tops
     # release the parent's tensors now, not at this process's exit, so the
     # parent sees them released before it exits
     want.clear()
-    del w, g
+    w = mine = None
     gc.collect()
     return {"rank": mesh.rank, "metrics": res["metrics"], "grads": grads,
             "fault": fault, "params": params, "launches": launches,
@@ -3870,12 +3976,14 @@ def rel_norms(stats):
 def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
                          label="train-procs", plant=pmean_local,
                          fault_name="pmean's backward a local 1 / n",
-                         batch=TRAIN_BATCH, noise_unit="process"):
-    """Phase 9 (b): 1 layer in f32, ``batch`` (TRAIN_BATCH) x
-    F32_TRAIN_SEQ tokens, F32_PROC_STEPS steps on the processes of
-    ``shape`` (phases 11 (c) and 12 (b): with TP over "model", and their
-    own planted faults ``plant``) against the stacked oracle on the same
-    DP shape:
+                         batch=TRAIN_BATCH, noise_unit="process", cfg=None,
+                         seq=F32_TRAIN_SEQ):
+    """Phase 9 (b): 1 layer in f32 (``cfg``, default megatron-moe-32e's;
+    phase 13's internvl2-1b and whisper-tiny), ``batch`` (TRAIN_BATCH) x
+    ``seq`` (F32_TRAIN_SEQ) tokens, F32_PROC_STEPS steps on the processes
+    of ``shape`` (phases 11 (c), 12 (b) and 13: with TP over "model", and
+    their own planted faults ``plant``) against the stacked oracle on the
+    same DP shape:
     metrics within a relative 1e-5, every gathered gradient within a
     relative norm of 1e-4, every parameter after the last step within 1e-5
     of its tensor's largest value (those at the gradients' noise floor,
@@ -3885,28 +3993,46 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
     planted controls the parameter gate.  ``noise_unit`` is "process" (a
     process's slice: phases 9 and 11) or "dp" (a DP rank's, its model
     peers' slices together: phase 12, where a process's slice of the
-    vocabulary is 1/16 of it); the other unit's reading is logged."""
+    vocabulary is 1/16 of it); the other unit's reading is logged.  A
+    leaf initialised at zero (an encoder-decoder's LayerNorm and MLP
+    biases) holds its updates alone: its elements join the noise class
+    (``f32_proc_child``), their strict reading is logged."""
     from repro_torch.launch.train import train_procs
 
-    cfg = train_config(n_layers=1, compute_dtype="float32")
-    oracle = local_oracle(torch, cfg, batch, F32_TRAIN_SEQ,
-                          F32_PROC_STEPS, kernels, keep=True,
-                          shape=shape[:2] + (1,))
-    want = {"grads": oracle.pop("grads"), "final": oracle.pop("final")}
+    cfg = cfg or train_config(n_layers=1, compute_dtype="float32")
+    oracle, want = f32_gate_oracle(torch, kernels, cfg, batch, seq, shape)
     res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
-                      proc_data(cfg, batch, F32_TRAIN_SEQ), shape,
+                      proc_data(cfg, batch, seq), shape,
                       PROC_BACKEND, DEVICE,
                       proc_train_options(F32_PROC_STEPS), F32_PROC_STEPS,
                       hook=functools.partial(f32_proc_child, want=want,
                                              plant=plant, batch=batch,
-                                             noise_unit=noise_unit),
+                                             noise_unit=noise_unit, seq=seq),
                       timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
     del want
     free(torch)
     torch.cuda.ipc_collect()  # the oracle's tensors the processes mapped
-    outs = res["ranks"]
+    return f32_gate_check(torch, oracle, res["ranks"], res["metrics"],
+                          shape, label, fault_name, batch, seq, cfg,
+                          noise_unit)
+
+
+def f32_gate_oracle(torch, kernels, cfg, batch, seq, shape):
+    """The f32 gate's stacked oracle on ``shape``'s DP shape, and ``want``
+    (its gradients each step and final parameters, on the card), which
+    ``f32_proc_child`` takes."""
+    oracle = local_oracle(torch, cfg, batch, seq, F32_PROC_STEPS, kernels,
+                          keep=True, shape=shape[:2] + (1,))
+    return oracle, {"grads": oracle.pop("grads"),
+                    "final": oracle.pop("final")}
+
+
+def f32_gate_check(torch, oracle, outs, metrics, shape, label, fault_name,
+                   batch, seq, cfg, noise_unit):
+    """``train_procs_f32_gate``'s gates on the processes' ``outs``
+    (``f32_proc_child``'s) and rank 0's step ``metrics``."""
     metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
-                     for a, b in zip(res["metrics"], oracle["metrics"])
+                     for a, b in zip(metrics, oracle["metrics"])
                      for k in ("loss", "nll", "aux", "grad_norm", "lr"))
     grad_errs = [rel_norms([o["grads"][i] for o in outs])
                  for i in range(F32_PROC_STEPS)]
@@ -3942,7 +4068,13 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
     flips, n_dec, tie = near_tie_flips(torch, oracle["routes"], routes,
                                        oracle["margins"], batch)
     launches_equal = all(o["launches"] == oracle["launches"] for o in outs)
-    log(f"{label}[f32]: 1 layer, {batch} x {F32_TRAIN_SEQ} tokens, "
+    zero = sorted({k for o in outs for k, e in o["params"].items()
+                   if e["zero_init"]})
+    zero_err = max((max(o["params"][k]["zero_init_strict"] for o in outs)
+                    / max(o["params"][k]["largest"] for o in outs)
+                    for k in zero), default=0.0)
+    log(f"{label}[f32]: {cfg.name}, {cfg.n_layers} layer(s), {batch} x "
+        f"{seq} tokens, "
         f"{F32_PROC_STEPS} steps on {len(outs)} processes {shape} against "
         f"the stacked oracle (the noise class measured against the largest "
         f"of {'a process' if noise_unit == 'process' else 'a DP rank'}'s "
@@ -3955,7 +4087,11 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
         f"value (limit 1e-5), but the {n_noise} of {n_elems} elements "
         f"whose oracle gradients stay within {NOISE_GRAD} of their slice's "
         f"largest, within {noise_err:.3e} = {noise_err / rate:.4f} x the "
-        f"peak rate (limit {NOISE_STEP}); {flips} of {n_dec} routing "
+        f"peak rate (limit {NOISE_STEP})"
+        + (f", {len(zero)} leaves initialised at zero among them (their "
+           f"strict reading, over each tensor's largest: {zero_err:.3e})"
+           if zero else "")
+        + f"; {flips} of {n_dec} routing "
         f"decisions differ, "
         f"each sequence's first at an oracle margin of at most {tie:.3e} "
         f"(near-tie limit {NEAR_TIE}); launches equal to the oracle's "
@@ -3998,6 +4134,7 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
             "param_err": param_err, "noise_floor_param_err": noise_err,
             "noise_floor_rate_share": noise_err / rate,
             "noise_floor_elements": n_noise,
+            "zero_init_leaves": len(zero), "zero_init_strict_err": zero_err,
             "strict_err_by_noise_grad": {str(t): v for t, v in scan.items()},
             "planted_controls": {"skipped": skipped / rate,
                                  "flipped": flipped / rate},
@@ -5019,11 +5156,12 @@ class TPRounding:
     the product of each contiguous slice of the contraction, rounded to its
     dtype, the slices added in f32 in peer order and rounded once more
     (``tp.sum_out``).  The witness oracle: TP's rounding on the stacked
-    mesh, and nothing else of TP."""
+    mesh, and nothing else of TP.  The encoder-decoder's cross-attention
+    holds its own name for ``row_parallel``, patched alike."""
 
     def __init__(self, parts):
-        from repro_torch.models import layers, moe
-        self.mods, self.parts = (layers, moe), parts
+        from repro_torch.models import encdec, layers, moe
+        self.mods, self.parts = (layers, moe, encdec), parts
 
     def __enter__(self):
         from repro_torch.launch.mesh import member_sum
@@ -5364,7 +5502,9 @@ def tp_witness(torch, label, outs, wit, loc, tokens, routes, logits, want,
 def phase_tp_serve(torch, kernels):
     """Phase 11 (a): megatron-moe-32e on 8 processes of (pod 2, data 2,
     model 2), against ``LocalMesh((2, 2, 1))`` (the same DP shape, whole
-    weights).  Returns rank 0's launch counts and a summary."""
+    weights); the same processes then train (c)'s model
+    (``tp_cell_child``).  Returns rank 0's launch counts, a summary and
+    (c)'s processes and rank 0's step metrics."""
     from repro_torch.convert import recast
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import (flash_plan, make_prefill_step,
@@ -5427,14 +5567,24 @@ def phase_tp_serve(torch, kernels):
     free(torch)
     summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
 
+    tcfg = train_config(n_layers=TP_TRAIN_LAYERS)
+    train_holder = [{k: v.detach() for k, v in stack_params(
+        torch, tcfg, train=True).named_parameters()}]
     holder = [params32]
     del params32
+    # the children's allocator only: the parent's tensors they map through
+    # CUDA IPC were allocated before
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
     res = serve_procs(cfg32, holder, prompts, TP_MESH, PROC_BACKEND, DEVICE,
                       "plan", plan, GEN,
-                      hook=functools.partial(tp_child, plan=plan),
+                      hook=functools.partial(tp_cell_child, plan=plan,
+                                             train_holder=train_holder),
                       timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
     summary["processes_s"] = time.perf_counter() - t0
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"], train_holder
+    free(torch)
+    torch.cuda.ipc_collect()  # the training model the processes mapped
     summary["used_gb"].update(res.get("card_used_gb", {}))
     outs = res["ranks"]
     shapes = {o["experts"] for o in outs}
@@ -5579,8 +5729,32 @@ def phase_tp_serve(torch, kernels):
     summary["moe_identical_input_rel_diff"] = y_err
     tp_report(outs, summary, label)
     r0 = next(o for o in outs if o["rank"] == 0)
+    trained = ([o["train"] for o in outs], r0["train_metrics"])
     return {"prefill": r0["serve"]["prefill_launches"],
-            "decode": r0["serve"]["decode_launches"]}, summary
+            "decode": r0["serve"]["decode_launches"]}, summary, trained
+
+
+def tp_cell_child(mesh, cfg32, shards, rows, serve_cli, plan,
+                  train_holder):
+    """One rank of phase 11 (a) and (c) in one spawn: ``tp_child``'s
+    serving, then ``train_procs``' per-rank path (``launch/train.
+    _train_rank``) on this process's shard of the TP_TRAIN_LAYERS-layer
+    model in ``train_holder`` (shared by the parent through CUDA IPC),
+    each step as ``tp_train_child`` reads it: one start of the 8
+    processes for both."""
+    import torch
+
+    from repro_torch.launch.train import _train_rank
+
+    out = tp_child(mesh, cfg32, shards, rows, serve_cli, plan)
+    free(torch)
+    cfg = train_config(n_layers=TP_TRAIN_LAYERS)
+    res = _train_rank(mesh, cfg, train_holder,
+                      proc_data(cfg, TRAIN_BATCH, TRAIN_SEQ),
+                      proc_train_options(TRAIN_PROC_STEPS), TRAIN_PROC_STEPS,
+                      True, None, hook=tp_train_child)
+    out["train"], out["train_metrics"] = res["hook"], res["metrics"]
+    return out
 
 
 def dense_child(mesh, cfg32, shards, rows, serve_cli):
@@ -5786,7 +5960,7 @@ def phase_tp_dense(torch, kernels):
             "decode": r0["serve"]["decode_launches"]}, summary
 
 
-def tp_train_child(mesh, cfg, shards, train):
+def tp_train_child(mesh, cfg, shards, train, steps=TRAIN_PROC_STEPS):
     """One rank of phase 11 (c): ``train_proc_child``'s loop, each step's
     gradients of the leaves replicated over "model" kept as digests."""
     import torch
@@ -5799,7 +5973,7 @@ def tp_train_child(mesh, cfg, shards, train):
              if "model" not in sharded_axes(mesh, spec)]
     with GradSpy(on_grads=lambda i, g: {k: digest(torch, g[k])
                                         for k in whole}) as spy:
-        out = train_proc_child(mesh, cfg, shards, train)
+        out = train_proc_child(mesh, cfg, shards, train, steps)
     out.update(coords=mesh.rank_coords, replicated=spy.grads)
     return out
 
@@ -5829,52 +6003,41 @@ def copy_on_x():
         transformer.moe_apply, moe._expert_ffn = real_apply, real_ffn
 
 
-def phase_tp_train(torch, kernels):
-    """Phase 11 (c): megatron-moe-32e (TP_TRAIN_LAYERS layer) trained on 8
-    processes of (2, 2, 2) through ``train_procs`` against the stacked
-    oracle on (2, 2, 1); then the f32 gate with the planted copy on ``x``.
+def phase_tp_train(torch, kernels, outs, metrics):
+    """Phase 11 (c): megatron-moe-32e (TP_TRAIN_LAYERS layer) trained on the
+    8 processes of (2, 2, 2) (their ``tp_train_child`` results ``outs`` and
+    rank 0's step ``metrics``, from (a)'s spawn) against the stacked oracle
+    on (2, 2, 1); then the f32 gate with the planted copy on ``x``.
     Returns rank 0's launches over its steps and a summary."""
-    from repro_torch.launch.train import train_procs
-
     cfg = train_config(n_layers=TP_TRAIN_LAYERS)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     label = "tp[c]"
     log(f"{label}: {cfg.name} layers={cfg.n_layers}/24 at its published "
         f"widths on a {TP_MESH} mesh of {ranks_of(TP_MESH)} processes "
-        f"({PROC_BACKEND}) through train_procs; {TRAIN_BATCH} x {TRAIN_SEQ} "
-        f"tokens a step, {TRAIN_PROC_STEPS} AdamW steps; {TP_LABEL}")
+        f"({PROC_BACKEND}) through train_procs' per-rank path, in (a)'s "
+        f"processes; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"{TRAIN_PROC_STEPS} AdamW steps; {TP_LABEL}")
     oracle = local_oracle(torch, cfg, TRAIN_BATCH, TRAIN_SEQ,
                           TRAIN_PROC_STEPS, kernels)
     summary = {"label": TP_LABEL, "oracle": {
         "step_ms": oracle["step_ms"], "peak_gb": oracle["peak_gb"]}}
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    t0 = time.perf_counter()
-    res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
-                      proc_data(cfg, TRAIN_BATCH, TRAIN_SEQ), TP_MESH,
-                      PROC_BACKEND, DEVICE,
-                      proc_train_options(TRAIN_PROC_STEPS), TRAIN_PROC_STEPS,
-                      hook=tp_train_child, timeout=PROC_TIMEOUT_S,
-                      join_timeout=PROC_JOIN_S)
-    summary["processes_s"] = time.perf_counter() - t0
-    outs = res["ranks"]
     check_proc_launches(outs, oracle, cfg.n_layers, label)
     check_peers(outs, lambda o: o["replicated"], label,
                 "a gradient of a leaf replicated over 'model'")
     diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
-             for a, b in zip(res["metrics"], oracle["metrics"])]
+             for a, b in zip(metrics, oracle["metrics"])]
     n_whole = len(outs[0]["replicated"][0])
     log(f"{label}: every process launched each kernel as often as the "
         f"oracle each step ({oracle['launches'][0]}); the gradients of the "
         f"{n_whole} leaves replicated over 'model' bit-identical on model "
         f"peers every step; step losses "
-        f"{[round(m['loss'], 6) for m in res['metrics']]} against the "
+        f"{[round(m['loss'], 6) for m in metrics]} against the "
         f"oracle's, relative differences {[f'{d:.3e}' for d in diffs]} "
         f"(limit 2e-2)")
     if not max(diffs) < 2e-2:
         raise AssertionError(f"{label}: step losses against the oracle "
                              f"{diffs}")
-    summary.update(loss_diffs=diffs, card_used_gb=res.get("card_used_gb",
-                                                          {}), ranks=[])
+    summary.update(loss_diffs=diffs, ranks=[])
     for o in outs:
         ms = o["train"]["step_ms"]
         r = {"rank": o["rank"], "coords": list(o["coords"]), "step_ms": ms,
@@ -5893,6 +6056,7 @@ def phase_tp_train(torch, kernels):
             f"{r['sync_share']:.4f}; {TP_LABEL}")
     counts = {k: sum(step[k] for step in outs[0]["launches"])
               for k in outs[0]["launches"][0]}
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     summary["f32"] = train_procs_f32_gate(
         torch, kernels, TP_MESH, label, copy_on_x,
         "the copy into the TP region on the MoE's x instead of its token "
@@ -5906,14 +6070,17 @@ def phase_tp(torch, kernels):
     served on (1, 2, 2), (c) megatron-moe-32e trained on (2, 2, 2).
     Returns each serving path's launches, the training's and a summary."""
     summary, launches = {}, {}
-    for key, path, fn in (("a", TP_PATH, phase_tp_serve),
-                          ("b", TP_DENSE_PATH, phase_tp_dense)):
-        t0 = time.perf_counter()
-        launches[path], summary[key] = fn(torch, kernels)
-        summary[f"{key}_s"] = time.perf_counter() - t0
-        free(torch)
     t0 = time.perf_counter()
-    train, summary["c"] = phase_tp_train(torch, kernels)
+    launches[TP_PATH], summary["a"], trained = phase_tp_serve(torch,
+                                                              kernels)
+    summary["a_s"] = time.perf_counter() - t0
+    free(torch)
+    t0 = time.perf_counter()
+    launches[TP_DENSE_PATH], summary["b"] = phase_tp_dense(torch, kernels)
+    summary["b_s"] = time.perf_counter() - t0
+    free(torch)
+    t0 = time.perf_counter()
+    train, summary["c"] = phase_tp_train(torch, kernels, *trained)
     summary["c_s"] = time.perf_counter() - t0
     return launches, train, summary
 
@@ -6027,6 +6194,28 @@ def kv_child(mesh, cfg32, shards, rows, serve_cli):
     return out
 
 
+def kv_cell_child(mesh, cfg32, shards, rows, serve_cli, train_holder):
+    """One rank of phase 12 (a) and (b) in one spawn: ``kv_child``'s
+    serving, then ``train_procs``' per-rank path (``launch/train.
+    _train_rank``) on this process's shard of the 1-layer model in
+    ``train_holder`` (shared by the parent through CUDA IPC), each step as
+    ``tp_train_child`` reads it.  Starting and ending 16 processes on the
+    card takes about 45 s, once for both."""
+    import torch
+
+    from repro_torch.launch.train import _train_rank
+
+    out = kv_child(mesh, cfg32, shards, rows, serve_cli)
+    free(torch)
+    cfg = train_config(n_layers=1)
+    res = _train_rank(mesh, cfg, train_holder,
+                      proc_data(cfg, KV_TRAIN_BATCH, TRAIN_SEQ),
+                      proc_train_options(TRAIN_PROC_STEPS), TRAIN_PROC_STEPS,
+                      True, None, hook=tp_train_child)
+    out["train"], out["train_metrics"] = res["hook"], res["metrics"]
+    return out
+
+
 def kv_report(outs, summary, label):
     """Each process's serving numbers, the shares of its traced prefill by
     range (the kv gather, ``procmesh.tp_gather``, and the sums,
@@ -6045,8 +6234,10 @@ def kv_report(outs, summary, label):
 def phase_kv_serve(torch, kernels):
     """Phase 12 (a): megatron-moe-32e (KV_LAYERS layers) on 16 processes of
     (1, 1, 16), where "model" cuts through the 8 kv heads, against
-    ``LocalMesh((1, 1, 1))`` (whole weights).  Returns rank 0's launch
-    counts and a summary."""
+    ``LocalMesh((1, 1, 1))`` (whole weights); the same processes then train
+    (b)'s 1-layer model (``kv_cell_child``).  Returns rank 0's launch
+    counts, a summary and (b)'s oracle, processes and rank 0's step
+    metrics."""
     from repro_torch.convert import recast
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import make_prefill_step, serve_procs
@@ -6099,15 +6290,33 @@ def phase_kv_serve(torch, kernels):
     free(torch)
     summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
 
+    tcfg = train_config(n_layers=1)
+    train_holder = [{k: v.detach() for k, v in stack_params(
+        torch, tcfg, train=True).named_parameters()}]
     holder = [params32]
     del params32
+    # the children's allocator only: the parent's tensors they map through
+    # CUDA IPC were allocated before
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
     res = serve_procs(cfg32, holder, prompts, KV_MESH, PROC_BACKEND, DEVICE,
-                      None, None, GEN, hook=kv_child,
+                      None, None, GEN,
+                      hook=functools.partial(kv_cell_child,
+                                             train_holder=train_holder),
                       timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
     summary["processes_s"] = time.perf_counter() - t0
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"], train_holder
+    free(torch)
+    torch.cuda.ipc_collect()  # the training model the processes mapped
+    # (b)'s stacked oracle, once the card is free of the processes
+    oracle = local_oracle(torch, tcfg, KV_TRAIN_BATCH, TRAIN_SEQ,
+                          TRAIN_PROC_STEPS, kernels,
+                          shape=KV_MESH[:2] + (1,))
     summary["used_gb"].update(res.get("card_used_gb", {}))
     outs = sorted(res["ranks"], key=lambda o: o["coords"][2])
+    r0 = next(o for o in outs if o["rank"] == 0)
+    trained = (oracle, [o["train"] for o in res["ranks"]],
+               r0["train_metrics"])
     widths = {o["widths"] for o in outs}
     experts = {o["experts"] for o in outs}
     if widths != {(cfg.n_heads * dh // tp, cfg.n_kv_heads * dh // tp)} or \
@@ -6219,58 +6428,42 @@ def phase_kv_serve(torch, kernels):
         raise AssertionError(f"{label}: the plain oracle passes the "
                              f"witness's routing gate")
     kv_report(outs, summary, label)
-    r0 = next(o for o in outs if o["rank"] == 0)
     return {"prefill": r0["serve"]["prefill_launches"],
-            "decode": r0["serve"]["decode_launches"]}, summary
+            "decode": r0["serve"]["decode_launches"]}, summary, trained
 
 
-def phase_kv_train(torch, kernels):
-    """Phase 12 (b): megatron-moe-32e (1 layer) trained on 16 processes of
-    (1, 1, 16) through ``train_procs`` against the stacked oracle on (1, 1,
-    1); then the f32 gate with the kv gather's backward unsummed planted.
-    Returns rank 0's launches over its steps and a summary."""
-    from repro_torch.launch.train import train_procs
-
+def phase_kv_train(torch, kernels, oracle, outs, metrics):
+    """Phase 12 (b): megatron-moe-32e (1 layer) trained on the 16 processes
+    of (1, 1, 16) (their ``tp_train_child`` results ``outs`` and rank 0's
+    step ``metrics``, from (a)'s spawn) against the stacked oracle on (1,
+    1, 1); then the f32 gate with the kv gather's backward unsummed
+    planted.  Returns rank 0's launches over its steps and a summary."""
     cfg = train_config(n_layers=1)
     tokens = KV_TRAIN_BATCH * TRAIN_SEQ
     label = "kv[b]"
     log(f"{label}: {cfg.name} layers={cfg.n_layers}/24 at its published "
         f"widths on a {KV_MESH} mesh of {ranks_of(KV_MESH)} processes "
-        f"({PROC_BACKEND}) through train_procs; {KV_TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens a step on every process (no DP axis), "
-        f"{TRAIN_PROC_STEPS} AdamW steps; {TP_LABEL}")
-    oracle = local_oracle(torch, cfg, KV_TRAIN_BATCH, TRAIN_SEQ,
-                          TRAIN_PROC_STEPS, kernels,
-                          shape=KV_MESH[:2] + (1,))
+        f"({PROC_BACKEND}) through train_procs' per-rank path, in (a)'s "
+        f"processes; {KV_TRAIN_BATCH} x {TRAIN_SEQ} tokens a step on every "
+        f"process (no DP axis), {TRAIN_PROC_STEPS} AdamW steps; {TP_LABEL}")
     summary = {"label": TP_LABEL, "oracle": {
         "step_ms": oracle["step_ms"], "peak_gb": oracle["peak_gb"]}}
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    t0 = time.perf_counter()
-    res = train_procs(cfg, [stack_params(torch, cfg, train=True)],
-                      proc_data(cfg, KV_TRAIN_BATCH, TRAIN_SEQ), KV_MESH,
-                      PROC_BACKEND, DEVICE,
-                      proc_train_options(TRAIN_PROC_STEPS), TRAIN_PROC_STEPS,
-                      hook=tp_train_child, timeout=PROC_TIMEOUT_S,
-                      join_timeout=PROC_JOIN_S)
-    summary["processes_s"] = time.perf_counter() - t0
-    outs = res["ranks"]
     check_proc_launches(outs, oracle, cfg.n_layers, label)
     check_peers(outs, lambda o: o["replicated"], label,
                 "a gradient of a leaf replicated over 'model'")
     diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
-             for a, b in zip(res["metrics"], oracle["metrics"])]
+             for a, b in zip(metrics, oracle["metrics"])]
     log(f"{label}: every process launched each kernel as often as the "
         f"oracle each step ({oracle['launches'][0]}); the gradients of the "
         f"{len(outs[0]['replicated'][0])} leaves replicated over 'model' "
         f"bit-identical on the {KV_MESH[2]} model peers every step; step "
-        f"losses {[round(m['loss'], 6) for m in res['metrics']]} against "
+        f"losses {[round(m['loss'], 6) for m in metrics]} against "
         f"the oracle's, relative differences {[f'{d:.3e}' for d in diffs]} "
         f"(limit 2e-2)")
     if not max(diffs) < 2e-2:
         raise AssertionError(f"{label}: step losses against the oracle "
                              f"{diffs}")
-    summary.update(loss_diffs=diffs, card_used_gb=res.get("card_used_gb",
-                                                          {}), ranks=[])
+    summary.update(loss_diffs=diffs, ranks=[])
     for o in outs:
         ms = o["train"]["step_ms"]
         r = {"rank": o["rank"], "coords": list(o["coords"]), "step_ms": ms,
@@ -6290,6 +6483,7 @@ def phase_kv_train(torch, kernels):
               for k in outs[0]["launches"][0]}
     free(torch)
     torch.cuda.ipc_collect()
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     summary["f32"] = train_procs_f32_gate(
         torch, kernels, KV_MESH, label, gather_bwd_unsummed,
         "the kv gather's backward keeping its own cotangent slice, without "
@@ -6304,14 +6498,619 @@ def phase_kv(torch, kernels):
     the training's and a summary."""
     summary = {}
     t0 = time.perf_counter()
-    serving, summary["a"] = phase_kv_serve(torch, kernels)
+    serving, summary["a"], trained = phase_kv_serve(torch, kernels)
     summary["a_s"] = time.perf_counter() - t0
     free(torch)
     t0 = time.perf_counter()
-    train, summary["b"] = phase_kv_train(torch, kernels)
+    train, summary["b"] = phase_kv_train(torch, kernels, *trained)
     summary["b_s"] = time.perf_counter() - t0
     return {KV_PATH: serving}, train, summary
 
+
+# -- phase 13: TP over "model" where it cuts through a query head -------------
+
+def head_config(**over):
+    """internvl2-1b at its published widths, depth cut to HEAD_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return get_config(HEAD_ARCH, **{"n_layers": HEAD_LAYERS, **over})
+
+
+def encdec_config(**over):
+    """whisper-tiny at its published widths, depth cut to ENCDEC_LAYERS +
+    ENCDEC_LAYERS."""
+    return stack_config(WHISPER_ARCH, **{"n_layers": ENCDEC_LAYERS,
+                                         "n_encoder_layers": ENCDEC_LAYERS,
+                                         **over})
+
+
+def first_attn(params):
+    """The first self-attention of a decoder-only stack or an
+    encoder-decoder."""
+    return params.enc_blocks[0].attn if hasattr(params, "enc_blocks") \
+        else params.blocks[0].attn
+
+
+class NeighbourColumns:
+    """While active, each process keeps the columns next to its own of the
+    touched query heads' output (``layers._own_cols`` of the output rolled
+    by its width), for its ``wo`` rows: phase 13's planted fault, on the
+    serving path and in the f32 training gate."""
+
+    def __init__(self):
+        from repro_torch.models import encdec, layers
+        self.mods = (layers, encdec)
+
+    def __enter__(self):
+        self.real = real = self.mods[0]._own_cols
+
+        def shifted(out, off, cols):
+            return real(out.roll(-cols, -1), off, cols)
+        for m in self.mods:
+            m._own_cols = shifted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m._own_cols = self.real
+
+
+class HeadDigests:
+    """While active, the digest of each query head's output in every
+    ``flash_attention`` call (``layers.flash_attention``), by global head:
+    ``heads`` is the range this process's columns touch."""
+
+    def __init__(self, torch, heads):
+        from repro_torch.models import layers
+        self.torch, self.layers, self.heads, self.calls = \
+            torch, layers, heads, []
+
+    def __enter__(self):
+        self.real = real = self.layers.flash_attention
+
+        def spy(q, k, v, **kw):
+            o = real(q, k, v, **kw)
+            self.calls.append({h: digest(self.torch, o[:, j])
+                               for j, h in enumerate(self.heads)})
+            return o
+        self.layers.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention = self.real
+
+
+class EncdecStream:
+    """While active, the digest of the encoder-decoder's residual stream at
+    every norm's input (``encdec.norm_apply``): the encoder's, then each
+    decode step's."""
+
+    def __init__(self, torch):
+        from repro_torch.models import encdec
+        self.torch, self.mod, self.digests = torch, encdec, []
+
+    def __enter__(self):
+        self.real = real = self.mod.norm_apply
+
+        def spy(cfg, p, x):
+            self.digests.append(digest(self.torch, x))
+            return real(cfg, p, x)
+        self.mod.norm_apply = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.norm_apply = self.real
+
+
+def prompt_pass(cfg, mesh, total):
+    """``(params, batch) -> (last logits, cache)``: the serving prompt pass
+    with a cache of ``total`` slots (an encoder-decoder's: the encoder and
+    cross K/V, then the decode step over the prompt)."""
+    from repro_torch.launch.serve import (_encdec_prefill, make_prefill_step,
+                                          make_serve_step)
+
+    if not cfg.encdec:
+        return make_prefill_step(cfg, mesh, cache_len=total, device=DEVICE)
+    step = make_serve_step(cfg, mesh, device=DEVICE)
+    return lambda p, b: _encdec_prefill(cfg, mesh, p, b, total, step)
+
+
+def head_inputs(torch, cfg, batch, prompt):
+    """Phase 13's prompts and extras (internvl2-1b's patch embeddings,
+    whisper-tiny's frames), made on the device from the seed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    prompts = stack_prompts(torch, cfg, batch, prompt)
+    if cfg.encdec:
+        return prompts, {"frames": torch.randn(
+            (batch, cfg.encoder_len, cfg.d_model), generator=gen,
+            device=DEVICE) * 0.5}
+    return prompts, {"patch_embeds": torch.randn(
+        (batch, cfg.frontend_len, cfg.d_model), generator=gen,
+        device=DEVICE) * 0.02}
+
+
+def head_child(mesh, cfg32, shards, rows, serve_cli, config):
+    """One rank of phase 13's serving, the per-rank hook of
+    ``serve_procs``: the f32 serve of its shard (``serve_procs``' own:
+    the prompt pass and 15 greedy steps gathered over the DP axes); an f32
+    prompt pass for its decode cache (and cross cache) and one under the
+    planted fault (``NeighbourColumns``); whisper's f32 teacher-forced
+    forward; the bf16 serving run; a prompt pass with the residual stream's
+    and each touched query head's output digests; the shares of a traced
+    prompt pass.  Returns host tensors and digests."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.convert import recast
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.tp import model_coord, q_heads
+
+    kernels = proc_kernels()
+    cfg = config()
+    attn = first_attn(shards[0])
+    heads = q_heads(cfg.n_heads, cfg.resolved_head_dim, attn.wq.shape[-1],
+                    model_coord(mesh))[0]
+    out = {"rank": mesh.rank, "coords": mesh.rank_coords, "used_gb": {},
+           "shard_gb": param_gb(shards[0]),
+           "widths": (attn.wq.shape[-1], attn.wk.shape[-1],
+                      shards[0].embed.shape[0]),
+           "heads": (heads.start, heads.stop)}
+    out["used_gb"]["after the parent's drop"] = card_used_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    stages, t0 = {}, time.perf_counter()
+    serve_cli()
+    stages["f32 serve"] = time.perf_counter() - t0
+    batch = {"tokens": rows, **serve_cli.extras}
+    total = rows.shape[1] + GEN
+    pre32 = prompt_pass(cfg32, mesh, total)
+    with torch.no_grad():
+        _, cache = pre32(shards[0], batch)
+        out["cache"] = [{k: v.cpu() for k, v in c.items()} for c in cache]
+        del cache
+        with NeighbourColumns():
+            out["fault"] = pre32(shards[0], batch)[0].cpu()
+        if cfg.encdec:
+            out["fwd32"] = make_prefill_step(cfg32, mesh, device=DEVICE)(
+                shards[0], batch)[0].cpu()
+    stages["f32 passes"] = time.perf_counter() - t0 - sum(stages.values())
+
+    shard = recast(shards.pop(), cfg)
+    free(torch)
+    run = serve(torch, cfg, shard, mesh, None, None, rows, kernels,
+                pick=tp_pick(cfg, mesh, None, None),
+                extras=serve_cli.extras)
+    out["used_gb"]["serving"] = card_used_gb(torch)
+    out["serve"] = {k: run[k] for k in (
+        "prefill_s", "decode_s", "decode_steps", "step_ms_median",
+        "step_ms_max", "prefill_launches", "decode_launches")}
+    out["serve"].update(logits=run["logits"].cpu(),
+                        last_logits=run["last_logits"].cpu(),
+                        tokens=run["tokens"].cpu())
+    del run
+    stages["bf16 serve"] = time.perf_counter() - t0 - sum(stages.values())
+    pre = prompt_pass(cfg, mesh, total)
+    stream = EncdecStream(torch) if cfg.encdec else StreamRecorder(torch)
+    with torch.no_grad(), stream, HeadDigests(torch, heads) as hd:
+        pre(shard, batch)
+    out["stream"], out["head_digests"] = stream.digests, hd.calls
+    out["shares"] = tp_shares(torch, pre, shard, batch)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    stages["digests and trace"] = time.perf_counter() - t0 - sum(
+        stages.values())
+    out["stages_s"] = stages
+    return out
+
+
+def whole_logits(outs, shape, get, vocab):
+    """``get(o)`` of every process as the whole batch's logits: one model
+    peer's where the vocabulary is whole on each, else the peers' shards
+    joined; the DP ranks' rows joined."""
+    if get(outs[0]).shape[-1] == vocab:
+        return by_dp(outs, shape, get)
+    return assemble(outs, shape, get, -1)
+
+
+def check_shared_heads(outs, shape, label):
+    """Every query head's output digest, in every ``flash_attention`` call
+    of a prompt pass, the same on each model peer whose columns touch it;
+    returns how many (call, head) pairs two or more peers shared."""
+    shared = 0
+    groups = {}
+    for o in outs:
+        groups.setdefault(dp_index(o["coords"], shape), []).append(o)
+    for dp, group in groups.items():
+        n_calls = {len(o["head_digests"]) for o in group}
+        if len(n_calls) != 1:
+            raise AssertionError(f"{label}: DP rank {dp}'s peers made "
+                                 f"{n_calls} attention calls")
+        for i in range(n_calls.pop()):
+            seen = {}
+            for o in group:
+                for h, d in o["head_digests"][i].items():
+                    seen.setdefault(h, []).append(d)
+            for h, ds in seen.items():
+                if len(set(ds)) != 1:
+                    raise AssertionError(f"{label}: query head {h}'s output "
+                                         f"differs between the peers that "
+                                         f"touch it (call {i}, DP rank "
+                                         f"{dp})")
+                shared += len(ds) > 1
+    return shared
+
+
+def head_serve_oracles(torch, kernels, config, shape, batch, prompt, label):
+    """Phase 13's serving oracles: ``config()`` on ``LocalMesh`` of
+    ``shape``'s DP shape (whole weights), in f32 and bf16, and the bf16
+    witness (``TPRounding``).  Returns them with the inputs and the f32
+    parameters the processes take."""
+    from repro_torch.convert import recast
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_prefill_step
+
+    cfg = config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    local = make_mesh(shape[:2] + (1,), AXES, torch.device(DEVICE))
+    n, tp = ranks_of(shape), shape[2]
+    dh = cfg.resolved_head_dim
+    n_dp = shape[0] * shape[1]
+    prompts, extras = head_inputs(torch, cfg, batch, prompt)
+    inputs = {"tokens": prompts, **extras}
+    attn_layers = cfg.n_encoder_layers if cfg.encdec else cfg.n_layers
+    rows = cfg.vocab // tp if cfg.vocab % tp == 0 else cfg.vocab
+    what = (f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+            f"{cfg.encoder_len} frames" if cfg.encdec else
+            f"layers={cfg.n_layers}/24, {cfg.frontend_len} patch positions "
+            f"+ {prompt - cfg.frontend_len} tokens")
+    log(f"{label}: {cfg.name} ({what}) at its published widths on a "
+        f"{shape} mesh of {n} processes ({PROC_BACKEND}): "
+        f"{cfg.n_heads * dh // tp} of the {cfg.n_heads * dh} query columns "
+        f"({cfg.n_heads} heads of {dh}: {cfg.n_heads / tp:g} a process, "
+        f"gathered over 'model' to the whole heads they touch), "
+        f"{cfg.n_kv_heads * dh // tp} of the {cfg.n_kv_heads * dh} key and "
+        f"value columns, FFN {cfg.d_ff // tp} of {cfg.d_ff}, {rows} of "
+        f"the tied embedding's {cfg.vocab} rows (the spec keeps a "
+        f"vocabulary \"model\" does not divide whole); {batch} requests "
+        f"of {prompt} positions "
+        f"({batch // n_dp} a DP rank) and {GEN - 1} decode steps; "
+        f"{TP_LABEL}")
+    summary = {"label": TP_LABEL, "used_gb": {}}
+
+    torch.cuda.reset_peak_memory_stats()
+    params32 = stack_params(torch, cfg32)
+    loc32 = serve(torch, cfg32, params32, local, None, None, prompts,
+                  kernels, warmup=False, extras=extras)
+    with torch.no_grad():
+        _, cache = prompt_pass(cfg32, local, prompt + GEN)(params32, inputs)
+        want_cache = [{k: v.cpu() for k, v in c.items()} for c in cache]
+        del cache
+        fwd32 = make_prefill_step(cfg32, local, device=DEVICE)(
+            params32, inputs)[0].cpu() if cfg.encdec else None
+    params = recast(params32, cfg)
+    loc = serve(torch, cfg, params, local, None, None, prompts, kernels,
+                keep_logits=True, extras=extras)
+    check_stack_run(torch, loc, cfg, batch, f"{label}[local oracle]",
+                    attn_layers)
+    summary["oracle"] = {"prefill_ms": loc["prefill_s"] * 1e3,
+                         "decode_ms_per_step": loc["decode_s"]
+                         / loc["decode_steps"] * 1e3}
+    with TPRounding(tp):
+        wit = serve(torch, cfg, params, local, None, None, prompts, kernels,
+                    keep_logits=True, extras=extras)
+    del params
+    free(torch)
+    summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
+    return {"cfg": cfg, "cfg32": cfg32, "prompts": prompts, "extras": extras,
+            "loc32": loc32, "want_cache": want_cache, "fwd32": fwd32,
+            "loc": loc, "wit": wit, "summary": summary, "params32": params32,
+            "rows": rows, "attn_layers": attn_layers}
+
+
+def head_serve_check(torch, ctx, res, shape, batch, prompt, label):
+    """Phase 13's serving gates on ``serve_procs``' result ``res`` against
+    ``head_serve_oracles``' ``ctx``.  Returns rank 0's launch counts and a
+    summary."""
+    from repro_torch.launch.shardings import whole_kv_heads
+    from repro_torch.models.tp import kv_heads
+
+    cfg, loc32, loc, wit = ctx["cfg"], ctx["loc32"], ctx["loc"], ctx["wit"]
+    want_cache, fwd32, summary = ctx["want_cache"], ctx["fwd32"], \
+        ctx["summary"]
+    rows, attn_layers = ctx["rows"], ctx["attn_layers"]
+    tp, dh = shape[2], cfg.resolved_head_dim
+    n_dp = shape[0] * shape[1]
+    summary["used_gb"].update(res.get("card_used_gb", {}))
+    outs = sorted(res["ranks"], key=lambda o: (dp_index(o["coords"], shape),
+                                               o["coords"][2]))
+    widths = {o["widths"] for o in outs}
+    if widths != {(cfg.n_heads * dh // tp, cfg.n_kv_heads * dh // tp,
+                   rows)}:
+        raise AssertionError(f"{label}: wq, wk and embed widths {widths}")
+
+    # f32: serve_procs' gather against the oracle; the caches by kv head
+    err32 = rel_err(torch, res["logits"][0], loc32["logits"].cpu())
+    same32 = bool(torch.equal(res["tokens"], loc32["tokens"].cpu()))
+    cache_err, held = 0.0, set()
+    for o in outs:
+        sel = kv_heads(cfg.n_heads, cfg.n_kv_heads, tp, o["coords"][2])
+        held.add(sel)
+        if {c["k"].shape[2] for c in o["cache"]} != {len(sel)}:
+            raise AssertionError(f"{label}: rank {o['rank']}'s cache holds "
+                                 f"{[c['k'].shape for c in o['cache']]}")
+    groups = [[o for o in outs if dp_index(o["coords"], shape) == dp]
+              for dp in range(n_dp)]
+    for i, want in enumerate(want_cache):
+        # raises where two replicas of a kv head differ
+        got = [whole_kv_heads([o["cache"][i] for o in g], cfg)
+               for g in groups]
+        for k, w in want.items():
+            cache_err = max(cache_err, rel_err(
+                torch, torch.cat([c[k] for c in got]), w))
+    fault = rel_err(torch, whole_logits(outs, shape, lambda o: o["fault"],
+                                        cfg.vocab), loc32["logits"].cpu())
+    fwd_err = rel_err(torch, whole_logits(
+        outs, shape, lambda o: o["fwd32"], cfg.vocab), fwd32) \
+        if cfg.encdec else 0.0
+    log(f"{label}[f32]: serve_procs' prompt-pass logits gathered, max rel "
+        f"diff {err32:.3e} against LocalMesh (limit 1e-4); greedy tokens of "
+        f"the prompt pass and {GEN - 1} steps equal {same32}; "
+        + (f"the teacher-forced forward ({prompt} positions) max rel diff "
+           f"{fwd_err:.3e} (limit 1e-4); " if cfg.encdec else "")
+        + f"each process's decode cache"
+        + (" and cross cache" if cfg.encdec else "")
+        + f" holds kv heads {sorted(held)} (the replicas bit-identical), "
+        f"put together within {cache_err:.3e} of the oracle's (limit "
+        f"1e-5); under the planted fault (every process keeping its "
+        f"neighbour's columns) the logits lie {fault:.3e} apart: the gate "
+        f"(1e-4) {'refuses' if fault > 1e-4 else 'PASSES'} it")
+    if not (err32 < 1e-4 and same32 and cache_err <= 1e-5
+            and fwd_err < 1e-4):
+        raise AssertionError(f"{label}: f32 prompt pass {err32}, tokens "
+                             f"equal {same32}, cache {cache_err}, forward "
+                             f"{fwd_err}")
+    if not fault > 1e-4:
+        raise AssertionError(f"{label}: the planted fault (the neighbour's "
+                             f"columns) passes the f32 gate ({fault})")
+    summary["f32"] = {"max_rel_diff": err32, "tokens_equal": same32,
+                      "cache_rel_diff": cache_err,
+                      "forward_rel_diff": fwd_err,
+                      "planted_neighbour_columns_rel_diff": fault}
+
+    # bf16: launches, the peers alike, held to the witness
+    want_l = run_counts(loc)
+    check_tp_launches(outs, want_l, label)
+    for o in outs:
+        check_stack_run(torch, o["serve"], cfg, batch // n_dp,
+                        f"{label}[rank {o['rank']}]", attn_layers, rows)
+    check_peers(outs, lambda o: o["serve"]["tokens"].tolist(), label,
+                "the greedy tokens")
+    check_peers(outs, lambda o: o["stream"], label,
+                "the residual stream's digest")
+    shared = check_shared_heads(outs, shape, label)
+    if not shared:
+        raise AssertionError(f"{label}: no query head shared by two peers")
+    logits = whole_logits(outs, shape, lambda o: o["serve"]["logits"],
+                          cfg.vocab)
+    tokens = by_dp(outs, shape, lambda o: o["serve"]["tokens"])
+    w = summary["witness"] = witness_tokens(
+        torch, wit, loc, tokens, logits, torch.zeros(batch,
+                                                     dtype=torch.bool))
+    w["shared_head_outputs"] = shared
+    log(f"{label}[bf16]: every process launched flash_attention "
+        f"{want_l['prefill']['flash_attention']} times in the prompt pass "
+        f"and nothing else, as the oracle, on the "
+        f"{len(range(*outs[0]['heads']))} to "
+        f"{max(len(range(*o['heads'])) for o in outs)} whole query heads "
+        f"its columns touch; each query head's output bit-identical on "
+        f"the peers that touch it ({shared} shared (call, head) pairs); the "
+        f"residual stream and the greedy tokens bit-identical on model "
+        f"peers; against the witness (the oracle with TP's rounding of the "
+        f"row-parallel products alone): prompt-pass logits max rel diff "
+        f"{w['logits_rel_diff']:.3e} (bit-identical {w['logits_equal']}); "
+        f"greedy tokens equal in {w['sequences_same_tokens']} of {batch} "
+        f"(the plain oracle's in {w['oracle_sequences_same_tokens']}); each "
+        f"sequence whose tokens differ (sequence, step, witness gap): "
+        f"{w['token_gaps']} (limit {BF16_TOKEN_TIE}; one planted at the "
+        f"median gap reads {w['planted_token_gap']:.3e})")
+    check_witness_tokens(label, w)
+    kv_report(outs, summary, label)
+    r0 = next(o for o in outs if o["rank"] == 0)
+    return {"prefill": r0["serve"]["prefill_launches"],
+            "decode": r0["serve"]["decode_launches"]}, summary
+
+
+def attn_train_launches(cfg):
+    """A training step's launches of an attention-only stack: each layer's
+    forward once, twice under remat (``transformer.lm_forward``; the
+    encoder-decoder runs none), and one backward; no expert kernel."""
+    if cfg.encdec:
+        n = n_fwd = cfg.n_encoder_layers + cfg.n_layers
+    else:
+        n, n_fwd = cfg.n_layers, (2 if cfg.remat else 1) * cfg.n_layers
+    return {"flash_attention": n_fwd, "flash_attention_bwd": n,
+            "grouped_matmul": 0, "a2a_pack": 0, "a2a_unpack": 0}
+
+
+def check_attn_train_launches(outs, oracle, cfg, label):
+    """Every process's launches each step equal to the oracle's and to
+    ``attn_train_launches``, every attention backward on wgmma."""
+    want = attn_train_launches(cfg)
+    for who, run in [("local oracle", oracle)] + [
+            (f"rank {o['rank']}", o) for o in outs]:
+        for i, (got, by) in enumerate(zip(run["launches"], run["variants"])):
+            if got != want or by["flash_attention_bwd"]["wgmma"] != \
+                    want["flash_attention_bwd"]:
+                raise AssertionError(f"{label}[{who}] step {i}: launches "
+                                     f"{got} by instance {by}; expected "
+                                     f"{want}, the backward on wgmma")
+    return want
+
+
+def head_train_check(torch, oracle, outs, metrics, cfg, shape, batch, seq,
+                     label):
+    """Phase 13's bf16 training gates on the processes' ``outs``
+    (``tp_train_child``'s) and rank 0's step ``metrics``, against the
+    stacked ``oracle`` (``local_oracle``): launches equal each step, the
+    gradients of the leaves replicated over "model" bit-identical on
+    model peers, losses within 2e-2.  Returns rank 0's launches over its
+    steps and a summary."""
+    n_dp = shape[0] * shape[1]
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.encdec else "")
+        + f") at its published widths on a {shape} mesh of "
+        f"{ranks_of(shape)} processes ({PROC_BACKEND}) through "
+        f"train_procs' per-rank path; {batch} x {seq} tokens a step "
+        f"({batch // n_dp} rows a DP rank), {HEAD_TRAIN_STEPS} AdamW steps; "
+        f"{TP_LABEL}")
+    summary = {"label": TP_LABEL, "oracle": {
+        "step_ms": oracle["step_ms"], "peak_gb": oracle["peak_gb"]}}
+    want = check_attn_train_launches(outs, oracle, cfg, label)
+    check_peers(outs, lambda o: o["replicated"], label,
+                "a gradient of a leaf replicated over 'model'")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(metrics, oracle["metrics"])]
+    log(f"{label}: every process launched each kernel as often as the "
+        f"oracle each step ({want}); the gradients of the "
+        f"{len(outs[0]['replicated'][0])} leaves replicated over 'model' "
+        f"bit-identical on model peers every step; step losses "
+        f"{[round(m['loss'], 6) for m in metrics]} against the "
+        f"oracle's, relative differences {[f'{d:.3e}' for d in diffs]} "
+        f"(limit 2e-2)")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"{label}: step losses against the oracle "
+                             f"{diffs}")
+    summary.update(loss_diffs=diffs, ranks=[])
+    tokens = batch * seq // n_dp
+    for o in outs:
+        ms = o["train"]["step_ms"]
+        r = {"rank": o["rank"], "coords": list(o["coords"]), "step_ms": ms,
+             "tokens_per_s": tokens / ms[-1] * 1e3,
+             "peak_gb": o["peak_gb"], "card_gb": max(o["card_gb"]),
+             "shard_gb": o["shard_gb"], **o["trace"]}
+        summary["ranks"].append(r)
+        log(f"{label}[rank {o['rank']} {tuple(o['coords'])}]: step ms "
+            f"{[round(x, 3) for x in ms]} (step {HEAD_TRAIN_STEPS - 1} "
+            f"traced); {r['tokens_per_s']:.1f} tokens/s of its DP rank's "
+            f"rows at the traced step; peak {o['peak_gb']:.2f} GB (f32 shard "
+            f"{o['shard_gb']:.2f} GB); the card {r['card_gb']:.2f} GB in "
+            f"use; traced step {r['host_ms']:.3f} ms: operators over 'model' "
+            f"{r['tp_share']:.4f} ({r['tp_sums']} calls), gradient sync "
+            f"{r['sync_share']:.4f}; {TP_LABEL}")
+    counts = {k: sum(step[k] for step in outs[0]["launches"])
+              for k in outs[0]["launches"][0]}
+    return counts, summary
+
+
+def head_cell_child(mesh, cfg32, shards, rows, serve_cli, config,
+                    train_config, batch, seq, noise_unit, want):
+    """One rank of a phase 13 cell, the per-rank hook of ``serve_procs``:
+    ``head_child``'s serving; then ``train_procs``' per-rank path
+    (``launch/train._train_rank``) twice, on the 1-layer model of
+    ``train_config`` that each process makes from the seed as the
+    parent's oracles do: bf16 training (``tp_train_child``) and the f32
+    gate (``f32_proc_child``, with the planted neighbour's columns, against
+    the oracle's ``want`` shared through CUDA IPC).  One spawn a cell:
+    starting 16 processes on the card takes about half a minute."""
+    import torch
+
+    from repro_torch.launch.train import _train_rank
+
+    out = head_child(mesh, cfg32, shards, rows, serve_cli, config)
+    free(torch)
+    runs = (("train", train_config(), HEAD_TRAIN_STEPS,
+             functools.partial(tp_train_child, steps=HEAD_TRAIN_STEPS)),
+            ("f32", train_config(compute_dtype="float32"), F32_PROC_STEPS,
+             functools.partial(f32_proc_child, want=want,
+                               plant=NeighbourColumns, batch=batch,
+                               noise_unit=noise_unit, seq=seq)))
+    for key, cfg, steps, hook in runs:
+        t0 = time.perf_counter()
+        res = _train_rank(mesh, cfg, [stack_params(torch, cfg, train=True)],
+                          proc_data(cfg, batch, seq),
+                          proc_train_options(steps), steps, True, None,
+                          hook=hook)
+        out[key], out[f"{key}_metrics"] = res["hook"], res["metrics"]
+        del res
+        free(torch)
+        out["stages_s"][f"{key} (with its model)"] = time.perf_counter() - t0
+    return out
+
+
+def phase_head_cell(torch, kernels, key, config, shape, prompt_shape,
+                    train_config, train_shape, noise_unit):
+    """One cell of phase 13: ``config()`` served on the processes of
+    ``shape`` and the 1-layer ``train_config()`` trained there, in one
+    spawn (``head_cell_child``), against the stacked oracles of its DP
+    shape.  Returns the serving launches, the training's and a summary."""
+    from repro_torch.launch.serve import serve_procs
+
+    (batch, prompt), (tbatch, tseq) = prompt_shape, train_shape
+    label, tlabel = f"head[{key}]", f"head[{key} train]"
+    t0 = time.perf_counter()
+    ctx = head_serve_oracles(torch, kernels, config, shape, batch, prompt,
+                             label)
+    tcfg, f32cfg = train_config(), train_config(compute_dtype="float32")
+    oracle = local_oracle(torch, tcfg, tbatch, tseq, HEAD_TRAIN_STEPS,
+                          kernels, shape=shape[:2] + (1,))
+    oracle32, want = f32_gate_oracle(torch, kernels, f32cfg, tbatch, tseq,
+                                     shape)
+    t_oracles = time.perf_counter() - t0
+    holder = [ctx.pop("params32")]
+    # the children's allocator only: the parent's tensors they map through
+    # CUDA IPC were allocated before
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    res = serve_procs(
+        ctx["cfg32"], holder, ctx["prompts"], shape, PROC_BACKEND, DEVICE,
+        None, None, GEN,
+        hook=functools.partial(head_cell_child, config=config,
+                               train_config=train_config, batch=tbatch,
+                               seq=tseq, noise_unit=noise_unit, want=want),
+        extras=ctx["extras"], timeout=PROC_TIMEOUT_S,
+        join_timeout=PROC_JOIN_S)
+    t_procs = time.perf_counter() - t0
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"], want
+    free(torch)
+    torch.cuda.ipc_collect()  # the oracle's tensors the processes mapped
+    ranks = res["ranks"]
+    r0 = next(o for o in ranks if o["rank"] == 0)
+    serving, summary = head_serve_check(torch, ctx, res, shape, batch,
+                                        prompt, label)
+    counts, summary["train"] = head_train_check(
+        torch, oracle, [o["train"] for o in ranks], r0["train_metrics"],
+        tcfg, shape, tbatch, tseq, tlabel)
+    summary["train"]["f32"] = f32_gate_check(
+        torch, oracle32, [o["f32"] for o in ranks], r0["f32_metrics"],
+        shape, tlabel, "each process keeping its neighbour's columns of "
+        "the touched query heads' output", tbatch, tseq, f32cfg, noise_unit)
+    summary["oracles_s"], summary["processes_s"] = t_oracles, t_procs
+    summary["rank0_stages_s"] = r0["stages_s"]
+    log(f"phase head[{key}]: oracles {t_oracles:.1f} s, the processes "
+        f"{t_procs:.1f} s (rank 0 from its shard on: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r0["stages_s"].items()) + ")")
+    return serving, counts, summary
+
+
+def phase_head(torch, kernels):
+    """Phase 13: TP over "model" where it cuts through a query head: (a)
+    internvl2-1b on (1, 1, 16), (b) whisper-tiny on (1, 2, 4), each served
+    and trained.  Returns the serving launches by path, the training's and
+    a summary."""
+    summary, serving, train = {}, {}, {}
+    cells = (
+        ("a", HEAD_PATH, HEAD_TRAIN_PATH, head_config, HEAD_MESH,
+         (HEAD_BATCH, head_config().frontend_len + HEAD_TOKENS),
+         functools.partial(head_config, n_layers=1),
+         (HEAD_TRAIN_BATCH, HEAD_TRAIN_SEQ), "dp"),
+        ("b", ENCDEC_PATH, ENCDEC_TRAIN_PATH, encdec_config, ENCDEC_MESH,
+         (ENCDEC_BATCH, ENCDEC_PROMPT), encdec_config,
+         (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ), "process"))
+    for key, path, train_path, config, shape, prompts, tcfg, tshape, unit \
+            in cells:
+        serving[path], train[train_path], summary[key] = phase_head_cell(
+            torch, kernels, key, config, shape, prompts, tcfg, tshape, unit)
+        free(torch)
+    return serving, train, summary
 
 
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
@@ -6474,6 +7273,14 @@ def main() -> int:
     launches.update(kv_launches)
     log(f"phase kv: {time.perf_counter() - t0:.1f} s; {json.dumps(kv)}")
 
+    # 13. tensor parallelism over "model" where it cuts through a query
+    # head: internvl2-1b on (1, 1, 16) and whisper-tiny on (1, 2, 4),
+    # served and trained
+    t0 = time.perf_counter()
+    head_launches, head_train_launches, head = phase_head(torch, kernels)
+    launches.update(head_launches)
+    log(f"phase head: {time.perf_counter() - t0:.1f} s; {json.dumps(head)}")
+
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for
     # pack and unpack, which training does not launch: the main path of
@@ -6504,6 +7311,9 @@ def main() -> int:
             tp_train_launches[name]
         by_path[f"{KV_TRAIN_PATH} ({TRAIN_PROC_STEPS} steps, rank 0)"] = \
             kv_train_launches[name]
+        for path, counts in head_train_launches.items():
+            by_path[f"{path} ({HEAD_TRAIN_STEPS} steps, rank 0)"] = \
+                counts[name]
         for path, counts in stack_launches.items():
             if name in counts:
                 by_path[path] = counts[name]

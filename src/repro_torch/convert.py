@@ -147,11 +147,13 @@ def shard_module(params: Any, cfg: ModelConfig, mesh,
     by ``launch/shardings.module_specs`` on ``mesh`` (a ``ProcessMesh``),
     copied onto ``device`` (default: the mesh's) into a module of its own:
     the whole can be dropped after.  A "model" axis above 1 cuts the
-    reference's TP slices (heads, the keys' and values' ``K·dh`` columns
-    also where they cut through a kv head, the FFN's and the experts'
-    hidden dim, the vocabulary; ``models/tp.py`` runs them) for the dense,
-    MoE and vlm transformer families; ``_check_tp`` raises for what is not
-    ported."""
+    reference's TP slices (the query, key and value columns, also where
+    they cut through a head, the FFN's and the experts' hidden dim, the
+    vocabulary; ``models/tp.py`` runs them), and keeps whole each leaf whose
+    dim "model" does not divide (``_drop_uneven``), for the dense, MoE, vlm
+    and encoder-decoder families; ``_check_tp`` raises for what is not
+    ported (the ssm and hybrid families, ``seq_shard_activations``, FSDP,
+    ``pure_dp``)."""
     from .launch.shardings import module_specs, named_params, shard_tensor
 
     dev = mesh.device if device is None else resolve_device(device)
@@ -173,13 +175,9 @@ def _check_tp(cfg: ModelConfig, mesh) -> None:
         return
     tp = mesh.axis_size("model")
     why = None
-    if cfg.family in ("ssm", "hybrid") or cfg.encdec:
-        why = (f"TP over 'model' of the {cfg.family} family (its recurrent, "
-               f"Mamba or encoder-decoder weights) is not ported")
-    elif cfg.n_heads % tp:
-        why = (f"TP over 'model' of {tp} that does not divide the "
-               f"{cfg.n_heads} heads (the reference's cut through a query "
-               f"head) is not ported")
+    if cfg.family in ("ssm", "hybrid"):
+        why = (f"TP over 'model' of the {cfg.family} family (its recurrent "
+               f"or Mamba weights) is not ported")
     elif cfg.seq_shard_activations:
         why = ("seq_shard_activations (activations sharded over 'model' "
                "along the sequence) is not ported")

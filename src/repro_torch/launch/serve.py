@@ -43,12 +43,15 @@ rank's prompts go to each of its model peers (8 processes here):
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,2,2 --procs \\
         --backend gloo
 
-"model" must divide the query heads, not the kv heads: where it cuts
-through them (the reference's 16-way TP over 8 kv heads) the keys' and
-values' columns are gathered over "model" after the projection and each
-process keeps the kv heads its query heads read.  The smoke llama3.2-1b
-(8 heads, 2 kv heads) on 8 processes, and megatron-moe-32e at its
-published widths (32 heads, 8 kv heads) on 16 processes sharing one card:
+"model" may cut through the kv heads and the query heads: where it cuts
+through them (the reference's 16-way TP over 8 kv heads, internvl2-1b's
+14 query heads at 16) the columns are gathered over "model" after the
+projection, each process computes the whole query heads its columns touch
+and the kv heads they read, and keeps its own columns of the output.  A
+leaf whose dim "model" does not divide stays whole (the reference's
+``_drop_uneven``).  The smoke llama3.2-1b (8 heads, 2 kv heads) on 8
+processes, and megatron-moe-32e at its published widths (32 heads, 8 kv
+heads) on 16 processes sharing one card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama3.2-1b --smoke --device cpu --mesh 1,1,8 --procs \\
@@ -56,6 +59,11 @@ published widths (32 heads, 8 kv heads) on 16 processes sharing one card:
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch megatron-moe-32e --n-layers 2 --mesh 1,1,16 --procs \\
         --backend gloo --batch 32 --prompt-len 128 --gen-len 16
+
+In code, ``serve_procs`` also serves an encoder-decoder (whisper-tiny,
+given its ``frames`` in ``extras``) and the vision stub's
+``patch_embeds``; the demo below feeds token prompts alone and refuses
+encoder-decoders.
 """
 
 from __future__ import annotations
@@ -160,21 +168,46 @@ def flash_plan(n_pods: int, gpus_per_pod: int, seed: int = 0):
     return get_scheduler("flash").synthesize(w)
 
 
+def _encdec_prefill(cfg: ModelConfig, mesh, params, batch: dict,
+                    total: int, step):
+    """An encoder-decoder's prompt pass, as its serving runs it: the
+    encoder and the cross K/V (``encdec_init_cache`` with the frames), then
+    the decode step over each prompt token (the teacher-forced chain).
+    Returns (the last position's logits, the cache)."""
+    from ..models.encdec import encdec_init_cache
+
+    rows = batch["tokens"]
+    dist = make_dist_context(cfg, mesh) if mesh is not None else None
+    with torch.no_grad():
+        cache = encdec_init_cache(cfg, rows.shape[0], total, batch["frames"],
+                                  params, dist=dist)
+    for t in range(rows.shape[1]):
+        logits, cache = step(params, cache, rows[:, t], t)
+    return logits, cache
+
+
 def _greedy(mesh, cfg: ModelConfig, params, rows: torch.Tensor, spec,
-            impl: Optional[str], plan, gen_len: int) -> dict:
-    """Prefill this rank's ``rows`` and decode greedily to ``gen_len``
-    tokens, gathering each step's logits (over the DP axes, and over
-    "model" where the vocabulary is sharded) and the tokens (returned on
-    rank 0; ``{}`` on the others).  A token is the argmax over every
-    vocabulary shard (``transformer.greedy_tokens``)."""
+            impl: Optional[str], plan, gen_len: int,
+            extras: Optional[dict] = None) -> dict:
+    """Prefill this rank's ``rows`` (with its rows of ``extras``: the vision
+    stub's ``patch_embeds``, an encoder-decoder's ``frames``) and decode
+    greedily to ``gen_len`` tokens, gathering each step's logits (over the
+    DP axes, and over "model" where the vocabulary is sharded) and the
+    tokens (returned on rank 0; ``{}`` on the others).  A token is the
+    argmax over every vocabulary shard (``transformer.greedy_tokens``)."""
     from .shardings import gather_tensor
 
     prompt = rows.shape[1]
     total = prompt + gen_len
-    prefill = make_prefill_step(cfg, mesh, impl, plan, cache_len=total)
     step = make_serve_step(cfg, mesh, impl, plan)
     dist = make_dist_context(cfg, mesh, impl, plan)
-    logits, cache = prefill(params, {"tokens": rows})
+    batch = {"tokens": rows, **(extras or {})}
+    if cfg.encdec:
+        logits, cache = _encdec_prefill(cfg, mesh, params, batch, total,
+                                        step)
+    else:
+        logits, cache = make_prefill_step(cfg, mesh, impl, plan,
+                                          cache_len=total)(params, batch)
     vocab = "model" if logits.shape[-1] != cfg.vocab else None
     logits_spec = (spec[0], vocab)
     steps = [gather_tensor(logits, logits_spec, mesh)]
@@ -192,16 +225,17 @@ def _greedy(mesh, cfg: ModelConfig, params, rows: torch.Tensor, spec,
 
 
 def _serve_rank(mesh, cfg: ModelConfig, holder: list, prompts: torch.Tensor,
-                impl: Optional[str], plan, gen_len: int, handoff=None,
-                hook=None) -> dict:
+                extras: dict, impl: Optional[str], plan, gen_len: int,
+                handoff=None, hook=None) -> dict:
     """One rank of ``serve_procs``: cut this process's shard of the
-    parameters in ``holder`` (emptied) and its rows of the prompts; with
-    ``handoff`` (a barrier shared with the parent) wait until every rank
-    holds its shard and again until the parent has dropped the whole; then
-    serve (``_greedy``).  ``hook(mesh, cfg, shards, rows, serve)``, when
+    parameters in ``holder`` (emptied) and its rows of the prompts and of
+    ``extras``; with ``handoff`` (a barrier shared with the parent) wait
+    until every rank holds its shard and again until the parent has
+    dropped the whole; then serve (``_greedy``).  ``hook(mesh, cfg, shards, rows, serve)``, when
     given, runs in place of the serve: ``shards`` is a list holding the
     shard (pop it to free it), and ``serve()`` is the serve, which the hook
-    must call once; its result goes back under ``"hook"``."""
+    must call once; its result goes back under ``"hook"``.  A hook that
+    reads this rank's ``extras`` rows finds them in ``serve.extras``."""
     from ..convert import shard_module
     from .procs import RENDEZVOUS_TIMEOUT_S
     from .shardings import batch_specs, shard_tensor
@@ -211,17 +245,22 @@ def _serve_rank(mesh, cfg: ModelConfig, holder: list, prompts: torch.Tensor,
     if handoff is not None:
         handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # every rank holds its own
         handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # the parent dropped all
-    spec = batch_specs(mesh, {"tokens": prompts})["tokens"]
+    specs = batch_specs(mesh, {"tokens": prompts, **extras})
+    spec = specs["tokens"]
     rows = shard_tensor(prompts, spec, mesh).to(mesh.device)
+    own = {k: shard_tensor(v, specs[k], mesh).to(mesh.device)
+           for k, v in extras.items()}
     if hook is None:
-        return _greedy(mesh, cfg, shards[0], rows, spec, impl, plan, gen_len)
+        return _greedy(mesh, cfg, shards[0], rows, spec, impl, plan, gen_len,
+                       own)
     served = []
 
     def serve() -> dict:
         served.append(_greedy(mesh, cfg, shards[0], rows, spec, impl, plan,
-                              gen_len))
+                              gen_len, own))
         return served[-1]
 
+    serve.extras = own
     extra = hook(mesh, cfg, shards, rows, serve)
     if len(served) != 1:
         raise RuntimeError(f"serve_procs: the hook served {len(served)} "
@@ -232,13 +271,18 @@ def _serve_rank(mesh, cfg: ModelConfig, holder: list, prompts: torch.Tensor,
 def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
                 mesh_shape, backend: str, device="cuda",
                 a2a_impl: Optional[str] = None, plan=None,
-                gen_len: int = 16, hook=None, **spawn_kw) -> dict:
+                gen_len: int = 16, hook=None,
+                extras: Optional[dict] = None, **spawn_kw) -> dict:
     """Serve ``prompts [B, S]`` on one process per rank of ``mesh_shape``
     (pod, data, model): each process takes its shard of ``params`` (a
     module or ``{name: tensor}``, shared with it without a copy: CUDA IPC
     on the card) and its ``B / (pod * data)`` rows (the same rows on each
     of a DP rank's model peers), prefills and decodes ``gen_len`` greedy
-    tokens.
+    tokens.  ``extras`` (``{name: [B, ...]}``: the vision stub's
+    ``patch_embeds``, an encoder-decoder's ``frames``, which it needs) are
+    cut by rows as the prompts; an encoder-decoder's prompt pass is the
+    encoder and the cross K/V, then the decode step over the prompt
+    (``_encdec_prefill``).
 
     ``params`` may come in a one-element list, which is emptied: once every
     process holds its shard, the parent drops its own references to the
@@ -263,7 +307,11 @@ def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
     # the prompts go by value: a child holds its rows to its end, and CUDA
     # IPC wants every child to release a shared tensor before the parent
     # exits
+    if cfg.encdec and "frames" not in (extras or {}):
+        raise ValueError(f"{cfg.name} is an encoder-decoder: serve_procs "
+                         f"needs its frames in extras")
     args = (shape, AXES, backend, device, cfg, named, prompts.cpu(),
+            {k: torch.as_tensor(v).cpu() for k, v in (extras or {}).items()},
             a2a_impl, plan, gen_len)
     if under_torchrun():
         out = spawn(_serve_rank, *args, None, hook, **spawn_kw)
@@ -374,8 +422,7 @@ def main(argv=None):
                     help="serve on a local (POD, DATA, MODEL) mesh stacked "
                          "on the device (MODEL defaults to 1; the stacked "
                          "mesh keeps whole weights; with --procs, TP over "
-                         "MODEL, which must divide the query heads); "
-                         "default: no mesh")
+                         "MODEL); default: no mesh")
     ap.add_argument("--procs", action="store_true",
                     help="serve the --mesh on one process per rank")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),

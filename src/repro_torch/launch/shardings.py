@@ -34,9 +34,14 @@ reference's.  Where it cuts through them (8 kv heads on the reference's
 read it: twice the reference's cache bytes for megatron-moe-32e at 16, and
 no exchange inside attention, where the reference sums the ``dh``-partial
 scores ``[B, H, S]`` over "model" in f32 every layer and step, as many
-bytes over the fabric as the replicas add to the cache.  ``cache_specs``
-stays the reference's table; ``whole_kv_heads`` puts the model peers'
-caches back together.
+bytes over the fabric as the replicas add to the cache.  Where "model"
+cuts through a query head (internvl2-1b's 14 heads at 16), a process's
+columns touch one or two query heads and its cache holds the kv heads
+those read: the 1 of internvl2-1b's 2 on each process at 16, 8 times the
+reference's ``dh / 16`` slice.  An encoder-decoder's cross cache (``xk``,
+``xv``, the projected encoder stream) holds the same kv heads as its
+self-attention cache.  ``cache_specs`` stays the reference's table;
+``whole_kv_heads`` puts the model peers' caches back together.
 """
 
 from __future__ import annotations
@@ -481,12 +486,17 @@ def gather_tensor(local: torch.Tensor, spec: Spec, mesh,
     return out
 
 
-def whole_kv_heads(parts, cfg: ModelConfig) -> torch.Tensor:
+def whole_kv_heads(parts, cfg: ModelConfig):
     """A decode cache's whole keys or values ``[B, S_phys, K, Dh]`` from the
     model peers' ``[B, S_phys, K_sel, Dh]`` (``parts``, by model
     coordinate): each kv head from the first peer that reads it
     (``tp.kv_heads``).  Raises when its replicas on the peers that share it
-    are not bit for bit the same."""
+    are not bit for bit the same.  ``parts`` of one layer's cache dicts
+    (``{"k", "v"}``, an encoder-decoder's cross ``{"xk", "xv"}`` too) give
+    the dict of whole tensors."""
+    if isinstance(parts[0], dict):
+        return {key: whole_kv_heads([p[key] for p in parts], cfg)
+                for key in parts[0]}
     n = len(parts)
     whole = [None] * cfg.n_kv_heads
     for coord, part in enumerate(parts):

@@ -42,10 +42,12 @@ per-process program rather than a fabric), rank 0 printing the steps:
         --backend gloo --batch 12 --seq 16 --steps 2
 
 ``--mesh POD,DATA,MODEL`` adds tensor parallelism over "model" on the
-processes (``models/tp.py``; 8 here).  "model" must divide the query
-heads; where it cuts through the kv heads, as on (2, 1, 4) for the smoke
-config's 4 heads over 2 kv heads, the keys' and values' columns are
-gathered over "model" and their gradients summed back:
+processes (``models/tp.py``; 8 here).  Where "model" cuts through the kv
+heads, as on (2, 1, 4) for the smoke config's 4 heads over 2 kv heads, or
+through a query head, the columns are gathered over "model" and their
+gradients summed back; an encoder-decoder trains the same way, its
+batch's ``frames`` cut by DP rows as the tokens (the smoke whisper-tiny's
+4 heads on 4 processes, 1 a process):
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,2,2 --procs \\
@@ -53,6 +55,9 @@ gathered over "model" and their gradients summed back:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 2,1,4 --procs \\
         --backend gloo --batch 8 --seq 16 --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch whisper-tiny --smoke --device cpu --mesh 1,1,4 --procs \\
+        --backend gloo --batch 4 --seq 16 --steps 2
 """
 
 from __future__ import annotations
@@ -192,7 +197,8 @@ def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
     order), then divided by the DP world size.  Never over "model": a
     process's TP slice already holds its whole gradient (its model peers
     ran the same rows), and a leaf replicated over "model" (the norms, the
-    router, ``q_norm``/``k_norm``) reaches it whole and with the same bits
+    router, ``q_norm``/``k_norm``, an encoder-decoder's ``enc_pos`` and
+    ``dec_pos``, a leaf ``_drop_uneven`` keeps whole) reaches it whole and with the same bits
     on every peer, since each path into the TP region enters through
     ``models/tp.copy_in``, whose backward sums the peers' parts in member
     order.  An expert shard's gradient
@@ -540,8 +546,7 @@ def main(argv=None):
                     help="train on a local (POD, DATA, MODEL) mesh stacked "
                          "on the device (MODEL defaults to 1; the stacked "
                          "mesh keeps whole weights; with --procs, TP over "
-                         "MODEL, which must divide the query heads); "
-                         "default: no mesh")
+                         "MODEL); default: no mesh")
     ap.add_argument("--procs", action="store_true",
                     help="train the --mesh on one process per rank")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),

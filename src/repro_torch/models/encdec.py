@@ -15,10 +15,24 @@ Decoder positions index a learned table of ``_MAX_DECODE_POS`` rows and
 saturate at its last row.  The decode cache is a list of per-layer dicts,
 ``{"k", "v"}`` (self-attention, updated in place) and ``{"xk", "xv"}`` (the
 projected encoder stream, static per request).
+
+Under tensor parallelism (``dist.tp_size > 1`` on a ``ProcessMesh``;
+``models/tp.py``) every leaf follows its spec through the same layer
+functions as the decoder-only stacks: the self-attention, the
+cross-attention and the GELU MLP (``b_up`` sharded with ``w_up``) run on
+this process's slice, the cross-attention on the query heads its ``wq``
+columns touch against the kv heads they read, projected from the encoder
+stream (gathered over "model" where "model" cuts through them; the cross
+cache holds those heads, as the self-attention cache does).  The tied head
+is vocabulary-parallel where "model" divides the vocabulary (the lookup,
+the logits and the cross entropy of ``models/transformer.py``), whole
+where it does not (51865 rows); ``enc_pos`` and ``dec_pos`` are
+replicated.  The reference leaves this layout to GSPMD.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -30,6 +44,11 @@ from .layers import (
     MLP,
     Attention,
     Norm,
+    _attn_tp,
+    _heads,
+    _own_cols,
+    _project_kv,
+    _project_q,
     _repeat_kv,
     attention_apply,
     attention_decode,
@@ -40,6 +59,8 @@ from .layers import (
     param,
     take_rows,
 )
+from .tp import copy_in, row_parallel, tp_mesh, tp_of
+from .transformer import _embed_tokens, _vocab_parallel_nll
 
 __all__ = [
     "EncDec", "init_encdec", "encode", "encdec_forward", "encdec_loss",
@@ -99,31 +120,48 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig, device="cuda",
 
 
 def _cross_attend(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                  enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
-    """x [B, Sq, d]; enc_k, enc_v [B, Se, K, Dh] (already projected)."""
+                  enc_k: torch.Tensor, enc_v: torch.Tensor,
+                  tp=None) -> torch.Tensor:
+    """x [B, Sq, d]; enc_k, enc_v [B, Se, K, Dh] (already projected: the kv
+    heads that the query heads ``p``'s columns touch read, ``_heads``)."""
     b, sq, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ p.wq.to(x.dtype)).reshape(b, sq, h, dh)
+    tp = _attn_tp(cfg, p, tp)
+    heads, off, _ = _heads(cfg, p, tp)
+    h, kv, dh = len(heads), enc_k.shape[2], cfg.resolved_head_dim
+    q = _project_q(cfg, p, copy_in(tp, x), tp, heads)
     k = _repeat_kv(enc_k, h // kv)
     v = _repeat_kv(enc_v, h // kv)
     mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=x.device)
-    out = mha_einsum(q, k, v, mask).reshape(b, sq, h * dh)
-    return out @ p.wo.to(x.dtype)
+    out = _own_cols(mha_einsum(q, k, v, mask).reshape(b, sq, h * dh), off,
+                    p.wo.shape[0])
+    return row_parallel(tp, torch.matmul, out, p.wo.to(x.dtype))
 
 
-def _project_enc_kv(cfg: ModelConfig, p: Attention, enc_out: torch.Tensor):
-    b, se, _ = enc_out.shape
-    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    k = (enc_out @ p.wk.to(enc_out.dtype)).reshape(b, se, kv, dh)
-    v = (enc_out @ p.wv.to(enc_out.dtype)).reshape(b, se, kv, dh)
-    return k, v
+def _project_enc_kv(cfg: ModelConfig, p: Attention, enc_out: torch.Tensor,
+                    tp=None):
+    """The cross keys and values ``[B, Se, K_sel, Dh]`` of the kv heads
+    that the query heads ``p``'s columns touch read (every kv head without
+    TP)."""
+    tp = _attn_tp(cfg, p, tp)
+    return _project_kv(cfg, p, copy_in(tp, enc_out), tp, _heads(cfg, p, tp)[2])
+
+
+def _logits(cfg: ModelConfig, params: EncDec, x: torch.Tensor, tp=None
+            ) -> torch.Tensor:
+    """The tied head's logits, or over a sharded vocabulary this process's
+    shard of them."""
+    x = norm_apply(cfg, params.dec_final, x)
+    x = copy_in(tp_of(tp, params.embed.shape[0], cfg.vocab), x)
+    return x @ params.embed.T.to(x.dtype)
 
 
 def encode(cfg: ModelConfig, params: EncDec, frames,
-           use_kernel: bool = True) -> torch.Tensor:
+           use_kernel: bool = True,
+           dist: Optional[DistContext] = None) -> torch.Tensor:
     """frames [B, encoder_len, d] stub embeddings -> the encoder stream
     [B, encoder_len, d] in the compute dtype."""
     compute = getattr(torch, cfg.compute_dtype)
+    tp = tp_mesh(dist)
     frames = torch.as_tensor(frames, device=params.enc_pos.device)
     if frames.dim() != 3 or tuple(frames.shape[1:]) != (cfg.encoder_len,
                                                         cfg.d_model):
@@ -136,8 +174,8 @@ def encode(cfg: ModelConfig, params: EncDec, frames,
     for blk in params.enc_blocks:
         h = norm_apply(cfg, blk.norm1, x)
         x = x + attention_apply(cfg, blk.attn, h, positions=positions,
-                                causal=False, use_kernel=use_kernel)
-        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x))
+                                causal=False, use_kernel=use_kernel, tp=tp)
+        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x), tp)
     return norm_apply(cfg, params.enc_final, x)
 
 
@@ -145,41 +183,48 @@ def encdec_forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
                    extras: Dict[str, Any], dist: Optional[DistContext] = None,
                    use_kernel: bool = True):
     """The teacher-forced decoder over the full token sequence: tokens
-    [B, S] and ``extras["frames"]`` -> (logits [B, S, V], aux = 0)."""
-    enc_out = encode(cfg, params, extras["frames"], use_kernel)
+    [B, S] and ``extras["frames"]`` -> (logits [B, S, V], aux = 0); under
+    TP with a sharded vocabulary this process's ``[B, S, V/tp]``."""
+    tp = tp_mesh(dist)
+    enc_out = encode(cfg, params, extras["frames"], use_kernel, dist)
     compute = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
     # saturate at the learned table's last row (the reference's clamp)
     pos_idx = torch.clamp(torch.arange(s, device=enc_out.device),
                           max=_MAX_DECODE_POS - 1)
-    x = take_rows(params.embed, tokens, compute) \
+    x = _embed_tokens(cfg, params, tokens, None, tp) \
         + take_rows(params.dec_pos, pos_idx, compute)[None]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     for blk in params.dec_blocks:
         h = norm_apply(cfg, blk.norm1, x)
         x = x + attention_apply(cfg, blk.attn, h, positions=positions,
-                                causal=True, use_kernel=use_kernel)
+                                causal=True, use_kernel=use_kernel, tp=tp)
         hx = norm_apply(cfg, blk.norm_x, x)
-        ek, ev = _project_enc_kv(cfg, blk.xattn, enc_out)
-        x = x + _cross_attend(cfg, blk.xattn, hx, ek, ev)
-        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x))
-    x = norm_apply(cfg, params.dec_final, x)
-    logits = x @ params.embed.T.to(x.dtype)
+        ek, ev = _project_enc_kv(cfg, blk.xattn, enc_out, tp)
+        x = x + _cross_attend(cfg, blk.xattn, hx, ek, ev, tp)
+        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x), tp)
+    logits = _logits(cfg, params, x, tp)
     return logits, torch.zeros((), dtype=_F32, device=x.device)
 
 
 def encdec_loss(cfg: ModelConfig, params: EncDec, batch: Dict[str, Any],
                 dist: Optional[DistContext] = None, use_kernel: bool = True):
-    """Next-token cross entropy of the teacher-forced decoder, with the
-    reference's metrics; no aux term enters the loss, as there."""
+    """Next-token cross entropy of the teacher-forced decoder in f32, with
+    the reference's metrics; no aux term enters the loss, as there.  Over
+    a sharded vocabulary it is ``transformer._vocab_parallel_nll``."""
     logits, aux = encdec_forward(cfg, params, batch["tokens"], batch, dist,
                                  use_kernel)
-    logits = logits.float()
     labels = batch["labels"].long()[..., None]
-    m = logits.amax(-1, keepdim=True)
-    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
-    ll = torch.gather(logits, -1, labels)[..., 0]
+    tp = tp_of(tp_mesh(dist), logits.shape[-1], cfg.vocab)
+    if tp is not None:
+        lse, ll = _vocab_parallel_nll(
+            dataclasses.replace(cfg, bf16_ce=False), tp, logits, labels)
+    else:
+        logits = logits.float()
+        m = logits.amax(-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
+        ll = torch.gather(logits, -1, labels)[..., 0]
     nll = (lse - ll).mean()
     metrics = {"loss": nll, "nll": nll, "aux": aux,
                "ppl_proxy": torch.exp(torch.clamp(nll, max=20.0))}
@@ -188,20 +233,30 @@ def encdec_loss(cfg: ModelConfig, params: EncDec, batch: Dict[str, Any],
 
 def encdec_init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                       frames=None, params: Optional[EncDec] = None,
-                      device="cuda", use_kernel: bool = True
+                      device="cuda", use_kernel: bool = True,
+                      dist: Optional[DistContext] = None
                       ) -> List[Dict[str, torch.Tensor]]:
     """The self-attention cache (``seq_len`` slots, zero) and each layer's
     projected cross K/V.  With ``frames`` and ``params`` the cross K/V hold
     the real encoder projections (on the parameters' device); otherwise
-    zeros of ``encoder_len`` rows."""
-    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    zeros of ``encoder_len`` rows.  Under TP (``dist``, with ``params``:
+    this process's shard) every entry holds the kv heads that the query
+    heads of this process's columns read (``layers._heads``)."""
+    tp = tp_mesh(dist)
+    if tp is not None and params is None:
+        raise ValueError("a cache under TP holds the kv heads of this "
+                         "process's shard: pass its params")
+    dh = cfg.resolved_head_dim
     compute = getattr(torch, cfg.compute_dtype)
     enc_out = None
     if frames is not None and params is not None:
-        enc_out = encode(cfg, params, frames, use_kernel)
+        enc_out = encode(cfg, params, frames, use_kernel, dist)
         device = enc_out.device
     layers = []
     for i in range(cfg.n_layers):
+        kv = cfg.n_kv_heads if params is None else len(_heads(
+            cfg, params.dec_blocks[i].attn,
+            _attn_tp(cfg, params.dec_blocks[i].attn, tp))[2])
         entry = {
             "k": torch.zeros((batch, seq_len, kv, dh), dtype=compute,
                              device=device),
@@ -210,7 +265,7 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, seq_len: int,
         }
         if enc_out is not None:
             entry["xk"], entry["xv"] = _project_enc_kv(
-                cfg, params.dec_blocks[i].xattn, enc_out)
+                cfg, params.dec_blocks[i].xattn, enc_out, tp)
         else:
             for key in ("xk", "xv"):
                 entry[key] = torch.zeros((batch, cfg.encoder_len, kv, dh),
@@ -224,20 +279,21 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDec, cache,
                        dist: Optional[DistContext] = None,
                        use_kernel: bool = True):
     """tokens [B] int, pos int -> (logits [B, V], cache updated in place);
-    the cross K/V are static per request."""
+    the cross K/V are static per request.  The logits are this process's
+    vocabulary shard under TP."""
+    tp = tp_mesh(dist)
     compute = getattr(torch, cfg.compute_dtype)
     pos = int(pos)
     pos_emb = params.dec_pos[min(pos, _MAX_DECODE_POS - 1)].to(compute)
-    x = take_rows(params.embed, tokens[:, None], compute) + pos_emb[None, None]
+    x = _embed_tokens(cfg, params, tokens[:, None], None, tp) \
+        + pos_emb[None, None]
     for blk, cache_l in zip(params.dec_blocks, cache):
         h = norm_apply(cfg, blk.norm1, x)
         attn, _, _ = attention_decode(cfg, blk.attn, h, cache_l["k"],
-                                      cache_l["v"], pos)
+                                      cache_l["v"], pos, tp=tp)
         x = x + attn
         hx = norm_apply(cfg, blk.norm_x, x)
         x = x + _cross_attend(cfg, blk.xattn, hx, cache_l["xk"],
-                              cache_l["xv"])
-        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x))
-    x = norm_apply(cfg, params.dec_final, x)
-    logits = x @ params.embed.T.to(x.dtype)
-    return logits[:, 0], cache
+                              cache_l["xv"], tp)
+        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x), tp)
+    return _logits(cfg, params, x, tp)[:, 0], cache

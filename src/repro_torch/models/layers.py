@@ -15,22 +15,31 @@ PyTorch, as the reference's.  The decode cache is updated in place (the
 reference returns a new one) to keep one copy of it in device memory.
 
 Under tensor parallelism (``tp``, a ``ProcessMesh`` whose "model" axis is
-above 1; ``models/tp.py``) attention runs on this process's query heads,
-counted from ``wq``'s width, and on the kv heads they read
-(``tp.kv_heads``): ``wq``/``wk``/``wv`` are column-parallel behind
+above 1; ``models/tp.py``) attention runs on the query heads that this
+process's ``wq`` columns touch (``tp.q_heads``) and on the kv heads they
+read (``tp.kv_heads``): ``wq``/``wk``/``wv`` are column-parallel behind
 ``copy_in`` and ``wo`` is row-parallel (``row_parallel``); so are the
 MLP's ``w_gate``/``w_up`` and ``w_down`` (the GELU form's ``b_up`` sharded,
-``b_down`` added once after the sum).  Where "model" divides the kv heads a
-process's ``wk``/``wv`` columns are exactly the kv heads it reads; where it
-cuts through them, the peers' columns are gathered over "model"
-(``tp.gather_cols``, the reference's "one small K*dh all-gather after the
-projection") and each process keeps the kv heads it reads, replicated on
-the peers that share them, in the prefill's keys and values and the decode
-cache alike.  ``k_norm`` and RoPE run after the gather, on whole heads.
+``b_down`` added once after the sum).  Where "model" divides the query
+heads a process's ``wq`` columns are whole heads and nothing is gathered;
+where it cuts through one (internvl2-1b's 14 heads at 16: 56 of a 64-wide
+head's columns a process), the peers' query columns are gathered over
+"model" (``tp.gather_cols``), each process computes the one or two whole
+heads its columns touch, and it keeps its own columns of their output for
+its ``wo`` rows (``_own_cols``): two peers that touch a head compute it
+bit for bit alike, and the gather's backward adds the parts of its
+cotangent that each peer's columns gave.  Where "model" divides the kv
+heads a process's ``wk``/``wv`` columns are exactly the kv heads it reads;
+where it cuts through them, the peers' columns are gathered over "model"
+(the reference's "one small K*dh all-gather after the projection") and
+each process keeps the kv heads it reads, replicated on the peers that
+share them, in the prefill's keys and values and the decode cache alike.
+``q_norm``, ``k_norm`` and RoPE run after the gathers, on whole heads.
 The replicated ``q_norm``/``k_norm`` (and a ``wk``/``wv`` that
 ``_drop_uneven`` keeps whole) enter through ``copy_in`` too, which sums
-their gradients over the peers' heads.  The kernels run unchanged on the
-local heads.
+their gradients over the peers' heads.  Where ``_drop_uneven`` keeps
+``wq`` and ``wo`` whole, attention runs whole on every process, outside
+the TP region.  The kernels run unchanged on the local heads.
 """
 
 from __future__ import annotations
@@ -47,8 +56,8 @@ from ..configs.registry import ModelConfig
 # plain wrapper call
 from ..kernels.flash_attention import flash_attention_autograd as \
     flash_attention
-from .tp import copy_in, gather_cols, kv_heads, model_coord, row_parallel, \
-    tp_of
+from .tp import copy_in, gather_cols, kv_heads, model_coord, q_heads, \
+    row_parallel, tp_of
 
 NEG_INF = -1e30
 
@@ -175,13 +184,17 @@ class Attention(nn.Module):
 
 
 def _heads(cfg: ModelConfig, p: Attention, tp=None
-           ) -> Tuple[int, Tuple[int, ...]]:
-    """(the query heads ``p`` holds, from ``wq``'s width; the kv heads they
-    read, ``tp.kv_heads``): every head, or this process's share under TP
-    (``tp`` as ``_attn_tp`` gives it)."""
-    place = () if tp is None else (tp.axis_size("model"), model_coord(tp))
-    return (p.wq.shape[-1] // cfg.resolved_head_dim,
-            kv_heads(cfg.n_heads, cfg.n_kv_heads, *place))
+           ) -> Tuple[range, int, Tuple[int, ...]]:
+    """(the query heads that ``p``'s ``wq`` columns touch, ``tp.q_heads``;
+    the offset of those columns in the first; the kv heads they read,
+    ``tp.kv_heads``): every head, or this process's under TP (``tp`` as
+    ``_attn_tp`` gives it)."""
+    if tp is None:
+        return range(cfg.n_heads), 0, kv_heads(cfg.n_heads, cfg.n_kv_heads)
+    heads, off = q_heads(cfg.n_heads, cfg.resolved_head_dim, p.wq.shape[-1],
+                         model_coord(tp))
+    return heads, off, kv_heads(cfg.n_heads, cfg.n_kv_heads,
+                                tp.axis_size("model"), model_coord(tp))
 
 
 def _attn_tp(cfg: ModelConfig, p: Attention, tp):
@@ -228,14 +241,35 @@ def _project_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor, tp,
     return _take_heads(kk, sel).contiguous(), _take_heads(v, sel).contiguous()
 
 
+def _project_q(cfg: ModelConfig, p: Attention, x: torch.Tensor, tp,
+               heads: range) -> torch.Tensor:
+    """q ``[B, S, len(heads), Dh]`` of the query heads ``heads`` that
+    ``p``'s ``wq`` columns touch (``x`` already inside the TP region): the
+    projection alone where those columns are the heads, else the peers'
+    column slices gathered over "model" and the heads kept."""
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    q = x @ p.wq.to(x.dtype)
+    if q.shape[-1] != len(heads) * dh:
+        q = gather_cols(tp, q).narrow(-1, heads.start * dh, len(heads) * dh)
+    return q.reshape(b, s, len(heads), dh)
+
+
+def _own_cols(out: torch.Tensor, off: int, cols: int) -> torch.Tensor:
+    """``out [..., h·Dh]``, the output of the query heads a process's
+    ``wq`` columns touch, narrowed to those ``cols`` columns from ``off``:
+    the rows of ``wo`` it holds."""
+    return out if out.shape[-1] == cols else out.narrow(-1, off, cols)
+
+
 def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                  positions: torch.Tensor, rope: bool = True, tp=None):
-    """q, k, v of the query heads ``p`` holds and the kv heads they read
-    (``_heads``); ``tp`` (or None) as ``_attn_tp`` gives it."""
-    b, s, _ = x.shape
-    (h, sel), dh = _heads(cfg, p, tp), cfg.resolved_head_dim
+    """q, k, v of the query heads ``p``'s ``wq`` columns touch and the kv
+    heads they read (``_heads``), and the offset of those columns in the
+    first head; ``tp`` (or None) as ``_attn_tp`` gives it."""
+    heads, off, sel = _heads(cfg, p, tp)
     x = copy_in(tp, x)
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, dh)
+    q = _project_q(cfg, p, x, tp, heads)
     kk, v = _project_kv(cfg, p, x, tp, sel)
     if cfg.qk_norm:
         q = rms_head_norm(q, copy_in(tp, p.q_norm))
@@ -243,7 +277,7 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         kk = apply_rope(kk, positions, cfg.rope_theta)
-    return q, kk, v
+    return q, kk, v, off
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -336,12 +370,12 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     ``[B, S, H, D]``); False runs the reference's plain math.  ``use_window=False``
     drops the window.  With ``return_kv`` also returns the (pre-GQA-repeat)
     keys/values of the kv heads read (``_heads``).  ``tp``: the
-    ``ProcessMesh`` of a TP run (the query heads ``p`` holds and the kv
-    heads they read, their partial ``wo`` products summed over "model"), or
-    None."""
+    ``ProcessMesh`` of a TP run (the query heads ``p``'s columns touch and
+    the kv heads they read, this process's columns of their output times
+    its ``wo`` rows summed over "model"), or None."""
     b, s, _ = x.shape
     tp = _attn_tp(cfg, p, tp)
-    q, k, v = _project_qkv(cfg, p, x, positions, tp=tp)
+    q, k, v, off = _project_qkv(cfg, p, x, positions, tp=tp)
     h, kv = q.shape[2], k.shape[2]
     eff = window if (window is not None and use_window) else None
     if use_kernel:
@@ -355,7 +389,8 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     else:
         out = mha_einsum(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
                          _band_mask(s, s, 0, eff, causal, x.device))
-    out = out.reshape(b, s, h * cfg.resolved_head_dim)
+    out = _own_cols(out.reshape(b, s, h * cfg.resolved_head_dim), off,
+                    p.wo.shape[0])
     out = row_parallel(tp, torch.matmul, out, p.wo.to(out.dtype))
     if not return_kv:
         return out
@@ -386,14 +421,15 @@ def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                      *, window: Optional[int] = None, tp=None):
     """One-token decode against a (ring-buffered, if windowed) KV cache.
 
-    x [B, 1, d]; caches [B, S_phys, K, Dh] (the kv heads the query heads of
-    ``p`` read, ``_heads``), written in place at ``pos``.  Returns (out [B,
-    1, d], cache_k, cache_v); ``tp`` as ``attention_apply``'s."""
+    x [B, 1, d]; caches [B, S_phys, K, Dh] (the kv heads that the query
+    heads ``p``'s columns touch read, ``_heads``), written in place at
+    ``pos``.  Returns (out [B, 1, d], cache_k, cache_v); ``tp`` as
+    ``attention_apply``'s."""
     b, dh = x.shape[0], cfg.resolved_head_dim
     tp = _attn_tp(cfg, p, tp)
     s_phys = cache_k.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions, tp=tp)
+    q, k_new, v_new, off = _project_qkv(cfg, p, x, positions, tp=tp)
     h, kv = q.shape[2], k_new.shape[2]
     slot = pos if window is None else pos % s_phys
     cache_k[:, slot] = k_new[:, 0]
@@ -406,8 +442,8 @@ def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bqkgs,bskd->bqkgd", probs, cache_v)
-    out = row_parallel(tp, torch.matmul, out.reshape(b, 1, h * dh),
-                       p.wo.to(x.dtype))
+    out = _own_cols(out.reshape(b, 1, h * dh), off, p.wo.shape[0])
+    out = row_parallel(tp, torch.matmul, out, p.wo.to(x.dtype))
     return out, cache_k, cache_v
 
 

@@ -8,7 +8,9 @@ the caller asks for the CPU; asking for a CUDA device without one raises.
 ``loss``, ``prefill`` and ``decode_step`` take ``use_kernel`` (default
 True); False runs the plain versions of the kernels, with or without a
 ``dist``.  ``train=True`` makes ``init`` return trainable parameters with
-f32 masters of the expert stacks (``transformer.LM``).
+f32 masters of the expert stacks (``transformer.LM``).  Every family takes
+the ``dist`` of a ``ProcessMesh`` with TP over "model" (the encoder-decoder
+since the cut through a query head: ``models/encdec.py``).
 
 Two quirks of the reference's encoder-decoder surface are kept: its
 ``prefill`` is the teacher-forced forward and returns ``(logits [B, S, V],

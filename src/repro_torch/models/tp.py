@@ -22,10 +22,14 @@ at any ``n``).  ``max_over`` (the cross entropy's shift) and
 index first among ties, as ``torch.argmax`` and ``jnp.argmax``) complete
 the set.  ``gather_cols`` joins the peers' column slices of a projection
 (the keys' and values' ``K·dh`` columns where "model" cuts through a kv
-head, as the reference's GSPMD gathers them after the projection); its
+head, the queries' where it cuts through a query head, as the reference's
+GSPMD gathers them after the projection); its
 backward sums the cotangent over "model" in member order, keeping this
-process's slice (the scatter alone).  ``kv_heads`` names the kv heads a
-process's query heads read.  Each operator's collectives run inside a
+process's slice (the scatter alone).  ``q_heads`` names the query heads
+that a process's ``wq`` columns touch (one or two whole heads where
+"model" cuts through a query head: each process then gathers the peers'
+query columns, computes those heads and keeps its own columns of their
+output), and ``kv_heads`` the kv heads those query heads read.  Each operator's collectives run inside a
 ``procmesh.tp_*`` profiler range (a sum's two beyond two peers inside
 ``procmesh.tp_*:scatter`` and ``:gather`` within it), a backward's inside
 ``procmesh.tp_*.bwd``.
@@ -45,8 +49,8 @@ import torch
 from ..launch.mesh import ProcessMesh, all_gather, all_to_all, member_sum
 
 __all__ = ["tp_mesh", "tp_of", "vocab_slice", "copy_in", "sum_out",
-           "row_parallel", "gather_cols", "kv_heads", "model_coord",
-           "max_over", "argmax_over"]
+           "row_parallel", "gather_cols", "q_heads", "kv_heads",
+           "model_coord", "max_over", "argmax_over"]
 
 AXIS = ("model",)
 
@@ -194,22 +198,39 @@ def gather_cols(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
     return x if tp is None else _GatherCols.apply(tp, x)
 
 
-def kv_heads(n_heads: int, n_kv_heads: int, n: int = 1,
-             coord: int = 0) -> Tuple[int, ...]:
-    """The kv heads that the query heads of model coordinate ``coord`` of
-    ``n`` read, in order (every kv head for ``n`` 1): global q head ``i``
-    reads kv head ``i // (n_heads / n_kv_heads)``, and coordinate ``coord``
-    holds the contiguous ``n_heads / n`` q heads from ``coord · n_heads /
-    n``.  One entry a kv head when each is read by as many of those q heads
-    (q head ``j`` then reads entry ``j // (heads / entries)``); else, where
-    the slice's edge cuts a GQA group, one entry a q head."""
-    h_loc, group = n_heads // n, n_heads // n_kv_heads
-    per_q = tuple((coord * h_loc + j) // group for j in range(h_loc))
-    heads = tuple(sorted(set(per_q)))
-    if h_loc % len(heads) or any(per_q.count(k) != h_loc // len(heads)
-                                 for k in heads):
+def q_heads(n_heads: int, dh: int, cols: int, coord: int
+            ) -> Tuple[range, int]:
+    """(the query heads that model coordinate ``coord``'s ``cols`` columns
+    of ``wq`` touch, a range; the offset of those columns in the first of
+    them): the columns ``[coord · cols, (coord + 1) · cols)`` of ``n_heads``
+    heads of ``dh``, which cut through a head where ``dh`` does not divide
+    them (internvl2-1b's 56 of a 64-wide head at 16)."""
+    start = coord * cols
+    heads = range(start // dh, -(-(start + cols) // dh))
+    if heads.stop > n_heads:
+        raise ValueError(f"columns [{start}, {start + cols}) lie past "
+                         f"{n_heads} heads of {dh}")
+    return heads, start - heads.start * dh
+
+
+def kv_heads(n_heads: int, n_kv_heads: int, n: int = 1, coord: int = 0,
+             *, heads: Optional[range] = None) -> Tuple[int, ...]:
+    """The kv heads that a range of query heads read, in order: ``heads``,
+    or those that model coordinate ``coord`` of ``n`` touches (``q_heads``
+    of its ``n_heads / n`` heads' worth of columns: every head for ``n``
+    1, ``n_heads / n`` whole ones where ``n`` divides ``n_heads``).
+    Global q head ``i`` reads kv head ``i // (n_heads / n_kv_heads)``.
+    One entry a kv head when each is read by as many of those q heads (the
+    ``j``-th of them then reads entry ``j // (len(heads) / entries)``);
+    else, where the range's edge cuts a GQA group, one entry a q head."""
+    if heads is None:
+        heads = range(coord * n_heads // n, -(-(coord + 1) * n_heads // n))
+    h, group = len(heads), n_heads // n_kv_heads
+    per_q = tuple(i // group for i in heads)
+    sel = tuple(sorted(set(per_q)))
+    if h % len(sel) or any(per_q.count(k) != h // len(sel) for k in sel):
         return per_q
-    return heads
+    return sel
 
 
 def max_over(tp: ProcessMesh, x: torch.Tensor) -> torch.Tensor:

@@ -35,12 +35,17 @@ vocabulary-sharded ``embed`` looks up this process's rows, writes zero for
 ids outside them and sums over "model" (exact: one peer contributes); the
 head gives this process's vocabulary shard of the logits (the tied head is
 its ``embed`` shard's transpose), and ``lm_loss`` is then a
-vocabulary-parallel cross entropy.  The prefill's cache, and so the decode
-cache, holds the kv heads this process's query heads read
-(``layers._heads``): its own where "model" divides the kv heads, else
-gathered over "model" and replicated on the peers that share one.  A leaf
-its spec keeps whole (an odd vocabulary) takes the whole path, with no
-collective.
+vocabulary-parallel cross entropy.  Attention runs on the query heads that
+this process's ``wq`` columns touch, whole heads or, where "model" cuts
+through one, the one or two that its columns reach into (``layers.py``).
+The prefill's cache, and so the decode cache, holds the kv heads those
+query heads read (``layers._heads``): its own where "model" divides the kv
+heads, else gathered over "model" and replicated on the peers that share
+one.  A leaf its spec keeps whole (an odd vocabulary, internvl2-1b's
+151655 rows; every attention leaf of a width "model" does not divide)
+takes the whole path, with no collective.  The vision stub's
+``patch_embeds`` take the first positions on every process, as without
+TP.  ``models/encdec.py`` reuses the vocabulary-parallel lookup and loss.
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ exchange and output within 1e-5 of it (they carry the sum over "model"),
 the output the same bits on every model peer.  In bf16 the gathered
 prefill logits are bit for bit the stacked run's with each row-parallel
 product rounded per peer before the sum (``_TPRounding``).  Each refusal of
-``convert.shard_module`` raises a ``ValueError``.  ``serve --procs --mesh
+``convert.shard_module`` raises a ``ValueError``; what it refused before
+the cut through a query head it now cuts.  ``serve --procs --mesh
 2,2,2`` on the command line prints the tokens of the stacked mesh.  One
 spawn a mesh; the reference runs once, in one subprocess on 12 fake
 devices.
@@ -451,10 +452,8 @@ def _fake_mesh(shape):
 
 
 REFUSED = {
-    "heads": ("llama3.2-1b", (1, 1, 3), {}, "heads"),
     "ssm": ("xlstm-125m", (1, 1, 2), {}, "ssm"),
     "hybrid": ("hymba-1.5b", (1, 1, 2), {}, "hybrid"),
-    "encdec": ("whisper-tiny", (1, 1, 2), {}, "encoder-decoder"),
     "seq_shard": ("llama3.2-1b", (1, 1, 2),
                   {"seq_shard_activations": True}, "seq_shard_activations"),
     "fsdp": ("llama3.2-1b", (1, 1, 2), {"fsdp": True}, "FSDP"),
@@ -473,6 +472,42 @@ def test_shard_module_refuses_what_is_not_ported(case):
         module = build_model(cfg, "cpu").init(torch.Generator())
     with pytest.raises(ValueError, match=word):
         shard_module(module, cfg, _fake_mesh(shape))
+
+
+# what shard_module refused before the cut through a query head: a "model"
+# axis that does not divide the heads, the encoder-decoder family
+ACCEPTED = {
+    "heads": ("llama3.2-1b", (1, 1, 3)),
+    "encdec": ("whisper-tiny", (1, 1, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(ACCEPTED))
+def test_shard_module_accepts_a_cut_through_a_head_and_the_encdec(case):
+    """llama's smoke config on 3 keeps every leaf whole (``_drop_uneven``:
+    3 divides none of its widths); whisper-tiny's on 2 holds half of each
+    TP leaf (its 4 heads, ``d_ff``, the tied vocabulary) and the whole of
+    the rest."""
+    from repro_torch.models import build_model
+
+    arch, shape = ACCEPTED[case]
+    cfg = smoke_config(arch)
+    module = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    own = dict(shard_module(module, cfg, _fake_mesh(shape))
+               .named_parameters())
+    whole = dict(module.named_parameters())
+    assert set(own) == set(whole)
+    if case == "heads":
+        for name, w in whole.items():
+            assert torch.equal(own[name], w), name
+        return
+    for name, dim in (("embed", 0), ("enc_blocks.0.attn.wq", 1),
+                      ("dec_blocks.0.xattn.wo", 0), ("dec_blocks.1.mlp.b_up",
+                                                     0)):
+        w = whole[name]
+        assert torch.equal(own[name], w.narrow(dim, 0, w.shape[dim] // 2))
+    for name in ("enc_pos", "dec_pos", "dec_blocks.0.mlp.b_down"):
+        assert torch.equal(own[name], whole[name]), name
 
 
 def test_shard_module_cuts_the_model_slices(ref):
