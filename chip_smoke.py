@@ -274,6 +274,41 @@ Phases (each raises on failure; none is caught):
    replicated gradients bit-identical, and the f32 gate refusing the same
    planted fault (a leaf initialised at zero, whisper's biases, is held
    in the noise class).  Reported per process as phase 12.
+14. the recurrent and hybrid families over "model", and ``pure_dp``, each
+   cell in one spawn of ``serve_procs`` whose per-rank hook serves, then
+   trains models each process makes from the seed through ``train_procs``'
+   per-rank path (bf16, then each f32 gate).  (a) hymba-1.5b at its
+   published widths (2 of 32 layers, not scanned: layer 0 full, layer 1
+   windowed) on (1, 1, 16), 16 processes: 100 of its 1600 Mamba channels a
+   process (the peers' ``in_proj`` columns gathered, its own ``x`` and
+   ``z`` channels kept; ``w_dt``, ``wb`` and ``wc`` in one row-parallel
+   sum), 100 query columns (2 or 3 of its 25 heads of 64 touched); 8
+   requests of 512 tokens on every process and 15 decode steps; trained at
+   1 layer, 8 x 32.  (b) xlstm-125m (its first 4 layers, m m m s) on (1,
+   1, 8): half an mLSTM head's columns and 96 sLSTM channels a process
+   (``h`` gathered once a step); 8 x 256 tokens, 15 steps; trained 8 x
+   32, its f32 gates on each block kind alone (1 layer of m, 1 of s).  (c) ``pure_dp`` on (1, 2, 2), 4 processes, weights whole and
+   the prompts over every axis: megatron-moe-32e (1 layer) served through
+   the plan, 32 x 128, each ``(pod, data)`` shard's two processes' rows
+   gathered and routed together; qwen3-0.6b (4 of 28 layers) trained 8 x
+   128.  Gated in each:
+   the f32 prompt pass within 1e-4 of ``LocalMesh``, tokens equal, f32
+   routing apart only at a near tie; the decode states and caches put
+   together (``whole_states``, the replicas bit-identical; by rows under
+   ``pure_dp``) within 1e-5 of the oracle's layer on the processes' own
+   input of that layer (the whole stack's reported: the sLSTM's
+   recurrence amplifies f32 rounding); the planted fault (a neighbour's
+   channels, a peer's rows) refused; bf16 launches equal, streams and
+   tokens bit-identical on model peers (the MoE's grids under
+   ``pure_dp``), tokens held to the witness (the plain oracle under
+   ``pure_dp``) at ``BF16_TOKEN_TIE``, at most ``PROC_BF16_APART_MAX``
+   sequences routed apart; trained 2 steps: launches equal, losses within
+   2e-2, replicated gradients bit-identical; the f32 gate refusing its
+   planted fault (a neighbour's channels; the gathers' backward unsummed;
+   ``_sync_grads`` skipping "model").  Reported per process: prompt-pass
+   ms, decode ms/step, the shares of a traced prompt pass in
+   ``procmesh.tp_*`` and in the scan loops (``ssm_scan``), step ms, peak
+   and card GB.
 
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
@@ -288,8 +323,8 @@ results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
 megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
 and flash_attention_bwd, mixtral's plan run for pack and unpack;
-``launches_by_path`` lists every path's counts, phases 7's to 13's
-too (phases 8's to 13's are rank 0's, equal in every process).  It exits
+``launches_by_path`` lists every path's counts, phases 7's to 14's
+too (phases 8's to 14's are rank 0's, equal in every process).  It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.
 """
@@ -437,6 +472,37 @@ HEAD_PATH = "internvl2-1b tp procs (1,1,16)"
 HEAD_TRAIN_PATH = "internvl2-1b tp train procs (1,1,16)"
 ENCDEC_PATH = "whisper-tiny tp procs (1,2,4)"
 ENCDEC_TRAIN_PATH = "whisper-tiny tp train procs (1,2,4)"
+# phase 14: the recurrent and hybrid families over "model" and pure_dp,
+# each cell one spawn of serve_procs whose per-rank hook serves, then
+# trains REC_TRAIN_STEPS steps (bf16) and its f32 gates (phase 13's form).
+# (a) hymba-1.5b at its published widths on (1, 1, 16): 100 of its 1600
+# Mamba channels a process (the in_proj gathered), 100 query columns (2 or
+# 3 of its 25 heads of 64 touched), REC_HYMBA_LAYERS of 32 layers (layer 0
+# full, layer 1 windowed), REC_BATCH x REC_HYMBA_PROMPT tokens on every
+# process; trained 1 layer.  (b) xlstm-125m on (1, 1, 8): half an mLSTM
+# head (96 of 192 columns) and 96 sLSTM channels a process, the
+# pattern's first REC_XLSTM_LAYERS layers (XLSTM_PATTERN).  (c) pure_dp
+# on (1, 2, 2): megatron-moe-32e (PURE_DP_SERVE_LAYERS layer) served
+# through the plan, each (pod, data) shard's two processes' rows routed
+# together; qwen3-0.6b (PURE_DP_TRAIN_LAYERS of 28 layers) trained.
+# Training shapes are (batch, seq)
+REC_TRAIN_STEPS, REC_BATCH = 2, 8
+REC_HYMBA_MESH, REC_HYMBA_LAYERS, REC_HYMBA_PROMPT = (1, 1, 16), 2, 512
+REC_HYMBA_TRAIN = (8, 32)
+REC_XLSTM_MESH, REC_XLSTM_LAYERS, REC_XLSTM_PROMPT = (1, 1, 8), 4, 256
+REC_XLSTM_TRAIN = (8, 32)
+XLSTM_PATTERN = ("m", "m", "m", "s")
+PURE_DP_MESH = (1, 2, 2)
+PURE_DP_SERVE_ARCH, PURE_DP_SERVE_LAYERS = "megatron-moe-32e", 1
+PURE_DP_BATCH, PURE_DP_PROMPT = 32, 128
+PURE_DP_TRAIN_ARCH, PURE_DP_TRAIN_LAYERS = "qwen3-0.6b", 4
+PURE_DP_TRAIN = (8, 128)
+REC_HYMBA_PATH = "hymba-1.5b tp procs (1,1,16)"
+REC_HYMBA_TRAIN_PATH = "hymba-1.5b tp train procs (1,1,16)"
+REC_XLSTM_PATH = "xlstm-125m tp procs (1,1,8)"
+REC_XLSTM_TRAIN_PATH = "xlstm-125m tp train procs (1,1,8)"
+PURE_DP_PATH = "megatron-moe-32e pure_dp procs (1,2,2)"
+PURE_DP_TRAIN_PATH = "qwen3-0.6b pure_dp train procs (1,2,2)"
 # phase 9's f32 gate: an element whose oracle gradient stays within
 # NOISE_GRAD of its tensor slice's largest, every step, lies at the f32
 # noise floor of the gradient sums (the processes' and the stacked mesh's
@@ -5157,11 +5223,13 @@ class TPRounding:
     dtype, the slices added in f32 in peer order and rounded once more
     (``tp.sum_out``).  The witness oracle: TP's rounding on the stacked
     mesh, and nothing else of TP.  The encoder-decoder's cross-attention
-    holds its own name for ``row_parallel``, patched alike."""
+    and the recurrent blocks (``wo``, Mamba's ``out_proj`` and its f32
+    product of ``w_dt``, ``wb`` and ``wc``) hold their own names for
+    ``row_parallel``, patched alike."""
 
     def __init__(self, parts):
-        from repro_torch.models import encdec, layers, moe
-        self.mods, self.parts = (layers, moe, encdec), parts
+        from repro_torch.models import encdec, layers, moe, ssm
+        self.mods, self.parts = (layers, moe, encdec, ssm), parts
 
     def __enter__(self):
         from repro_torch.launch.mesh import member_sum
@@ -5235,7 +5303,9 @@ def tp_shares(torch, prefill, params, batch):
     sums) and inside the operators over "model" (``procmesh.tp_*``), all
     and by range name (``procmesh.tp_sum``, ``procmesh.tp_gather``, ...;
     a sum's own ``:scatter`` and ``:gather`` ranges lie inside its range
-    and are not counted apart), host staging included."""
+    and are not counted apart), host staging included; and inside the
+    recurrences' time loops (``ssm_scan``, whose per-step gathers lie in
+    both)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5254,9 +5324,11 @@ def tp_shares(torch, prefill, params, batch):
 
     tops = [e for e in tp if ":" not in e.name]
     names = sorted({e.name for e in tops})
+    scans = [e for e in prof.events() if e.name == "ssm_scan"]
     return {"host_ms": host_us / 1e3, "exchange_share": busy(ex) / host_us,
             "tp_share": busy(tp) / host_us, "exchanges": len(ex),
-            "tp_sums": len(tops),
+            "tp_sums": len(tops), "scan_share": busy(scans) / host_us,
+            "scans": len(scans),
             "tp_by_span": {n: {"share": busy([e for e in tops
                                               if e.name == n]) / host_us,
                                "calls": sum(e.name == n for e in tops)}
@@ -7113,6 +7185,736 @@ def phase_head(torch, kernels):
     return serving, train, summary
 
 
+def rec_config(arch, **over):
+    """A phase 14 arch at its published widths (hymba-1.5b listed, not
+    scanned, so that layer 0 attends fully and layer 1 through its
+    window)."""
+    from repro_torch.configs import get_config
+
+    if arch == HYMBA_ARCH:
+        over = {"scan_layers": False, **over}
+    return get_config(arch, **over)
+
+
+def to_cpu(tree):
+    """A decode cache's tensors (nested dicts and lists) on the host."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def flat_tree(tree, prefix=""):
+    """``{dotted path: tensor}`` of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_tree(v, f"{prefix}{k}."))
+    return out
+
+
+class NeighbourChannels:
+    """While active, each process keeps its neighbour's channels of a
+    gathered per-channel width (``ssm._own_channels``: Mamba's ``x`` and
+    ``z`` after the ``in_proj`` gather, the sLSTM's gates): phase 14's
+    planted fault for the recurrent cells."""
+
+    def __init__(self):
+        from repro_torch.models import ssm
+        self.ssm = ssm
+
+    def __enter__(self):
+        self.real = real = self.ssm._own_channels
+
+        def shifted(t, tp):
+            n = tp.axis_size("model")
+            return real(t.roll(-(t.shape[-1] // n), -1), tp)
+        self.ssm._own_channels = shifted
+        return self
+
+    def __exit__(self, *exc):
+        self.ssm._own_channels = self.real
+
+
+class NeighbourRows:
+    """While active, ``pure_dp``'s MoE keeps a model peer's rows of its
+    ``(pod, data)`` shard's output in place of its own (the gathered rows
+    rolled by one process's): phase 14 (c)'s serving fault."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe = moe
+
+    def __enter__(self):
+        self.real = real = self.moe.gather_rows
+
+        def rolled(tp, x):
+            return real(tp, x).roll(-x.shape[0], 0)
+        self.moe.gather_rows = rolled
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.gather_rows = self.real
+
+
+@contextlib.contextmanager
+def sync_skipping_model():
+    """Phase 14 (c)'s training fault: ``_sync_grads`` summing over the DP
+    axes alone, not over "model" (each process keeps the mean over its own
+    model coordinate's rows)."""
+    from repro_torch.launch import train
+
+    real = train._sync_grads
+
+    def skip(grads, mesh, specs, axes=None):
+        return real(grads, mesh, specs,
+                    tuple(a for a in axes if a != "model"))
+    train._sync_grads = skip
+    try:
+        yield
+    finally:
+        train._sync_grads = real
+
+
+class GridDigests:
+    """While active, the digest of every token grid ``moe._expert_ffn``
+    runs on."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.digests = torch, moe, []
+
+    def __enter__(self):
+        self.real = real = self.moe._expert_ffn
+
+        def spy(cfg, w_gate, w_up, w_down, tokens, *args, **kw):
+            self.digests.append(digest(self.torch, tokens))
+            return real(cfg, w_gate, w_up, w_down, tokens, *args, **kw)
+        self.moe._expert_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._expert_ffn = self.real
+
+
+class LayerInputs:
+    """While active, each layer's input of a prompt pass
+    (``transformer._block_prefill``'s ``x``), on the host."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.mod, self.inputs = transformer, []
+
+    def __enter__(self):
+        self.real = real = self.mod._block_prefill
+
+        def spy(cfg, p, x, **kw):
+            self.inputs.append(x.detach().cpu())
+            return real(cfg, p, x, **kw)
+        self.mod._block_prefill = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._block_prefill = self.real
+
+
+def rec_widths(params):
+    """The widths of a process's shard that phase 14 logs: the first
+    block's recurrent or Mamba columns and channels, its attention's query
+    columns, the embedding's rows."""
+    blk = params.blocks[0]
+    out = {"embed_rows": params.embed.shape[0]}
+    if hasattr(blk, "mamba"):
+        out.update(in_proj=blk.mamba.in_proj.shape[-1],
+                   channels=blk.mamba.conv_w.shape[-1])
+    if hasattr(blk, "mlstm"):
+        out.update(mlstm_cols=blk.mlstm.wv.shape[-1],
+                   wif=blk.mlstm.wif.shape[-1])
+    if hasattr(blk, "attn"):
+        out["wq"] = blk.attn.wq.shape[-1]
+    return out
+
+
+def rec_pass(cfg, mesh, total, impl, plan):
+    """``(params, batch) -> (last logits, cache)``: the serving prompt pass
+    through ``impl`` (and ``plan``) with a cache of ``total`` slots."""
+    from repro_torch.launch.serve import make_prefill_step
+
+    return make_prefill_step(cfg, mesh, impl, plan, cache_len=total,
+                             device=DEVICE)
+
+
+def rec_child(mesh, cfg32, shards, rows, serve_cli, config, plant, impl,
+              plan):
+    """One rank of a phase 14 cell's serving: the f32 serve of its shard
+    (``serve_procs``' own: the prompt pass and 15 greedy steps gathered),
+    an f32 prompt pass for its decode state and routing and one under the
+    planted fault ``plant()``; the bf16 serving run (routing recorded); a
+    prompt pass with the residual stream's and the MoE grids' digests; the
+    shares of a traced prompt pass.  Returns host tensors and digests."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.convert import recast
+
+    kernels = proc_kernels()
+    cfg = config()
+    out = {"rank": mesh.rank, "coords": mesh.rank_coords, "used_gb": {},
+           "shard_gb": param_gb(shards[0]), "widths": rec_widths(shards[0])}
+    out["used_gb"]["after the parent's drop"] = card_used_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    stages, t0 = {}, time.perf_counter()
+    serve_cli()
+    stages["f32 serve"] = time.perf_counter() - t0
+    batch = {"tokens": rows}
+    pre32 = rec_pass(cfg32, mesh, rows.shape[1] + GEN, impl, plan)
+    with torch.no_grad():
+        # each layer's input, once a DP rank (model peers hold the same)
+        keep = cfg.pure_dp or mesh.rank_coords[2] == 0
+        with RouteRecorder() as rec, LayerInputs() as li:
+            _, cache = pre32(shards[0], batch)
+        out["routes32"] = [e.cpu() for e in rec.eids]
+        out["cache"] = to_cpu(cache)
+        if keep:
+            out["inputs"] = li.inputs
+        del cache, li
+        with plant():
+            out["fault"] = pre32(shards[0], batch)[0].cpu()
+    stages["f32 passes"] = time.perf_counter() - t0 - sum(stages.values())
+    shard = recast(shards.pop(), cfg)
+    free(torch)
+    run = serve(torch, cfg, shard, mesh, impl, plan, rows, kernels,
+                pick=tp_pick(cfg, mesh, impl, plan), record=True)
+    out["used_gb"]["serving"] = card_used_gb(torch)
+    out["serve"] = {k: run[k] for k in (
+        "prefill_s", "decode_s", "decode_steps", "step_ms_median",
+        "step_ms_max", "prefill_launches", "decode_launches")}
+    out["serve"].update(logits=run["logits"].cpu(),
+                        last_logits=run["last_logits"].cpu(),
+                        tokens=run["tokens"].cpu(),
+                        routes=[e.cpu() for e in run["routes"]])
+    del run
+    stages["bf16 serve"] = time.perf_counter() - t0 - sum(stages.values())
+    pre = rec_pass(cfg, mesh, rows.shape[1] + GEN, impl, plan)
+    with torch.no_grad(), StreamRecorder(torch) as st, \
+            GridDigests(torch) as gd:
+        pre(shard, batch)
+    out["stream"], out["grids"] = st.digests, gd.digests
+    out["shares"] = tp_shares(torch, pre, shard, batch)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    stages["digests and trace"] = time.perf_counter() - t0 - sum(
+        stages.values())
+    out["stages_s"] = stages
+    return out
+
+
+def rec_cell_child(mesh, cfg32, shards, rows, serve_cli, config, plant,
+                   impl, plan, train_config, gates, batch, seq, noise_unit,
+                   wants):
+    """One rank of a phase 14 cell, the per-rank hook of ``serve_procs``:
+    ``rec_child``'s serving; then ``train_procs``' per-rank path
+    (``launch/train._train_rank``) on models each process makes from the
+    seed as the parent's oracles do: bf16 training of ``train_config``
+    (``tp_train_child``), and each f32 gate of ``gates`` ((key, config,
+    planted fault, name) each; ``f32_proc_child`` against the oracle's
+    ``wants[key]`` shared through CUDA IPC)."""
+    import torch
+
+    from repro_torch.launch.train import _train_rank
+
+    entered = time.time()
+    out = rec_child(mesh, cfg32, shards, rows, serve_cli, config, plant,
+                    impl, plan)
+    out["entered"] = entered
+    free(torch)
+    runs = [("train", train_config(), REC_TRAIN_STEPS,
+             functools.partial(tp_train_child, steps=REC_TRAIN_STEPS))] + [
+        (key, gate_config(), F32_PROC_STEPS, functools.partial(
+            f32_proc_child, want=wants[key], plant=gate_plant, batch=batch,
+            noise_unit=noise_unit, seq=seq))
+        for key, gate_config, gate_plant, _ in gates]
+    for key, cfg, steps, hook in runs:
+        t0 = time.perf_counter()
+        res = _train_rank(mesh, cfg, [stack_params(torch, cfg, train=True)],
+                          proc_data(cfg, batch, seq),
+                          proc_train_options(steps), steps, True, None,
+                          hook=hook)
+        out[key], out[f"{key}_metrics"] = res["hook"], res["metrics"]
+        del res
+        free(torch)
+        out["stages_s"][f"{key} (with its model)"] = time.perf_counter() - t0
+    out["left"] = time.time()
+    return out
+
+
+def rec_rows(outs, shape, get, pure_dp, vocab=None):
+    """``get(o)`` of every process as the whole batch's: under ``pure_dp``
+    every process's rows in batch order (DP rank, then model coordinate),
+    else ``whole_logits``' (``vocab`` given) or one model peer's rows of
+    each DP rank (``by_dp``)."""
+    import torch
+
+    if pure_dp:
+        return torch.cat([get(o) for o in sorted(
+            outs, key=lambda o: (dp_index(o["coords"], shape),
+                                 o["coords"][2]))])
+    if vocab is not None:
+        return whole_logits(outs, shape, get, vocab)
+    return by_dp(outs, shape, get)
+
+
+def rec_states(outs, shape, cfg, pure_dp):
+    """The processes' decode states and caches put together, one
+    ``{dotted path: tensor}`` a layer: by rows under ``pure_dp``; else each
+    DP rank's model peers' by ``shardings.whole_states`` (which raises
+    where two replicas differ), the DP ranks' rows joined."""
+    import torch
+
+    from repro_torch.launch.shardings import whole_states
+
+    n_layers = len(outs[0]["cache"])
+    if pure_dp:
+        return [{k: rec_rows(outs, shape, lambda o: flat_tree(
+            o["cache"][i])[k], True) for k in flat_tree(outs[0]["cache"][i])}
+            for i in range(n_layers)]
+    groups = {}
+    for o in sorted(outs, key=lambda o: o["coords"][2]):
+        groups.setdefault(dp_index(o["coords"], shape), []).append(o)
+    layers = []
+    for i in range(n_layers):
+        parts = [flat_tree(whole_states([o["cache"][i] for o in g], cfg))
+                 for _, g in sorted(groups.items())]
+        layers.append({k: torch.cat([p[k] for p in parts])
+                       for k in parts[0]})
+    return layers
+
+
+def state_errs(torch, got, want, label):
+    """``{"layer i key": relative difference}`` of put-together states
+    ``got`` (``rec_states``) against ``want`` (one cache dict a layer)."""
+    errs = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = flat_tree(w)
+        if set(g) != set(w):
+            raise AssertionError(f"{label}: layer {i} state keys "
+                                 f"{sorted(g)}; the oracle's {sorted(w)}")
+        for k, t in w.items():
+            if tuple(g[k].shape) != tuple(t.shape):
+                raise AssertionError(f"{label}: layer {i} state {k}: "
+                                     f"{tuple(g[k].shape)} put together, "
+                                     f"{tuple(t.shape)} whole")
+            errs[f"layer {i} {k}"] = rel_err(torch, g[k], t)
+    return errs
+
+
+def layer_oracle_states(torch, outs, shape, cfg32, total, pure_dp):
+    """Each layer of the f32 oracle (whole weights from the seed, no mesh)
+    run on the processes' own input of that layer (``LayerInputs``, the
+    same for model peers): its decode state or cache, one dict a layer.
+    The processes' states on identical inputs, layer by layer."""
+    from repro_torch.models.transformer import (_block_prefill, _full_flag,
+                                                layer_kinds)
+
+    params = stack_params(torch, cfg32)
+    holders = [o for o in outs if "inputs" in o]
+    want = []
+    with torch.no_grad():
+        for i, kind in enumerate(layer_kinds(cfg32)):
+            x = rec_rows(holders, shape, lambda o: o["inputs"][i],
+                         pure_dp).to(DEVICE)
+            b, s = x.shape[:2]
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device).expand(b, s)
+            _, _, entry = _block_prefill(
+                cfg32, params.blocks[i], x, positions=positions, dist=None,
+                kind=kind, full_flag=_full_flag(cfg32, i), cache_len=total,
+                use_kernel=True)
+            want.append(to_cpu(entry))
+            del x, entry
+    del params
+    free(torch)
+    return want
+
+
+def rec_oracles(torch, kernels, config, shape, batch, prompt, impl, plan,
+                pure_dp):
+    """Phase 14's serving oracles: ``config()`` on ``LocalMesh`` of
+    ``shape``'s DP shape (whole weights), in f32 (routing margins kept)
+    and bf16, and the bf16 witness (``TPRounding`` over "model"; the plain
+    oracle itself under ``pure_dp``, which has no TP)."""
+    from repro_torch.convert import recast
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    local = make_mesh(shape[:2] + (1,), AXES, torch.device(DEVICE))
+    prompts = stack_prompts(torch, cfg, batch, prompt)
+    summary = {"label": TP_LABEL, "used_gb": {}}
+    torch.cuda.reset_peak_memory_stats()
+    params32 = stack_params(torch, cfg32)
+    loc32 = serve(torch, cfg32, params32, local, impl, plan, prompts,
+                  kernels, warmup=False, record="margins")
+    with torch.no_grad():
+        _, cache = rec_pass(cfg32, local, prompt + GEN, impl, plan)(
+            params32, {"tokens": prompts})
+        want_cache = to_cpu(cache)
+        del cache
+    params = recast(params32, cfg)
+    loc = serve(torch, cfg, params, local, impl, plan, prompts, kernels,
+                keep_logits=True, record=True)
+    summary["oracle"] = {"prefill_ms": loc["prefill_s"] * 1e3,
+                         "decode_ms_per_step": loc["decode_s"]
+                         / loc["decode_steps"] * 1e3}
+    if pure_dp:
+        wit = loc
+    else:
+        with TPRounding(shape[2]):
+            wit = serve(torch, cfg, params, local, impl, plan, prompts,
+                        kernels, keep_logits=True, record=True)
+    del params
+    free(torch)
+    summary["used_gb"]["parent, whole f32 model"] = card_used_gb(torch)
+    return {"cfg": cfg, "cfg32": cfg32, "prompts": prompts, "loc32": loc32,
+            "want_cache": want_cache, "loc": loc, "wit": wit,
+            "summary": summary, "params32": params32}
+
+
+def rec_serve_check(torch, ctx, res, shape, batch, label, pure_dp):
+    """Phase 14's serving gates on ``serve_procs``' result ``res`` against
+    ``rec_oracles``' ``ctx``.  Returns rank 0's launch counts and a
+    summary."""
+    cfg, loc32, loc, wit = ctx["cfg"], ctx["loc32"], ctx["loc"], ctx["wit"]
+    summary = ctx["summary"]
+    summary["used_gb"].update(res.get("card_used_gb", {}))
+    outs = sorted(res["ranks"], key=lambda o: (dp_index(o["coords"], shape),
+                                               o["coords"][2]))
+    firsts = [o for o in outs if o["coords"][2] == 0]
+    err32 = rel_err(torch, res["logits"][0], loc32["logits"].cpu())
+    same32 = bool(torch.equal(res["tokens"], loc32["tokens"].cpu()))
+    got = rec_states(outs, shape, cfg, pure_dp)
+    stack = state_errs(torch, got, ctx["want_cache"], label)
+    layers = state_errs(torch, got, layer_oracle_states(
+        torch, outs, shape, ctx["cfg32"], ctx["prompts"].shape[1] + GEN,
+        pure_dp), label)
+    state_err, stack_err = max(layers.values()), max(stack.values())
+    worst, stack_worst = max(layers, key=layers.get), max(stack,
+                                                           key=stack.get)
+    vocab = None if pure_dp else cfg.vocab
+    fault = rel_err(torch, rec_rows(outs, shape, lambda o: o["fault"],
+                                    pure_dp, vocab), loc32["logits"].cpu())
+    # f32 routing (the MoE cell): one process of each (pod, data) shard,
+    # whose model peers route its rows together
+    routes32 = [torch.cat([o["routes32"][i] for o in firsts])
+                for i in range(len(loc32["routes"]))]
+    flips, n_dec, tie = near_tie_flips(torch, loc32["routes"], routes32,
+                                       loc32["margins"], batch)
+    log(f"{label}[f32]: serve_procs' prompt-pass logits gathered, max rel "
+        f"diff {err32:.3e} against LocalMesh (limit 1e-4); greedy tokens of "
+        f"the prompt pass and {GEN - 1} steps equal {same32}; "
+        + (f"{flips} of {n_dec} routing decisions differ, each sequence's "
+           f"first at an oracle margin of at most {tie:.3e} (limit "
+           f"{NEAR_TIE}); " if n_dec else "")
+        + "the decode states and caches put together ("
+        + ("by rows" if pure_dp else "whole_states over the model peers, "
+           "the replicas bit-identical") + "), "
+        f"each layer on identical inputs (the oracle's layer on the "
+        f"processes' input of it), within {state_err:.3e} of the oracle's "
+        f"({worst}; limit 1e-5); the whole stack's against the oracle's "
+        f"prompt pass (reported): {stack_err:.3e} ({stack_worst}); under "
+        f"the planted fault the logits lie {fault:.3e} apart: the gate "
+        f"(1e-4) {'refuses' if fault > 1e-4 else 'PASSES'} it")
+    log(f"{label}[f32 states]: on identical inputs " + ", ".join(
+        f"{k} {v:.3e}" for k, v in layers.items()) + "; the whole stack "
+        + ", ".join(f"{k} {v:.3e}" for k, v in stack.items()))
+    if not (err32 < 1e-4 and same32 and state_err <= 1e-5
+            and tie <= NEAR_TIE):
+        raise AssertionError(f"{label}: f32 prompt pass {err32}, tokens "
+                             f"equal {same32}, states {state_err}, routing "
+                             f"tie {tie}")
+    if not fault > 1e-4:
+        raise AssertionError(f"{label}: the planted fault passes the f32 "
+                             f"gate ({fault})")
+    summary["f32"] = {"max_rel_diff": err32, "tokens_equal": same32,
+                      "state_rel_diff": state_err, "state_worst": worst,
+                      "stack_state_rel_diff": stack_err,
+                      "stack_state_worst": stack_worst,
+                      "routing_differs": flips,
+                      "first_difference_margin": tie,
+                      "planted_fault_rel_diff": fault}
+
+    # bf16: launches, the peers alike, held to the witness
+    want_l = run_counts(loc)
+    check_tp_launches(outs, want_l, label)
+    n_dp = shape[0] * shape[1]
+    rows = batch // ranks_of(shape) if pure_dp else batch // n_dp
+    for o in outs:
+        if cfg.moe is None:
+            check_stack_run(torch, o["serve"], cfg, rows,
+                            f"{label}[rank {o['rank']}]",
+                            want_l["prefill"]["flash_attention"],
+                            o["serve"]["logits"].shape[-1])
+    if cfg.moe is not None and not all(
+            want_l["prefill"][k] for k in ("grouped_matmul", "flash_attention",
+                                           "a2a_pack", "a2a_unpack")):
+        raise AssertionError(f"{label}: the oracle launched "
+                             f"{want_l['prefill']} in its prefill")
+    if pure_dp:
+        check_peers(outs, lambda o: o["grids"], label,
+                    "a (pod, data) shard's MoE token grid")
+    else:
+        check_peers(outs, lambda o: o["serve"]["tokens"].tolist(), label,
+                    "the greedy tokens")
+        check_peers(outs, lambda o: o["stream"], label,
+                    "the residual stream's digest")
+    logits = rec_rows(outs, shape, lambda o: o["serve"]["logits"], pure_dp,
+                      vocab)
+    tokens = rec_rows(outs, shape, lambda o: o["serve"]["tokens"], pure_dp)
+    w_routes = [e.cpu() for e in wit["routes"]]
+    routes = [torch.cat([o["serve"]["routes"][i] for o in firsts])
+              for i in range(len(w_routes))]
+    n_flip, n_bf, _, per_seq = route_flips(torch, w_routes, routes, batch) \
+        if w_routes else (0, 0, [], torch.zeros(batch, dtype=torch.bool))
+    w = summary["witness"] = witness_tokens(torch, wit, loc, tokens, logits,
+                                            per_seq)
+    w.update(routing_differs=n_flip, sequences_routed_apart=int(
+        per_seq.sum()))
+    log(f"{label}[bf16]: every process launched each kernel as often as the "
+        f"oracle in its prefill ({want_l['prefill']}) and decode, "
+        + ("each (pod, data) shard's MoE grids bit-identical on its model "
+           "peers" if pure_dp else "the residual stream and the greedy "
+           "tokens bit-identical on model peers")
+        + "; against the " + ("plain oracle (no TP under pure_dp)"
+                              if pure_dp else "witness (the oracle with TP "
+                              "rounding of the row-parallel products alone)")
+        + ": "
+        f"prompt-pass logits max rel diff {w['logits_rel_diff']:.3e} "
+        f"(bit-identical {w['logits_equal']}); "
+        + (f"routing differs in {n_flip} of {n_bf} decisions, "
+           f"{w['sequences_routed_apart']} sequences apart (limit "
+           f"{PROC_BF16_APART_MAX}); " if n_bf else "")
+        + f"greedy tokens equal in {w['sequences_same_tokens']} of {batch} "
+        f"(the plain oracle's in {w['oracle_sequences_same_tokens']}); "
+        f"each sequence whose tokens differ (sequence, step, gap): "
+        f"{w['token_gaps']} (limit {BF16_TOKEN_TIE}; one planted at the "
+        f"median gap reads {w['planted_token_gap']:.3e})")
+    check_witness_tokens(label, w)
+    if not w["sequences_routed_apart"] <= PROC_BF16_APART_MAX:
+        raise AssertionError(f"{label}: {w['sequences_routed_apart']} "
+                             f"sequences routed apart in bf16")
+    tp_report(outs, summary, label)
+    for o, r in zip(outs, summary["ranks"]):
+        sh = o["shares"]
+        r.update(widths=o["widths"], scan_share=sh["scan_share"],
+                 tp_by_span=sh["tp_by_span"])
+        log(f"{label}[rank {o['rank']}]: shard {json.dumps(o['widths'])}; "
+            f"traced prompt pass {sh['host_ms']:.3f} ms: operators over "
+            f"'model' (procmesh.tp_*) {sh['tp_share']:.4f}, the scan loops "
+            f"(ssm_scan) {sh['scan_share']:.4f} ({sh['scans']} loops); "
+            f"{TP_LABEL}")
+    r0 = next(o for o in outs if o["rank"] == 0)
+    return {"prefill": r0["serve"]["prefill_launches"],
+            "decode": r0["serve"]["decode_launches"]}, summary
+
+
+def rec_train_launches(cfg):
+    """A training step's launches: ``attn_train_launches`` of a stack with
+    attention, none for xLSTM's."""
+    want = attn_train_launches(cfg)
+    return dict.fromkeys(want, 0) if cfg.family == "ssm" else want
+
+
+def rec_train_check(torch, oracle, outs, metrics, cfg, shape, batch, seq,
+                    label):
+    """Phase 14's bf16 training gates on the processes' ``outs``
+    (``tp_train_child``'s) and rank 0's step ``metrics``, against the
+    stacked ``oracle``: launches equal each step (as ``rec_train_launches``
+    counts them), the gradients of the leaves replicated over "model"
+    bit-identical on model peers, losses within 2e-2.  Returns rank 0's
+    launches over its steps and a summary."""
+    want = rec_train_launches(cfg)
+    for who, run in [("local oracle", oracle)] + [
+            (f"rank {o['rank']}", o) for o in outs]:
+        for i, got in enumerate(run["launches"]):
+            if got != want:
+                raise AssertionError(f"{label}[{who}] step {i}: launches "
+                                     f"{got}; expected {want}")
+    check_peers(outs, lambda o: o["replicated"], label,
+                "a gradient of a leaf replicated over 'model'")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(metrics, oracle["metrics"])]
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers) at its published "
+        f"widths on a {shape} mesh of {ranks_of(shape)} processes "
+        f"({PROC_BACKEND}); {batch} x {seq} tokens a step, "
+        f"{REC_TRAIN_STEPS} AdamW steps: every process launched each "
+        f"kernel as often as the oracle each step ({want}); the gradients "
+        f"of the {len(outs[0]['replicated'][0])} leaves replicated over "
+        f"'model' bit-identical on model peers every step; step losses "
+        f"{[round(m['loss'], 6) for m in metrics]} against the oracle's, "
+        f"relative differences {[f'{d:.3e}' for d in diffs]} (limit "
+        f"2e-2); {TP_LABEL}")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"{label}: step losses against the oracle "
+                             f"{diffs}")
+    summary = {"oracle": {"step_ms": oracle["step_ms"],
+                          "peak_gb": oracle["peak_gb"]},
+               "loss_diffs": diffs, "ranks": []}
+    for o in outs:
+        ms = o["train"]["step_ms"]
+        r = {"rank": o["rank"], "coords": list(o["coords"]), "step_ms": ms,
+             "peak_gb": o["peak_gb"], "card_gb": max(o["card_gb"]),
+             "shard_gb": o["shard_gb"], **o["trace"]}
+        summary["ranks"].append(r)
+        log(f"{label}[rank {o['rank']} {tuple(o['coords'])}]: step ms "
+            f"{[round(x, 3) for x in ms]} (the last traced); peak "
+            f"{o['peak_gb']:.2f} GB (f32 shard {o['shard_gb']:.2f} GB); the "
+            f"card {r['card_gb']:.2f} GB in use; traced step "
+            f"{r['host_ms']:.3f} ms: operators over 'model' "
+            f"{r['tp_share']:.4f} ({r['tp_sums']} calls), gradient sync "
+            f"{r['sync_share']:.4f}")
+    counts = {k: sum(step[k] for step in outs[0]["launches"])
+              for k in outs[0]["launches"][0]}
+    return counts, summary
+
+
+def phase_rec_cell(torch, kernels, key, config, shape, prompt_shape,
+                   plant, train_config, train_shape, gates, noise_unit,
+                   impl=None, pure_dp=False):
+    """One cell of phase 14: ``config()`` served on the processes of
+    ``shape`` and ``train_config()`` trained there, and the f32 gates of
+    ``gates`` ((key, f32 config, planted fault, its name) each), in one
+    spawn (``rec_cell_child``), against the stacked oracles of its DP
+    shape.  Returns the serving launches, the training's and a summary."""
+    from repro_torch.launch.serve import flash_plan, serve_procs
+
+    (batch, prompt), (tbatch, tseq) = prompt_shape, train_shape
+    label, tlabel = f"rec[{key}]", f"rec[{key} train]"
+    t0 = time.perf_counter()
+    plan = flash_plan(shape[0], shape[1], SEED) if impl == "plan" else None
+    ctx = rec_oracles(torch, kernels, config, shape, batch, prompt, impl,
+                      plan, pure_dp)
+    cfg = ctx["cfg"]
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers"
+        + (f", pattern {''.join(cfg.block_pattern)}" if cfg.block_pattern
+           else "") + f") at its published widths on a {shape} mesh of "
+        f"{ranks_of(shape)} processes ({PROC_BACKEND})"
+        + (", pure_dp: weights whole, the prompts cut over every axis"
+           if pure_dp else ", TP over 'model'")
+        + f"; {batch} requests of {prompt} tokens and {GEN - 1} decode "
+        f"steps" + (f" through the {impl}" if impl else "") + f"; {TP_LABEL}")
+    tcfg = train_config()
+    oracle = local_oracle(torch, tcfg, tbatch, tseq, REC_TRAIN_STEPS,
+                          kernels, shape=shape[:2] + (1,))
+    oracles32, wants = {}, {}
+    for gkey, gate_config, _, _ in gates:
+        oracles32[gkey], wants[gkey] = f32_gate_oracle(
+            torch, kernels, gate_config(), tbatch, tseq, shape)
+    t_oracles = time.perf_counter() - t0
+    holder = [ctx.pop("params32")]
+    # the children's allocator only: the parent's tensors they map through
+    # CUDA IPC were allocated before
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0, wall0 = time.perf_counter(), time.time()
+    res = serve_procs(
+        ctx["cfg32"], holder, ctx["prompts"], shape, PROC_BACKEND, DEVICE,
+        impl, plan, GEN,
+        hook=functools.partial(rec_cell_child, config=config, plant=plant,
+                               impl=impl, plan=plan,
+                               train_config=train_config, gates=gates,
+                               batch=tbatch, seq=tseq, noise_unit=noise_unit,
+                               wants=wants),
+        timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    t_procs, wall1 = time.perf_counter() - t0, time.time()
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"], wants
+    free(torch)
+    torch.cuda.ipc_collect()  # the oracle's tensors the processes mapped
+    ranks = res["ranks"]
+    r0 = next(o for o in ranks if o["rank"] == 0)
+    serving, summary = rec_serve_check(torch, ctx, res, shape, batch, label,
+                                       pure_dp)
+    counts, summary["train"] = rec_train_check(
+        torch, oracle, [o["train"] for o in ranks], r0["train_metrics"],
+        tcfg, shape, tbatch, tseq, tlabel)
+    for gkey, gate_config, _, name in gates:
+        summary["train"][gkey] = f32_gate_check(
+            torch, oracles32[gkey], [o[gkey] for o in ranks],
+            r0[f"{gkey}_metrics"], shape, tlabel if gkey == "f32" else
+            f"{tlabel}[{gkey[4:]}]", name, tbatch,
+            tseq, gate_config(), noise_unit)
+    summary["oracles_s"], summary["processes_s"] = t_oracles, t_procs
+    summary["rank0_stages_s"] = r0["stages_s"]
+    start = max(o["entered"] for o in ranks) - wall0
+    end = wall1 - max(o["left"] for o in ranks)
+    summary["start_s"], summary["end_s"] = start, end
+    log(f"phase rec[{key}]: oracles {t_oracles:.1f} s, the processes "
+        f"{t_procs:.1f} s: the last to hold its shard after {start:.1f} s, "
+        f"the spawn returned {end:.1f} s after the last finished (rank 0 "
+        f"from its shard on: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r0["stages_s"].items()) + ")")
+    return serving, counts, summary
+
+
+def phase_rec(torch, kernels):
+    """Phase 14: the recurrent and hybrid families over "model" and
+    ``pure_dp``: (a) hymba-1.5b on (1, 1, 16), (b) xlstm-125m on (1, 1,
+    8), (c) megatron-moe-32e served and qwen3-0.6b trained with
+    ``pure_dp`` on (1, 2, 2).  Returns the serving launches by path, the
+    training's and a summary."""
+    hymba = functools.partial(rec_config, HYMBA_ARCH)
+    xlstm = functools.partial(rec_config, XLSTM_ARCH)
+    pure_train = functools.partial(rec_config, PURE_DP_TRAIN_ARCH,
+                                   n_layers=PURE_DP_TRAIN_LAYERS,
+                                   pure_dp=True)
+    channels = ("each process keeping its neighbour's channels after the "
+                "gather (Mamba's in_proj, the sLSTM's gates)")
+    f32 = {"compute_dtype": "float32"}
+    cells = (
+        ("a", REC_HYMBA_PATH, REC_HYMBA_TRAIN_PATH,
+         functools.partial(hymba, n_layers=REC_HYMBA_LAYERS),
+         REC_HYMBA_MESH, (REC_BATCH, REC_HYMBA_PROMPT), NeighbourChannels,
+         functools.partial(hymba, n_layers=1), REC_HYMBA_TRAIN,
+         [("f32", functools.partial(hymba, n_layers=1, **f32),
+           NeighbourChannels, channels)], "dp", None, False),
+        # the f32 gate on each block kind alone, on identical inputs (the
+        # embedding): the stack's sLSTM amplifies the f32 rounding of its
+        # input through the recurrence (PERF.md)
+        ("b", REC_XLSTM_PATH, REC_XLSTM_TRAIN_PATH,
+         functools.partial(xlstm, n_layers=REC_XLSTM_LAYERS,
+                           block_pattern=XLSTM_PATTERN),
+         REC_XLSTM_MESH, (REC_BATCH, REC_XLSTM_PROMPT), NeighbourChannels,
+         functools.partial(xlstm, n_layers=REC_XLSTM_LAYERS,
+                           block_pattern=XLSTM_PATTERN),
+         REC_XLSTM_TRAIN,
+         [("f32 m", functools.partial(xlstm, n_layers=1,
+                                      block_pattern=("m",), **f32),
+           gather_bwd_unsummed, "the gathers' backward without its sum "
+           "over 'model' (the mLSTM's q, k and gates)"),
+          ("f32 s", functools.partial(xlstm, n_layers=1,
+                                      block_pattern=("s",), **f32),
+           NeighbourChannels, channels)], "dp", None, False),
+        ("c", PURE_DP_PATH, PURE_DP_TRAIN_PATH,
+         functools.partial(rec_config, PURE_DP_SERVE_ARCH,
+                           n_layers=PURE_DP_SERVE_LAYERS, pure_dp=True),
+         PURE_DP_MESH, (PURE_DP_BATCH, PURE_DP_PROMPT), NeighbourRows,
+         pure_train, PURE_DP_TRAIN,
+         [("f32", functools.partial(pure_train, **f32), sync_skipping_model,
+           "_sync_grads skipping 'model'")], "process", "plan", True))
+    summary, serving, train = {}, {}, {}
+    for (key, path, train_path, config, shape, prompts, plant, tcfg,
+         tshape, gates, unit, impl, pure_dp) in cells:
+        serving[path], train[train_path], summary[key] = phase_rec_cell(
+            torch, kernels, key, config, shape, prompts, plant, tcfg, tshape,
+            gates, unit, impl, pure_dp)
+        free(torch)
+    return serving, train, summary
+
+
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
                 "flash_attention mixtral-8x7b long prefill": 1.5,
@@ -7281,6 +8083,15 @@ def main() -> int:
     launches.update(head_launches)
     log(f"phase head: {time.perf_counter() - t0:.1f} s; {json.dumps(head)}")
 
+    # 14. the recurrent and hybrid families over "model" and pure_dp:
+    # hymba-1.5b on (1, 1, 16) and xlstm-125m on (1, 1, 8), served and
+    # trained; megatron-moe-32e served and qwen3-0.6b trained with pure_dp
+    # on (1, 2, 2)
+    t0 = time.perf_counter()
+    rec_launches, rec_train_launches_, rec = phase_rec(torch, kernels)
+    launches.update(rec_launches)
+    log(f"phase rec: {time.perf_counter() - t0:.1f} s; {json.dumps(rec)}")
+
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for
     # pack and unpack, which training does not launch: the main path of
@@ -7314,6 +8125,9 @@ def main() -> int:
         for path, counts in head_train_launches.items():
             by_path[f"{path} ({HEAD_TRAIN_STEPS} steps, rank 0)"] = \
                 counts[name]
+        for path, counts in rec_train_launches_.items():
+            by_path[f"{path} ({REC_TRAIN_STEPS} steps, rank 0)"] = \
+                counts[name]
         for path, counts in stack_launches.items():
             if name in counts:
                 by_path[path] = counts[name]
@@ -7334,6 +8148,9 @@ def main() -> int:
                        main_path="mixtral-8x7b plan (serving)")
         row["launches_by_path"] = by_path
         result.append(row)
+    from repro_torch.launch.procs import stop_fork_server
+
+    stop_fork_server()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": result}))

@@ -149,11 +149,12 @@ def shard_module(params: Any, cfg: ModelConfig, mesh,
     the whole can be dropped after.  A "model" axis above 1 cuts the
     reference's TP slices (the query, key and value columns, also where
     they cut through a head, the FFN's and the experts' hidden dim, the
-    vocabulary; ``models/tp.py`` runs them), and keeps whole each leaf whose
-    dim "model" does not divide (``_drop_uneven``), for the dense, MoE, vlm
-    and encoder-decoder families; ``_check_tp`` raises for what is not
-    ported (the ssm and hybrid families, ``seq_shard_activations``, FSDP,
-    ``pure_dp``)."""
+    vocabulary, the recurrent blocks' and Mamba's columns and channels;
+    ``models/tp.py`` and ``models/ssm.py`` run them), and keeps whole each
+    leaf whose dim "model" does not divide (``_drop_uneven``), for every
+    family; under ``pure_dp`` every leaf but an expert stack's EP dim is
+    whole.  ``_check_tp`` raises for what is not ported
+    (``seq_shard_activations``, FSDP, ``pure_dp`` with FSDP)."""
     from .launch.shardings import module_specs, named_params, shard_tensor
 
     dev = mesh.device if device is None else resolve_device(device)
@@ -170,23 +171,19 @@ def shard_module(params: Any, cfg: ModelConfig, mesh,
 
 def _check_tp(cfg: ModelConfig, mesh) -> None:
     """Raise a ``ValueError`` naming what is not ported when ``mesh`` has a
-    "model" axis above 1 that ``cfg`` cannot run on."""
+    "model" axis above 1 that ``cfg`` cannot run on:
+    ``seq_shard_activations`` and FSDP (``pure_dp`` with FSDP included,
+    which the FSDP clause names)."""
     if "model" not in mesh.axis_names or mesh.axis_size("model") == 1:
         return
-    tp = mesh.axis_size("model")
     why = None
-    if cfg.family in ("ssm", "hybrid"):
-        why = (f"TP over 'model' of the {cfg.family} family (its recurrent "
-               f"or Mamba weights) is not ported")
-    elif cfg.seq_shard_activations:
+    if cfg.seq_shard_activations:
         why = ("seq_shard_activations (activations sharded over 'model' "
                "along the sequence) is not ported")
     elif cfg.fsdp:
         why = ("FSDP on a process mesh (parameters and moments sharded "
-               "over the data axes) is not ported")
-    elif cfg.pure_dp:
-        why = ("pure_dp over a 'model' axis above 1 (the batch split over "
-               "'model' too) is not ported")
+               "over the data axes" + (", with pure_dp" if cfg.pure_dp
+                                       else "") + ") is not ported")
     if why:
         shape = dict(zip(mesh.axis_names, mesh.shape))
         raise ValueError(f"{cfg.name} on mesh {shape}: {why}")

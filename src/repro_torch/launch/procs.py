@@ -50,7 +50,7 @@ from .mesh import ProcessMesh, resolve_device
 
 __all__ = ["DEFAULT_TIMEOUT_S", "RENDEZVOUS_TIMEOUT_S", "init_process_mesh",
            "spawn", "spawn_with_handoff", "file_rendezvous",
-           "under_torchrun"]
+           "under_torchrun", "stop_fork_server"]
 
 DEFAULT_TIMEOUT_S = 60.0
 # the processes' rendezvous may wait longer than a collective: a rank can be
@@ -156,11 +156,49 @@ def init_process_mesh(shape: Sequence[int], axes: Sequence[str],
                        root_coords=coords, groups=groups)
 
 
+def _context():
+    """The multiprocessing context of every process ``spawn`` starts: a
+    fork server that has imported torch once, and ``torch._dynamo``,
+    which the first operation on the ``meta`` device imports
+    (``convert.shard_module`` builds its module there), so that no child
+    imports either: on an 8-core host with one H100 the last of 16
+    processes held its shard 35 to 42 s after the start when each
+    imported them, about 5 s now (``chip_smoke.py``, phase 14).  The
+    server never touches CUDA, so its children may."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "torch.distributed",
+                                "torch._dynamo", "numpy"])
+    return ctx
+
+
+def stop_fork_server() -> None:
+    """Stop the fork server of ``spawn``'s processes, if one runs (it
+    would end with this process)."""
+    from multiprocessing import forkserver
+
+    forkserver._forkserver._stop()
+
+
 def _child(index: int, fn: Callable, shape, axes, backend, device,
-           init_method, timeout, args, queue) -> None:
-    """One rank: join the world, run ``fn(mesh, *args)`` and send its
-    result (pickled by value) to the parent.  On the CPU each rank takes an
-    equal share of the host's cores for its own threads."""
+           init_method, timeout, args, queue, env) -> None:
+    """One rank: take the parent's environment ``env`` as it was at the
+    start (a fork server's own dates from its first start), the CUDA
+    allocator's settings included, join the world, run ``fn(mesh,
+    *args)`` and send its result (pickled by value) to the parent.  On the CPU each rank takes an equal share of the
+    host's cores for its own threads."""
+    os.environ.clear()
+    os.environ.update(env)
+    conf = env.get("PYTORCH_CUDA_ALLOC_CONF")
+    if conf and torch.cuda.is_available():
+        # the server's import of torch read the allocator's settings from
+        # its own environment; this process's allocate nothing yet
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.cuda.memory._set_allocator_settings(conf)
     world = int(np.prod(shape))
     if torch.device(device).type == "cpu":
         torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // world))
@@ -182,8 +220,10 @@ def spawn(fn: Callable[..., Any], shape: Sequence[int], axes: Sequence[str],
     """Run ``fn(mesh, *args)`` in one process per rank of ``shape`` and
     return the results by rank.
 
-    The processes start with the ``spawn`` method (never ``fork``: they use
-    CUDA), so ``fn`` must be importable and ``args`` picklable; CUDA
+    The processes start from a fork server that has imported torch
+    (``_context``; never a fork of this process: they use CUDA), each
+    with this process's environment as it is at the call, so ``fn`` must
+    be importable and ``args`` picklable; CUDA
     tensors among them reach the children through CUDA IPC and CPU tensors
     through shared memory, without a copy.  A result is pickled by value:
     return host tensors or numpy.  ``init_method`` defaults to a ``file://``
@@ -208,11 +248,11 @@ def spawn(fn: Callable[..., Any], shape: Sequence[int], axes: Sequence[str],
     import torch.multiprocessing as tmp
 
     world = int(np.prod(shape))
-    queue = tmp.get_context("spawn").SimpleQueue()
+    queue = _context().SimpleQueue()
     ctx = tmp.start_processes(
         _child, args=(fn, shape, tuple(axes), backend, device, init_method,
-                      timeout, args, queue),
-        nprocs=world, join=False, start_method="spawn")
+                      timeout, args, queue, dict(os.environ)),
+        nprocs=world, join=False, start_method="forkserver")
     results = {}
     deadline = None if join_timeout is None else \
         time.monotonic() + join_timeout
@@ -261,10 +301,8 @@ def spawn_with_handoff(run: Callable[[Any], List[Any]], named: list,
     import gc
     import threading
 
-    import torch.multiprocessing as tmp
-
     dev = resolve_device(device)
-    handoff = tmp.get_context("spawn").Barrier(1 + world)
+    handoff = _context().Barrier(1 + world)
     result, used = {}, {}
 
     def ranks():

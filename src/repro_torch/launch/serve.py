@@ -60,6 +60,18 @@ heads) on 16 processes sharing one card:
         --arch megatron-moe-32e --n-layers 2 --mesh 1,1,16 --procs \\
         --backend gloo --batch 32 --prompt-len 128 --gen-len 16
 
+The recurrent and hybrid families run over "model" as well
+(``models/ssm.py``), and ``--pure-dp`` replicates the weights and cuts the
+prompts over every axis (the MoE routes each ``(pod, data)`` shard's rows
+together, as the reference's):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch hymba-1.5b --smoke --device cpu --mesh 1,1,4 --procs \\
+        --backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 1,2,2 \\
+        --pure-dp --procs --backend gloo
+
 In code, ``serve_procs`` also serves an encoder-decoder (whisper-tiny,
 given its ``frames`` in ``extras``) and the vision stub's
 ``patch_embeds``; the demo below feeds token prompts alone and refuses
@@ -245,7 +257,8 @@ def _serve_rank(mesh, cfg: ModelConfig, holder: list, prompts: torch.Tensor,
     if handoff is not None:
         handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # every rank holds its own
         handoff.wait(timeout=RENDEZVOUS_TIMEOUT_S)  # the parent dropped all
-    specs = batch_specs(mesh, {"tokens": prompts, **extras})
+    specs = batch_specs(mesh, {"tokens": prompts, **extras},
+                        pure_dp=cfg.pure_dp and not cfg.fsdp)
     spec = specs["tokens"]
     rows = shard_tensor(prompts, spec, mesh).to(mesh.device)
     own = {k: shard_tensor(v, specs[k], mesh).to(mesh.device)
@@ -277,8 +290,11 @@ def serve_procs(cfg: ModelConfig, params, prompts: torch.Tensor,
     (pod, data, model): each process takes its shard of ``params`` (a
     module or ``{name: tensor}``, shared with it without a copy: CUDA IPC
     on the card) and its ``B / (pod * data)`` rows (the same rows on each
-    of a DP rank's model peers), prefills and decodes ``gen_len`` greedy
-    tokens.  ``extras`` (``{name: [B, ...]}``: the vision stub's
+    of a DP rank's model peers; under ``pure_dp`` its own ``B / (pod *
+    data * model)``, ``batch_specs``), prefills and decodes ``gen_len``
+    greedy tokens.  A recurrent or hybrid arch's decode state holds this
+    process's channels or touched heads (``models/ssm.py``;
+    ``shardings.whole_states`` puts the peers' together).  ``extras`` (``{name: [B, ...]}``: the vision stub's
     ``patch_embeds``, an encoder-decoder's ``frames``, which it needs) are
     cut by rows as the prompts; an encoder-decoder's prompt pass is the
     encoder and the cross K/V, then the decode step over the prompt
@@ -438,6 +454,9 @@ def main(argv=None):
     ap.add_argument("--n-layers", type=int, default=None,
                     help="override the config's depth")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pure-dp", action="store_true",
+                    help="the config's pure_dp: weights replicated, the "
+                         "prompts cut over every mesh axis")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -451,6 +470,8 @@ def main(argv=None):
         over["a2a_impl"] = args.a2a
     if args.n_layers:
         over["n_layers"] = args.n_layers
+    if args.pure_dp:
+        over["pure_dp"] = True
     cfg = dataclasses.replace(cfg, **over) if over else cfg
     device = resolve_device(args.device)
     if args.procs and not (args.mesh and args.backend):

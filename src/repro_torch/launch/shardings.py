@@ -42,6 +42,17 @@ reference's ``dh / 16`` slice.  An encoder-decoder's cross cache (``xk``,
 ``xv``, the projected encoder stream) holds the same kv heads as its
 self-attention cache.  ``cache_specs`` stays the reference's table;
 ``whole_kv_heads`` puts the model peers' caches back together.
+
+The recurrent states (``models/ssm.py``) follow ``_CACHE_TABLE`` where
+their layout allows: Mamba's ``h [B, d_in, N]`` and ``conv [B, K-1, d_in]``
+and the sLSTM's ``c``, ``n`` and ``h`` hold this process's channels, the
+reference's shards.  Two quirks: the sLSTM's ``m`` holds its own channels
+too, where ``("m", 2)`` keeps it whole; the mLSTM's state holds the heads
+its columns touch, ``C [B, h_t, dh, own v columns]`` (the same bytes a
+process as the reference's ``C``, which shards every head's v dim), and
+``n [B, h_t, dh]`` and ``m [B, h_t]`` whole for those heads, replicated on
+the peers that share one where the reference shards ``n``'s ``dh``.
+``whole_states`` puts the model peers' states back together.
 """
 
 from __future__ import annotations
@@ -53,14 +64,14 @@ import torch
 
 from ..configs.registry import ModelConfig
 from ..models.dist import choose_ep_axes
-from ..models.tp import kv_heads
+from ..models.tp import kv_heads, q_heads
 from .mesh import ProcessMesh, all_gather
 
 __all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
            "spec_tree", "param_tree", "cache_tree", "module_specs",
            "shard_tensor", "gather_tensor", "tree_map_with_path",
            "flatten_with_path", "named_params", "sharded_axes",
-           "whole_kv_heads"]
+           "whole_kv_heads", "whole_states"]
 
 Spec = Tuple[Any, ...]
 
@@ -512,3 +523,59 @@ def whole_kv_heads(parts, cfg: ModelConfig):
                 raise ValueError(f"the replicas of kv head {head} differ "
                                  f"on model coordinate {coord}")
     return torch.stack(whole, 2)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor, what: str) -> torch.Tensor:
+    if not torch.equal(a, b):
+        raise ValueError(f"the replicas of {what} differ")
+    return a
+
+
+def _whole_mlstm(parts, cfg: ModelConfig) -> dict:
+    """The mLSTM's whole ``C [B, H, dh, dh]``, ``n`` and ``m`` from the
+    model peers' touched heads (``models/ssm.py``)."""
+    h, d = cfg.n_heads, cfg.d_model
+    dh, cols = d // h, d // len(parts)
+    c0 = parts[0]["C"]
+    whole = {"C": c0.new_zeros((c0.shape[0], h, dh, dh)), "n": [None] * h,
+             "m": [None] * h}
+    for coord, part in enumerate(parts):
+        heads, off = q_heads(h, dh, cols, coord)
+        for j, head in enumerate(heads):
+            # this coordinate's columns [off, off + cols) of its heads' dh
+            # each, those of head ``head`` within it
+            lo, hi = max(off, j * dh), min(off + cols, (j + 1) * dh)
+            src = (lo - off, hi - off) if len(heads) == 1 else \
+                (lo - j * dh, hi - j * dh)
+            whole["C"][:, head, :, lo - j * dh:hi - j * dh] = \
+                part["C"][:, j, :, src[0]:src[1]]
+            for key in ("n", "m"):
+                t = part[key][:, j]
+                whole[key][head] = t if whole[key][head] is None else \
+                    _same(whole[key][head], t, f"{key} of head {head}")
+    return {"C": whole["C"], "n": torch.stack(whole["n"], 1),
+            "m": torch.stack(whole["m"], 1)}
+
+
+def whole_states(parts, cfg: ModelConfig):
+    """A layer's whole decode state from the model peers' (``parts``, by
+    model coordinate; ``models/ssm.py``): Mamba's ``{"h", "conv"}`` and the
+    sLSTM's ``{"c", "n", "h", "m"}`` joined by channel, the mLSTM's
+    ``{"C", "n", "m"}`` by head (raises where two replicas of a head's
+    ``n`` or ``m`` differ).  ``parts`` of one layer's cache dicts give the
+    whole dict: ``{"state"}``, or a hybrid layer's ``{"k", "v", "ssm"}``
+    (its keys and values by ``whole_kv_heads``)."""
+    first = parts[0]
+    if "state" in first or "ssm" in first:
+        out = {}
+        for key in first:
+            got = [p[key] for p in parts]
+            out[key] = whole_states(got, cfg) if key in ("state", "ssm") \
+                else whole_kv_heads(got, cfg)
+        return out
+    if "C" in first:
+        return _whole_mlstm(parts, cfg)
+    dims = {"h": 1, "conv": 2} if "conv" in first else \
+        {k: 1 for k in first}
+    return {k: torch.cat([p[k] for p in parts], dim) for k, dim in
+            dims.items()}

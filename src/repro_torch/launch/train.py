@@ -14,7 +14,9 @@ process's shard (``convert.shard_module(..., train=True)``), the step takes
 the global batch and runs its own rows, and after the backward each
 gradient is summed over the DP axes its parameter is replicated on, then
 divided by the DP world size: the reference's gradient of the mean loss
-(``train_procs`` starts the processes).  The loss and its backward run
+(``train_procs`` starts the processes).  Under ``pure_dp`` the batch is
+cut over every axis, "model" included, the weights are whole, and the sums
+and the metrics' means run over every axis.  The loss and its backward run
 inside a ``train.forward_backward`` profiler range, the sync inside
 ``train.grad_sync``.
 
@@ -58,6 +60,18 @@ batch's ``frames`` cut by DP rows as the tokens (the smoke whisper-tiny's
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch whisper-tiny --smoke --device cpu --mesh 1,1,4 --procs \\
         --backend gloo --batch 4 --seq 16 --steps 2
+
+The recurrent and hybrid families run over "model" too (``models/ssm.py``:
+the smoke xlstm-125m's half a head of mLSTM and 8 sLSTM channels a
+process here), and ``--pure-dp`` replicates the weights and cuts the batch
+over every axis, the reference's knob for small models:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch xlstm-125m --smoke --device cpu --mesh 1,1,4 --procs \\
+        --backend gloo --batch 4 --seq 16 --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 1,2,2 \\
+        --pure-dp --procs --backend gloo --batch 8 --seq 16 --steps 2
 """
 
 from __future__ import annotations
@@ -67,7 +81,7 @@ import dataclasses
 import gc
 import itertools
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,6 +136,7 @@ def make_dist_context(cfg: ModelConfig, mesh,
         a2a_impl=impl,
         plan=plan,
         use_kernel=use_kernel,
+        pure_dp=cfg.pure_dp,
     )
 
 
@@ -189,28 +204,42 @@ def _on(device: torch.device, batch: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _batch_axes(cfg: ModelConfig, mesh) -> Tuple[str, ...]:
+    """The axes the batch is cut over (``batch_specs``): every axis under
+    ``pure_dp`` (without FSDP), else the DP axes."""
+    if cfg.pure_dp and not cfg.fsdp:
+        return tuple(mesh.axis_names)
+    return dp_axes(mesh)
+
+
 def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
-                specs: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+                specs: Dict[str, tuple],
+                axes: Optional[Tuple[str, ...]] = None
+                ) -> Dict[str, torch.Tensor]:
     """Each process's gradients (of its own loss, the mean over its rows)
     as the gradient of the mean loss over every process's rows: summed over
-    the DP axes the parameter is replicated on (gathered, added in member
-    order), then divided by the DP world size.  Never over "model": a
-    process's TP slice already holds its whole gradient (its model peers
-    ran the same rows), and a leaf replicated over "model" (the norms, the
-    router, ``q_norm``/``k_norm``, an encoder-decoder's ``enc_pos`` and
-    ``dec_pos``, a leaf ``_drop_uneven`` keeps whole) reaches it whole and with the same bits
+    the batch's ``axes`` (``_batch_axes``; default the DP axes) the
+    parameter is replicated on (gathered, added in member order), then
+    divided by the number of processes they hold.  Under ``pure_dp`` that
+    is every axis, "model" included: each process ran its own rows on
+    whole weights (an expert shard's gradient, which its exchange's
+    backward filled over its EP group, is summed over "model" alone).
+    Otherwise never over "model": a process's TP slice already holds its
+    whole gradient (its model peers ran the same rows), and a leaf
+    replicated over "model" (the norms, the router, ``q_norm``/``k_norm``,
+    an encoder-decoder's ``enc_pos`` and ``dec_pos``, a leaf
+    ``_drop_uneven`` keeps whole) reaches it whole and with the same bits
     on every peer, since each path into the TP region enters through
     ``models/tp.copy_in``, whose backward sums the peers' parts in member
-    order.  An expert shard's gradient
-    already holds the tokens of its EP group (the exchange's backward
-    brought them): on the island, EP over every DP axis, that is every
-    process's, so it is only divided; with EP over ``pod`` alone it is
-    summed over ``data``, with no EP over every DP axis.  ``grads`` is
-    emptied as it goes: each gradient is freed once its synced form
-    exists."""
+    order.  An expert shard's gradient already holds the tokens of its EP
+    group (the exchange's backward brought them): on the island, EP over
+    every DP axis, that is every process's, so it is only divided; with
+    EP over ``pod`` alone it is summed over ``data``, with no EP over
+    every DP axis.  ``grads`` is emptied as it goes: each gradient is
+    freed once its synced form exists."""
     from .shardings import sharded_axes
 
-    dp = dp_axes(mesh)
+    dp = dp_axes(mesh) if axes is None else axes
     n = mesh.axis_size(dp)
     out = {}
     for k in list(grads):
@@ -226,12 +255,13 @@ def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
     return out
 
 
-def _global_metrics(metricses: list, mesh: ProcessMesh) -> Dict:
+def _global_metrics(metricses: list, mesh: ProcessMesh,
+                    axes: Optional[Tuple[str, ...]] = None) -> Dict:
     """The reference's replicated metrics from each process's: per
-    microbatch, ``loss`` and ``nll`` averaged over the DP group (``aux`` is
-    the group's already) and ``ppl_proxy`` from that ``nll``; then the mean
-    over microbatches."""
-    dp = dp_axes(mesh)
+    microbatch, ``loss`` and ``nll`` averaged over the processes of the
+    batch's ``axes`` (default the DP axes; ``aux`` is the group's already)
+    and ``ppl_proxy`` from that ``nll``; then the mean over microbatches."""
+    dp = dp_axes(mesh) if axes is None else axes
     local = torch.stack([torch.stack([m["loss"], m["nll"]]).float()
                          for m in metricses])             # [n_mb, 2]
     loss, nll = (member_sum(all_gather(mesh, local[None], dp)[0])
@@ -250,7 +280,7 @@ def _process_rows(mesh: ProcessMesh, cfg: ModelConfig, batch: Dict,
     rank holds of the global microbatch ``i``."""
     from .shardings import batch_specs, shard_tensor
 
-    dp = mesh.axis_size(dp_axes(mesh))
+    dp = mesh.axis_size(_batch_axes(cfg, mesh))
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     out = {}
     for k, v in batch.items():
@@ -363,9 +393,10 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
             grads, m = grads_of(params, named, batch)
             metricses = [m]
         if proc:
+            axes = _batch_axes(cfg, mesh)
             with torch.profiler.record_function("train.grad_sync"):
-                grads = _sync_grads(grads, mesh, specs)
-            metrics = _global_metrics(metricses, mesh)
+                grads = _sync_grads(grads, mesh, specs, axes)
+            metrics = _global_metrics(metricses, mesh, axes)
         else:
             metrics = {k: torch.stack([m[k] for m in metricses]).mean(0)
                        for k in metricses[0]}
@@ -562,6 +593,9 @@ def main(argv=None):
     ap.add_argument("--n-layers", type=int, default=None,
                     help="override the config's depth")
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--pure-dp", action="store_true",
+                    help="the config's pure_dp: weights replicated, the "
+                         "batch cut over every mesh axis")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
                     help="run through the Trainer, checkpointing here")
@@ -570,6 +604,8 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    if args.pure_dp:
+        cfg = dataclasses.replace(cfg, pure_dp=True)
     device = resolve_device(args.device)
     if args.procs and not (args.mesh and args.backend):
         ap.error("--procs needs --mesh and --backend")

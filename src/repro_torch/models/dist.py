@@ -4,9 +4,9 @@ Counterpart of ``src/repro/models/dist.py`` over a ``LocalMesh`` or a
 ``ProcessMesh`` (``launch/mesh.py``); ``ep_size`` and ``choose_ep_axes``
 read the whole mesh's shape, whichever ranks this process holds, and
 ``tp_size`` the size of "model" on a ``ProcessMesh`` (1 on a ``LocalMesh``,
-which keeps whole weights: ``models/tp.py``).  ``None``
-in place of a context means the single-device path, the correctness oracle
-for the distributed one.
+which keeps whole weights: ``models/tp.py``, and 1 under ``pure_dp``).
+``None`` in place of a context means the single-device path, the
+correctness oracle for the distributed one.
 """
 
 from __future__ import annotations
@@ -37,6 +37,10 @@ class DistContext:
     # False runs the plain PyTorch versions of the kernels on the MoE path
     # (pack, unpack, grouped matmul) instead of the CUDA kernels.
     use_kernel: bool = True
+    # cfg.pure_dp: weights whole on every rank and the batch over every
+    # axis, "model" included; no TP, and the MoE routes a (pod, data)
+    # shard's rows together (models/moe.py)
+    pure_dp: bool = False
 
     @property
     def ep_size(self) -> int:
@@ -47,8 +51,8 @@ class DistContext:
     @property
     def tp_size(self) -> int:
         """The tensor-parallel degree: "model"'s size on a ``ProcessMesh``,
-        else 1."""
-        if not isinstance(self.mesh, ProcessMesh) \
+        else 1 (and 1 under ``pure_dp``, whose weights are whole)."""
+        if self.pure_dp or not isinstance(self.mesh, ProcessMesh) \
                 or "model" not in self.mesh.axis_names:
             return 1
         return self.mesh.axis_size("model")

@@ -10,7 +10,9 @@ True); False runs the plain versions of the kernels, with or without a
 ``dist``.  ``train=True`` makes ``init`` return trainable parameters with
 f32 masters of the expert stacks (``transformer.LM``).  Every family takes
 the ``dist`` of a ``ProcessMesh`` with TP over "model" (the encoder-decoder
-since the cut through a query head: ``models/encdec.py``).
+since the cut through a query head: ``models/encdec.py``; the recurrent
+and hybrid families since their TP slice, ``models/ssm.py``) or with
+``pure_dp`` (weights whole, the batch over every axis).
 
 Two quirks of the reference's encoder-decoder surface are kept: its
 ``prefill`` is the teacher-forced forward and returns ``(logits [B, S, V],
@@ -41,7 +43,8 @@ class Model:
     loss: Callable[..., Any]
     # (params, batch, dist, cache_len, use_kernel)
     prefill: Callable[..., Any]
-    init_cache: Callable[..., Any]    # (batch, seq_len) -> cache
+    # (batch, seq_len[, params, dist]) -> cache (a TP shard's, with them)
+    init_cache: Callable[..., Any]
     # (params, cache, tokens, pos, dist, use_kernel)
     decode_step: Callable[..., Any]
 
@@ -83,8 +86,9 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False
         use_kernel=True: transformer.lm_prefill(
             cfg, params, batch["tokens"], batch, dist, cache_len=cache_len,
             use_kernel=use_kernel),
-        init_cache=lambda batch, seq_len: transformer.init_decode_cache(
-            cfg, batch, seq_len, dev),
+        init_cache=lambda batch, seq_len, params=None, dist=None:
+            transformer.init_decode_cache(cfg, batch, seq_len, dev, params,
+                                          dist),
         decode_step=lambda params, cache, tokens, pos, dist=None,
         use_kernel=True: transformer.lm_decode_step(
             cfg, params, cache, tokens, pos, dist, use_kernel=use_kernel),

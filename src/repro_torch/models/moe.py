@@ -41,6 +41,17 @@ before the return trip, as the reference's GSPMD sums it: the int8 return
 exchange then quantizes the whole ``y``, and the gates' gradient reads it.
 The local path sums too, also where ``moe_apply`` drops ``dist``.
 
+Under ``pure_dp`` on a ``ProcessMesh`` with a "model" axis (weights whole
+on every process, the batch cut over every axis) the layer runs as the
+reference's ``shard_map`` over the DP axes alone hands it a ``(pod, data)``
+shard: the model peers' rows are gathered over "model" in member order
+(``tp.gather_rows``), routed, dispatched, exchanged and run through the
+experts as that shard, every model peer alike (capacity, slot order and
+the grid are those of the peers' rows together, the experts' ``d_ff``
+whole), and each process keeps its own rows of the output.  The gather's
+backward sums the peers' cotangents in member order; the gradient sync
+sums the experts' over "model" (``launch/train._sync_grads``).
+
 ``dist=None`` runs the same math with one rank and no exchange; it is the
 correctness oracle for the island.  ``use_kernel=False`` runs the plain
 versions of the kernels on every path.
@@ -71,10 +82,11 @@ from ..kernels.grouped_matmul import grouped_matmul_ref
 # plain wrapper call
 from ..kernels.grouped_matmul import grouped_matmul_autograd as \
     grouped_matmul
-from ..launch.mesh import pmean
+from ..launch.mesh import ProcessMesh, pmean
 from .dist import DistContext
 from .layers import dense_init, param
-from .tp import copy_in, row_parallel, tp_mesh, tp_of
+from .tp import copy_in, gather_rows, model_coord, row_parallel, tp_mesh, \
+    tp_of
 
 __all__ = ["MoE", "init_moe", "moe_apply"]
 
@@ -340,6 +352,17 @@ def _held_ranks(dist: DistContext) -> int:
     return dist.mesh.sub(dist.dp_axes).local_size
 
 
+def _row_peers(dist: Optional[DistContext]) -> Optional[ProcessMesh]:
+    """The ``ProcessMesh`` whose model peers' rows a ``pure_dp`` MoE takes
+    together (one ``(pod, data)`` shard), else None."""
+    if dist is None or not dist.pure_dp \
+            or not isinstance(dist.mesh, ProcessMesh) \
+            or "model" not in dist.mesh.axis_names \
+            or dist.mesh.axis_size("model") == 1:
+        return None
+    return dist.mesh
+
+
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
               dist: Optional[DistContext] = None, *,
               use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -347,6 +370,18 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
 
     The kernels run unless ``use_kernel`` or ``dist.use_kernel`` is
     False."""
+    peers = _row_peers(dist)
+    if peers is None:
+        return _moe_rows(cfg, p, x, dist, use_kernel)
+    b = x.shape[0]
+    y, aux = _moe_rows(cfg, p, gather_rows(peers, x), dist, use_kernel)
+    return y.narrow(0, model_coord(peers) * b, b), aux
+
+
+def _moe_rows(cfg: ModelConfig, p: MoE, x: torch.Tensor,
+              dist: Optional[DistContext], use_kernel: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` of the rows one ``(pod, data)`` shard holds."""
     tp = _moe_tp(cfg, dist, p)   # the local path below sums over "model" too
     if dist is not None:
         if not use_kernel and dist.use_kernel:

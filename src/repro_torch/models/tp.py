@@ -17,10 +17,10 @@ streams differ by an ulp could route a token differently.  An all-reduce's
 order is the backend's and gives no such promise.  Beyond two peers a sum
 is a scatter of ``1 / n`` chunks, each peer's member-order sum of its
 chunk, and a gather of the sums (about twice the operand's bytes a process
-at any ``n``).  ``max_over`` (the cross entropy's shift) and
-``argmax_over`` (greedy decoding over vocabulary shards, the lowest global
-index first among ties, as ``torch.argmax`` and ``jnp.argmax``) complete
-the set.  ``gather_cols`` joins the peers' column slices of a projection
+at any ``n``); a small operand's sum is one gather of every peer's.
+``max_over`` (the cross entropy's shift) and ``argmax_over`` (greedy
+decoding over vocabulary shards, the lowest global index first among
+ties, as ``torch.argmax`` and ``jnp.argmax``) complete the set.  ``gather_cols`` joins the peers' column slices of a projection
 (the keys' and values' ``K·dh`` columns where "model" cuts through a kv
 head, the queries' where it cuts through a query head, as the reference's
 GSPMD gathers them after the projection); its
@@ -29,7 +29,13 @@ process's slice (the scatter alone).  ``q_heads`` names the query heads
 that a process's ``wq`` columns touch (one or two whole heads where
 "model" cuts through a query head: each process then gathers the peers'
 query columns, computes those heads and keeps its own columns of their
-output), and ``kv_heads`` the kv heads those query heads read.  Each operator's collectives run inside a
+output), and ``kv_heads`` the kv heads those query heads read.
+``channels`` names the channels a process owns of a per-channel width (the
+recurrent blocks' state, ``models/ssm.py``).  ``gather_rows`` joins the
+model peers' batch rows (``pure_dp``'s MoE, which routes a ``(pod, data)``
+shard's rows together as the reference's ``shard_map`` over the DP axes
+hands them); its backward is the same member-order scatter as
+``gather_cols``'.  Each operator's collectives run inside a
 ``procmesh.tp_*`` profiler range (a sum's two beyond two peers inside
 ``procmesh.tp_*:scatter`` and ``:gather`` within it), a backward's inside
 ``procmesh.tp_*.bwd``.
@@ -49,8 +55,8 @@ import torch
 from ..launch.mesh import ProcessMesh, all_gather, all_to_all, member_sum
 
 __all__ = ["tp_mesh", "tp_of", "vocab_slice", "copy_in", "sum_out",
-           "row_parallel", "gather_cols", "q_heads", "kv_heads",
-           "model_coord", "max_over", "argmax_over"]
+           "row_parallel", "gather_cols", "gather_rows", "channels",
+           "q_heads", "kv_heads", "model_coord", "max_over", "argmax_over"]
 
 AXIS = ("model",)
 
@@ -108,16 +114,24 @@ def _scatter_sum(tp: ProcessMesh, chunks: torch.Tensor,
     return member_sum(p.float() for p in got).to(chunks.dtype)
 
 
+# a sum whose gather of every peer's operand moves at most this many bytes
+# a process takes that one collective instead of a scatter and a gather:
+# decode's sums are a few KB, where a collective's latency, not its bytes,
+# sets the time
+GATHER_SUM_MAX_BYTES = 1 << 22
+
+
 def _sum(tp: ProcessMesh, x: torch.Tensor, span: str) -> torch.Tensor:
     """The peers' ``x`` added in member order in f32, rounded to ``x``'s
-    dtype (the same bits either way).  Two peers gather each other's ``x``:
-    twice its bytes a process in one collective.  More peers each add their
+    dtype (the same bits either way).  Two peers, or a gather of every
+    peer's ``x`` within ``GATHER_SUM_MAX_BYTES``, gather each other's
+    ``x`` in one collective.  More peers on a larger ``x`` each add their
     ``1 / n`` of the elements (``_scatter_sum``), then gather the sums:
     about twice ``x``'s bytes in two collectives, where a gather of every
     peer's ``x`` would move ``n`` times them (at 16 peers more than the
     card holds for the MoE's grid)."""
     n = tp.axis_size("model")
-    if n <= 2:
+    if n <= 2 or n * x.numel() * x.element_size() <= GATHER_SUM_MAX_BYTES:
         parts = _gather(tp, x.contiguous(), span)
         return member_sum(p.float() for p in parts).to(x.dtype)
     with torch.profiler.record_function(span):
@@ -169,6 +183,22 @@ class _GatherCols(torch.autograd.Function):
                                   "procmesh.tp_gather.bwd")
 
 
+class _GatherRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, tp, x):
+        ctx.tp = tp
+        parts = _gather(tp, x.contiguous(), "procmesh.tp_gather_rows")
+        return parts.reshape(-1, *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.tp.axis_size("model")
+        chunks = g.reshape(n, -1, *g.shape[1:])
+        return None, _scatter_sum(ctx.tp, chunks.contiguous(),
+                                  "procmesh.tp_gather_rows.bwd")
+
+
 def copy_in(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
     """Enter the TP region: ``x`` as it is; its gradient summed over
     "model"."""
@@ -196,6 +226,23 @@ def gather_cols(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
     gradient summed over "model" in member order (f32), this process's
     ``c`` columns kept."""
     return x if tp is None else _GatherCols.apply(tp, x)
+
+
+def gather_rows(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
+    """``[n · B, ...]``: every model peer's ``x [B, ...]`` joined along the
+    first dim by model coordinate; its gradient summed over "model" in
+    member order (f32), this process's ``B`` rows kept."""
+    return x if tp is None else _GatherRows.apply(tp, x)
+
+
+def channels(tp: Optional[ProcessMesh], width: int) -> slice:
+    """The channels ``[m · c, (m + 1) · c)`` of ``width`` that model
+    coordinate ``m`` owns (``c = width / n``, as a spec over "model" cuts a
+    per-channel dim); every channel without ``tp``."""
+    if tp is None:
+        return slice(0, width)
+    c = width // tp.axis_size("model")
+    return slice(model_coord(tp) * c, (model_coord(tp) + 1) * c)
 
 
 def q_heads(n_heads: int, dh: int, cols: int, coord: int

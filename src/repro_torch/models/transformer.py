@@ -43,7 +43,10 @@ query heads read (``layers._heads``): its own where "model" divides the kv
 heads, else gathered over "model" and replicated on the peers that share
 one.  A leaf its spec keeps whole (an odd vocabulary, internvl2-1b's
 151655 rows; every attention leaf of a width "model" does not divide)
-takes the whole path, with no collective.  The vision stub's
+takes the whole path, with no collective.  The recurrent blocks and the
+hybrid's Mamba run on this process's slice too (``models/ssm.py``), and
+their decode states hold its channels or touched heads
+(``init_decode_cache`` with a shard sizes them).  The vision stub's
 ``patch_embeds`` take the first positions on every process, as without
 TP.  ``models/encdec.py`` reuses the vocabulary-parallel lookup and loss.
 """
@@ -201,7 +204,7 @@ def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
     if kind in ("m", "s"):
         apply, _, name = _recurrent(kind)
         y, st = apply(cfg, getattr(p, name), norm_apply(cfg, p.norm1, x),
-                      return_state=True)
+                      return_state=True, tp=tp_mesh(dist))
         return x + y, torch.zeros((), dtype=torch.float32,
                                   device=x.device), {"state": st}
     window, use_window = _window_args(cfg, full_flag)
@@ -215,7 +218,8 @@ def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
     k_c, v_c = assemble_kv_cache(k_raw, v_raw, cache_window, cache_len)
     cache = {"k": k_c, "v": v_c}
     if kind == "hybrid":
-        ssm, cache["ssm"] = mamba_apply(cfg, p.mamba, h, return_state=True)
+        ssm, cache["ssm"] = mamba_apply(cfg, p.mamba, h, return_state=True,
+                                        tp=tp_mesh(dist))
         x = x + _fuse(cfg, p, attn_out, ssm)
     else:
         x = x + attn_out
@@ -229,7 +233,8 @@ def _block_train(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
     """One layer of the training forward: (x, aux)."""
     if kind in ("m", "s"):
         apply, _, name = _recurrent(kind)
-        y = apply(cfg, getattr(p, name), norm_apply(cfg, p.norm1, x))
+        y = apply(cfg, getattr(p, name), norm_apply(cfg, p.norm1, x),
+                  tp=tp_mesh(dist))
         return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
     window, use_window = _window_args(cfg, full_flag)
     h = norm_apply(cfg, p.norm1, x)
@@ -237,7 +242,8 @@ def _block_train(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
                                window=window, use_window=use_window,
                                use_kernel=use_kernel, tp=tp_mesh(dist))
     if kind == "hybrid":
-        x = x + _fuse(cfg, p, attn_out, mamba_apply(cfg, p.mamba, h))
+        x = x + _fuse(cfg, p, attn_out,
+                      mamba_apply(cfg, p.mamba, h, tp=tp_mesh(dist)))
     else:
         x = x + attn_out
     return _ffn(cfg, p, x, kind, dist, use_kernel)
@@ -384,30 +390,64 @@ def _phys_len(cfg: ModelConfig, seq_len: int, full_attn: bool) -> int:
     return min(seq_len, cfg.swa_window)
 
 
+def _layer_widths(cfg: ModelConfig, p: Block, kind: str, dist) -> dict:
+    """The zero-state sizes of this process's shard ``p`` of a layer under
+    TP (``models/ssm.py``, ``layers._heads``): the mLSTM's touched heads
+    and v columns, the sLSTM's and Mamba's own channels, the kv heads its
+    query heads read."""
+    from .layers import _attn_tp, _heads
+    from .ssm import _mlstm_layout
+
+    tp = tp_mesh(dist)
+    if kind == "m":
+        _, heads, _, cols = _mlstm_layout(cfg, p.mlstm, tp)
+        dh = cfg.d_model // cfg.n_heads
+        return {"heads": len(heads), "width": cols if len(heads) == 1
+                else dh}
+    if kind == "s":
+        return {"width": p.slstm.w.shape[-1] // 4}
+    out = {"kv": len(_heads(cfg, p.attn, _attn_tp(cfg, p.attn, tp))[2])}
+    if kind == "hybrid":
+        out["ssm"] = p.mamba.conv_w.shape[-1]
+    return out
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                      device="cuda") -> List[Dict[str, Any]]:
+                      device="cuda", params: Optional[LM] = None,
+                      dist: Optional[DistContext] = None
+                      ) -> List[Dict[str, Any]]:
+    """The zero decode cache of every layer; with ``params`` (this
+    process's shard) and the ``dist`` of a TP run, sized to what the shard
+    holds (``_layer_widths``)."""
     kinds = layer_kinds(cfg)
     kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     compute = getattr(torch, cfg.compute_dtype)
     cache = []
     for i, kind in enumerate(kinds):
-        if kind in ("m", "s"):
-            zero = mlstm_zero_state if kind == "m" else slstm_zero_state
-            cache.append({"state": zero(cfg, batch, device)})
+        w = {} if params is None else _layer_widths(cfg, params.blocks[i],
+                                                    kind, dist)
+        if kind == "m":
+            cache.append({"state": mlstm_zero_state(
+                cfg, batch, device, w.get("heads"), w.get("width"))})
+            continue
+        if kind == "s":
+            cache.append({"state": slstm_zero_state(cfg, batch, device,
+                                                    w.get("width"))})
             continue
         # the scanned reference cannot stack mixed window/full caches and
         # uses full-size ones everywhere
         full = (i in cfg.full_attn_layers) if not cfg.scan_layers \
             else bool(cfg.full_attn_layers)
         phys = _phys_len(cfg, seq_len, full)
+        heads = w.get("kv", kv)
         entry = {
-            "k": torch.zeros((batch, phys, kv, dh), dtype=compute,
+            "k": torch.zeros((batch, phys, heads, dh), dtype=compute,
                              device=device),
-            "v": torch.zeros((batch, phys, kv, dh), dtype=compute,
+            "v": torch.zeros((batch, phys, heads, dh), dtype=compute,
                              device=device),
         }
         if kind == "hybrid":
-            entry["ssm"] = mamba_zero_state(cfg, batch, device)
+            entry["ssm"] = mamba_zero_state(cfg, batch, device, w.get("ssm"))
         cache.append(entry)
     return cache
 
@@ -419,7 +459,7 @@ def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
         _, decode, name = _recurrent(kind)
         y, cache["state"] = decode(cfg, getattr(p, name),
                                    norm_apply(cfg, p.norm1, x),
-                                   cache["state"])
+                                   cache["state"], tp=tp_mesh(dist))
         return x + y
     window = None
     if cfg.swa_window is not None:
@@ -431,7 +471,8 @@ def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
     attn, _, _ = attention_decode(cfg, p.attn, h, cache["k"], cache["v"],
                                   pos, window=window, tp=tp_mesh(dist))
     if kind == "hybrid":
-        ssm, cache["ssm"] = mamba_decode(cfg, p.mamba, h, cache["ssm"])
+        ssm, cache["ssm"] = mamba_decode(cfg, p.mamba, h, cache["ssm"],
+                                         tp=tp_mesh(dist))
         x = x + _fuse(cfg, p, attn, ssm)
     else:
         x = x + attn

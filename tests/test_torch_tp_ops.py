@@ -3,6 +3,8 @@ processes of a (1, 1, tp) ``ProcessMesh``, against whole-tensor math:
 
 * ``copy_in``: the identity forward; its gradient the sum of every peer's;
 * ``sum_out``: the sum of the peers' parts forward; the gradient passed on;
+  the scatter of a large operand's sum the same bits as the gather of a
+  small one's;
 * the vocabulary-parallel lookup (``transformer._embed_tokens`` on a table
   sharded over "model"): the whole table's rows, and the table's gradient
   the whole's slice;
@@ -32,7 +34,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.procs import spawn
 from repro_torch.launch.train import _compress_pod_grads, make_dist_context
-from repro_torch.models import transformer
+from repro_torch.models import tp, transformer
 from repro_torch.models.tp import argmax_over, copy_in, sum_out
 
 AXES = ("pod", "data", "model")
@@ -82,6 +84,13 @@ def _peer(mesh):
     out["sum"] = y.detach().numpy()
     out["sum_grad"] = torch.autograd.grad((y * cot[0]).sum(),
                                           part)[0].numpy()
+    # the same sum through the scatter and the gather of the sums that an
+    # operand past GATHER_SUM_MAX_BYTES takes beyond two peers
+    limit, tp.GATHER_SUM_MAX_BYTES = tp.GATHER_SUM_MAX_BYTES, 0
+    try:
+        out["sum_scattered"] = sum_out(mesh, part.detach()).numpy()
+    finally:
+        tp.GATHER_SUM_MAX_BYTES = limit
 
     shard = table[sl].clone().requires_grad_(True)
     params = types.SimpleNamespace(embed=shard)
@@ -170,6 +179,16 @@ def test_sum_out(peers):
     assert np.abs(outs[0]["sum"] - want).max() < 1e-6
     for o in outs:
         assert np.array_equal(o["sum_grad"], cot[0])
+
+
+def test_sum_out_scattered_is_the_gathered_sum(peers):
+    """A sum over more than two peers takes one gather of every peer's
+    operand up to ``GATHER_SUM_MAX_BYTES``, else a scatter, a member-order
+    sum of each chunk and a gather: the same bits either way."""
+    _, outs = peers
+    _same_on_every_peer(outs, "sum_scattered")
+    for o in outs:
+        assert np.array_equal(o["sum_scattered"], o["sum"])
 
 
 def test_vocab_parallel_lookup(peers):

@@ -27,7 +27,8 @@ the output the same bits on every model peer.  In bf16 the gathered
 prefill logits are bit for bit the stacked run's with each row-parallel
 product rounded per peer before the sum (``_TPRounding``).  Each refusal of
 ``convert.shard_module`` raises a ``ValueError``; what it refused before
-the cut through a query head it now cuts.  ``serve --procs --mesh
+the cut through a query head, the recurrent families' TP and ``pure_dp``
+it now cuts.  ``serve --procs --mesh
 2,2,2`` on the command line prints the tokens of the stacked mesh.  One
 spawn a mesh; the reference runs once, in one subprocess on 12 fake
 devices.
@@ -452,12 +453,11 @@ def _fake_mesh(shape):
 
 
 REFUSED = {
-    "ssm": ("xlstm-125m", (1, 1, 2), {}, "ssm"),
-    "hybrid": ("hymba-1.5b", (1, 1, 2), {}, "hybrid"),
     "seq_shard": ("llama3.2-1b", (1, 1, 2),
                   {"seq_shard_activations": True}, "seq_shard_activations"),
     "fsdp": ("llama3.2-1b", (1, 1, 2), {"fsdp": True}, "FSDP"),
-    "pure_dp": ("llama3.2-1b", (1, 1, 2), {"pure_dp": True}, "pure_dp"),
+    "pure_dp_fsdp": ("llama3.2-1b", (1, 1, 2),
+                     {"pure_dp": True, "fsdp": True}, "FSDP.*pure_dp"),
 }
 
 
@@ -474,39 +474,60 @@ def test_shard_module_refuses_what_is_not_ported(case):
         shard_module(module, cfg, _fake_mesh(shape))
 
 
-# what shard_module refused before the cut through a query head: a "model"
-# axis that does not divide the heads, the encoder-decoder family
+# what shard_module refused before: a "model" axis that does not divide
+# the heads, the encoder-decoder family (before the cut through a query
+# head); the ssm and hybrid families and pure_dp (before their slice)
 ACCEPTED = {
-    "heads": ("llama3.2-1b", (1, 1, 3)),
-    "encdec": ("whisper-tiny", (1, 1, 2)),
+    "heads": ("llama3.2-1b", (1, 1, 3), {}),
+    "encdec": ("whisper-tiny", (1, 1, 2), {}),
+    "ssm": ("xlstm-125m", (1, 1, 2), {}),
+    "hybrid": ("hymba-1.5b", (1, 1, 2), {}),
+    "pure_dp": ("llama3.2-1b", (1, 1, 2), {"pure_dp": True}),
+}
+# case -> (leaf, the dim "model" cuts) of some TP leaves; the leaves named
+# by WHOLE_LEAVES stay whole
+HALF_LEAVES = {
+    "encdec": (("embed", 0), ("enc_blocks.0.attn.wq", 1),
+               ("dec_blocks.0.xattn.wo", 0), ("dec_blocks.1.mlp.b_up", 0)),
+    "ssm": (("embed", 0), ("blocks.0.mlstm.wq", 1), ("blocks.0.mlstm.wif", 1),
+            ("blocks.0.mlstm.wo", 0), ("blocks.1.slstm.r", 1),
+            ("blocks.1.slstm.wo", 0)),
+    "hybrid": (("blocks.0.mamba.in_proj", 1), ("blocks.0.mamba.a_log", 0),
+               ("blocks.0.mamba.w_dt2", 1), ("blocks.0.mamba.out_proj", 0),
+               ("blocks.1.attn.wq", 1)),
+}
+WHOLE_LEAVES = {
+    "encdec": ("enc_pos", "dec_pos", "dec_blocks.0.mlp.b_down"),
+    "ssm": ("blocks.0.norm1.scale", "blocks.1.norm1.bias"),
+    "hybrid": ("blocks.0.fuse_norm_ssm.scale",),
 }
 
 
 @pytest.mark.parametrize("case", list(ACCEPTED))
 def test_shard_module_accepts_a_cut_through_a_head_and_the_encdec(case):
     """llama's smoke config on 3 keeps every leaf whole (``_drop_uneven``:
-    3 divides none of its widths); whisper-tiny's on 2 holds half of each
-    TP leaf (its 4 heads, ``d_ff``, the tied vocabulary) and the whole of
-    the rest."""
+    3 divides none of its widths), and so does ``pure_dp`` on 2 (weights
+    replicated); whisper-tiny's, xlstm-125m's and hymba-1.5b's on 2 hold
+    half of each TP leaf (heads, ``d_ff``, the tied vocabulary, the
+    recurrent blocks' columns and Mamba's channels) and the whole of the
+    rest."""
     from repro_torch.models import build_model
 
-    arch, shape = ACCEPTED[case]
-    cfg = smoke_config(arch)
+    arch, shape, over = ACCEPTED[case]
+    cfg = smoke_config(arch, **over)
     module = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
     own = dict(shard_module(module, cfg, _fake_mesh(shape))
                .named_parameters())
     whole = dict(module.named_parameters())
     assert set(own) == set(whole)
-    if case == "heads":
+    if case in ("heads", "pure_dp"):
         for name, w in whole.items():
             assert torch.equal(own[name], w), name
         return
-    for name, dim in (("embed", 0), ("enc_blocks.0.attn.wq", 1),
-                      ("dec_blocks.0.xattn.wo", 0), ("dec_blocks.1.mlp.b_up",
-                                                     0)):
+    for name, dim in HALF_LEAVES[case]:
         w = whole[name]
         assert torch.equal(own[name], w.narrow(dim, 0, w.shape[dim] // 2))
-    for name in ("enc_pos", "dec_pos", "dec_blocks.0.mlp.b_down"):
+    for name in WHOLE_LEAVES[case]:
         assert torch.equal(own[name], whole[name]), name
 
 
