@@ -309,6 +309,32 @@ Phases (each raises on failure; none is caught):
    ms, decode ms/step, the shares of a traced prompt pass in
    ``procmesh.tp_*`` and in the scan loops (``ssm_scan``), step ms, peak
    and card GB.
+15. sequence parallelism and FSDP on one process per rank, each cell in
+   one spawn of ``serve_procs`` whose per-rank hook serves, then trains
+   the 1-layer model the parent makes from the seed and shares through
+   CUDA IPC (bf16, then the f32 gate).  (a) megatron-moe-32e with
+   ``seq_shard_activations`` and ``fsdp`` on (1, 2, 4), 8 processes: the
+   residual stream on a quarter of the sequence between the TP regions
+   (``tp.gather_seq`` / ``scatter_seq``), every weight of two or more
+   dims but the experts' stored over ``data`` and gathered at each
+   block's start (``models/fsdp.py``); 2 of 24 layers served through the
+   plan, 32 requests of 128 tokens and 15 decode steps; each process also
+   cuts the 1-layer model for SP + FSDP and for the same mesh's TP with
+   neither knob and holds their prompt passes bit for bit, in f32 and in
+   bf16; trained at 1 layer, 8 x 128.  (b) qwen3-0.6b with ``pure_dp``
+   and ``fsdp`` on (1, 2, 2), 4 processes (weights over ``data`` and
+   "model", the batch over ``data``): 4 of 28 layers served 8 x 128 with
+   4 decode steps and trained 8 x 128, its f32 gate at 1 layer.  Gated as
+   phase 14 (the caches by kv head over the model peers in (a), the model
+   peers' replicas bit-identical in (b)), and the planted faults refused:
+   a ``scatter_seq`` keeping the neighbour's chunk and a ``fsdp_gather``
+   joining the slices rolled (the f32 serving gate), the sync leaving the
+   norms' chunk-partial gradients unsummed over "model" (the gradient gate
+   and the model peers' bit-identity) and a ``fsdp_gather`` backward
+   keeping its own gradient unsummed (the gradient gate).  Reported per
+   process: each ``procmesh.*`` range's share of a traced prompt pass and
+   step, f32 parameter and moment GB beside the whole model's, step ms,
+   peak and card GB.
 
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
@@ -323,8 +349,8 @@ results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
 megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
 and flash_attention_bwd, mixtral's plan run for pack and unpack;
-``launches_by_path`` lists every path's counts, phases 7's to 14's
-too (phases 8's to 14's are rank 0's, equal in every process).  It exits
+``launches_by_path`` lists every path's counts, phases 7's to 15's
+too (phases 8's to 15's are rank 0's, equal in every process).  It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.
 """
@@ -503,6 +529,22 @@ REC_XLSTM_PATH = "xlstm-125m tp procs (1,1,8)"
 REC_XLSTM_TRAIN_PATH = "xlstm-125m tp train procs (1,1,8)"
 PURE_DP_PATH = "megatron-moe-32e pure_dp procs (1,2,2)"
 PURE_DP_TRAIN_PATH = "qwen3-0.6b pure_dp train procs (1,2,2)"
+# phase 15: (a) megatron-moe-32e with seq_shard_activations and FSDP on
+# (1, 2, 4): SP over a 4-way "model", FSDP over data, the experts over the
+# EP axes choose_ep_axes picks; served through the plan at SPF_LAYERS of 24
+# layers, SPF_BATCH x SPF_PROMPT tokens; trained at 1 layer, SPF_TRAIN.
+# (b) qwen3-0.6b with pure_dp and FSDP on (1, 2, 2) (phase 14 (c)'s
+# training cell with FSDP): FSDP_LAYERS of 28 layers, served FSDP_BATCH x
+# FSDP_PROMPT and FSDP_STEPS decode steps (each gathers every weight
+# through the host), trained FSDP_TRAIN
+SPF_ARCH, SPF_MESH, SPF_LAYERS = "megatron-moe-32e", (1, 2, 4), 2
+SPF_BATCH, SPF_PROMPT, SPF_TRAIN = 32, 128, (8, 128)
+FSDP_ARCH, FSDP_MESH, FSDP_LAYERS = "qwen3-0.6b", (1, 2, 2), 4
+FSDP_BATCH, FSDP_PROMPT, FSDP_TRAIN, FSDP_STEPS = 8, 128, (8, 128), 4
+SPF_PATH = "megatron-moe-32e sp+fsdp procs (1,2,4)"
+SPF_TRAIN_PATH = "megatron-moe-32e sp+fsdp train procs (1,2,4)"
+FSDP_PATH = "qwen3-0.6b pure_dp+fsdp procs (1,2,2)"
+FSDP_TRAIN_PATH = "qwen3-0.6b pure_dp+fsdp train procs (1,2,2)"
 # phase 9's f32 gate: an element whose oracle gradient stays within
 # NOISE_GRAD of its tensor slice's largest, every step, lies at the f32
 # noise floor of the gradient sums (the processes' and the stacked mesh's
@@ -3704,7 +3746,8 @@ def traced_step(torch, run):
     ex_us = busy_us([(e.time_range.start, e.time_range.end) for e in inside])
     tp_us = busy_us([(e.time_range.start, e.time_range.end) for e in tp])
     sync_us = sum(e.time_range.elapsed_us() for e in sync)
-    return res, {"host_ms": host_us / 1e3, "exchange_share": ex_us / host_us,
+    return res, {"spans": span_shares(events, host_us),
+                 "host_ms": host_us / 1e3, "exchange_share": ex_us / host_us,
                  "tp_share": tp_us / host_us,
                  "tp_sums": sum(":" not in e.name for e in tp),
                  "sync_share": sync_us / host_us,
@@ -3882,7 +3925,7 @@ def pmean_local():
 
 def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
                    batch=TRAIN_BATCH, noise_unit="process",
-                   seq=F32_TRAIN_SEQ):
+                   seq=F32_TRAIN_SEQ, fault_peers=False):
     """One rank of phase 9 (b): the first step's gradients under the
     planted fault ``plant()`` (default: ``pmean``'s backward a local ``1 /
     n``; no update),
@@ -3891,24 +3934,34 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
     parent through CUDA IPC).  Per parameter: the worst difference of the
     elements outside the noise class (also at each of NOISE_GRAD_SCAN's
     thresholds), of those inside it, and of two planted controls on that
-    class, its update skipped (the initial value) and its sign flipped."""
+    class, its update skipped (the initial value) and its sign flipped.
+    With ``fault_peers`` also the digests of the faulty step's gradients
+    of the leaves replicated over "model" (``fault_peers``)."""
     import torch
 
     from repro_torch.launch.train import (init_train_state, make_train_step,
                                           train_specs)
-    from repro_torch.launch.shardings import shard_tensor
+    from repro_torch.launch.shardings import shard_tensor, sharded_axes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = proc_kernels()
     specs = train_specs(cfg, mesh)
     module = shards[0]
+    whole = [k for k, spec in specs.items()
+             if "model" not in sharded_axes(mesh, spec)]
+    peers = []
+
+    def faulty(i, g):
+        if fault_peers:
+            peers.append({k: digest(torch, g[k]) for k in whole})
+        return grad_stats(torch, mesh, specs, g, want["grads"][0])
+
     with plant():
         state = init_train_state(module)
         step = make_train_step(cfg, mesh, proc_train_options(F32_PROC_STEPS),
                                device=DEVICE)
-        with GradSpy(update=False, on_grads=lambda i, g: grad_stats(
-                torch, mesh, specs, g, want["grads"][0])) as spy:
+        with GradSpy(update=False, on_grads=faulty) as spy:
             step(state, train_batches(cfg, batch, seq, 1)[0])
         fault = spy.grads[0]
         del state, step, spy
@@ -4023,7 +4076,8 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
     w = mine = None
     gc.collect()
     return {"rank": mesh.rank, "metrics": res["metrics"], "grads": grads,
-            "fault": fault, "params": params, "launches": launches,
+            "fault": fault, "fault_peers": peers, "coords": mesh.rank_coords,
+            "params": params, "launches": launches,
             "routes": [e.cpu() for e in rec.eids], "card_gb": card}
 
 
@@ -5206,7 +5260,10 @@ class StreamRecorder:
 
         def spy(*args, **kw):
             out = self.real(*args, **kw)
-            self.digests.append(digest(self.torch, out[0]))
+            x = out[0]
+            if kw.get("sp") is not None:   # SP: the chunks joined
+                x = kw["sp"].gathered(x).whole
+            self.digests.append(digest(self.torch, x))
             return out
         self.mod._block_prefill = spy
         return self
@@ -5236,8 +5293,8 @@ class TPRounding:
 
         self.real = [m.row_parallel for m in self.mods]
 
-        def split(tp, product, x, w, *extra):
-            if tp is not None:
+        def split(tp, product, x, w, *extra, sp=None):
+            if tp is not None or sp is not None:
                 raise AssertionError("TPRounding runs on whole weights")
             n = w.shape[-2] // self.parts
             outs = [product(x[..., i * n:(i + 1) * n].contiguous(),
@@ -5325,7 +5382,8 @@ def tp_shares(torch, prefill, params, batch):
     tops = [e for e in tp if ":" not in e.name]
     names = sorted({e.name for e in tops})
     scans = [e for e in prof.events() if e.name == "ssm_scan"]
-    return {"host_ms": host_us / 1e3, "exchange_share": busy(ex) / host_us,
+    return {"spans": span_shares(spans, host_us),
+            "host_ms": host_us / 1e3, "exchange_share": busy(ex) / host_us,
             "tp_share": busy(tp) / host_us, "exchanges": len(ex),
             "tp_sums": len(tops), "scan_share": busy(scans) / host_us,
             "scans": len(scans),
@@ -5333,6 +5391,18 @@ def tp_shares(torch, prefill, params, batch):
                                               if e.name == n]) / host_us,
                                "calls": sum(e.name == n for e in tops)}
                            for n in names}}
+
+
+def span_shares(events, host_us):
+    """Each ``procmesh.*`` range's share of ``host_us`` by name (a range's
+    own ``:scatter`` and ``:gather`` parts are not counted apart), and its
+    calls."""
+    tops = [e for e in events
+            if e.name.startswith("procmesh.") and ":" not in e.name]
+    return {n: {"share": busy_us([(e.time_range.start, e.time_range.end)
+                                  for e in tops if e.name == n]) / host_us,
+                "calls": sum(e.name == n for e in tops)}
+            for n in sorted({e.name for e in tops})}
 
 
 def dp_index(coords, shape):
@@ -7315,7 +7385,8 @@ class LayerInputs:
         self.real = real = self.mod._block_prefill
 
         def spy(cfg, p, x, **kw):
-            self.inputs.append(x.detach().cpu())
+            whole = x if kw.get("sp") is None else kw["sp"].gathered(x).whole
+            self.inputs.append(whole.detach().cpu())
             return real(cfg, p, x, **kw)
         self.mod._block_prefill = spy
         return self
@@ -7417,32 +7488,50 @@ def rec_child(mesh, cfg32, shards, rows, serve_cli, config, plant, impl,
 
 def rec_cell_child(mesh, cfg32, shards, rows, serve_cli, config, plant,
                    impl, plan, train_config, gates, batch, seq, noise_unit,
-                   wants):
+                   wants, train_wholes=None, extra=None, fault_peers=False,
+                   gen=None):
     """One rank of a phase 14 cell, the per-rank hook of ``serve_procs``:
     ``rec_child``'s serving; then ``train_procs``' per-rank path
     (``launch/train._train_rank``) on models each process makes from the
     seed as the parent's oracles do: bf16 training of ``train_config``
     (``tp_train_child``), and each f32 gate of ``gates`` ((key, config,
     planted fault, name) each; ``f32_proc_child`` against the oracle's
-    ``wants[key]`` shared through CUDA IPC)."""
+    ``wants[key]`` shared through CUDA IPC).  Phase 15: ``train_wholes``,
+    ``{key: the trainable model the parent made from the seed}`` (shared
+    through CUDA IPC), in place of each process's own; ``extra(mesh, rows,
+    plan, train_wholes["train"])`` run after the serving, its result under
+    ``"extra"``;
+    ``fault_peers`` as ``f32_proc_child``'s; ``gen`` this process's
+    ``GEN`` (the parent's ``decode_steps``)."""
     import torch
 
     from repro_torch.launch.train import _train_rank
+
+    global GEN
+    if gen is not None:
+        GEN = gen
 
     entered = time.time()
     out = rec_child(mesh, cfg32, shards, rows, serve_cli, config, plant,
                     impl, plan)
     out["entered"] = entered
     free(torch)
+    if extra is not None:
+        t0 = time.perf_counter()
+        out["extra"] = extra(mesh, rows, plan, train_wholes["train"])
+        free(torch)
+        out["stages_s"]["extra runs"] = time.perf_counter() - t0
     runs = [("train", train_config(), REC_TRAIN_STEPS,
              functools.partial(tp_train_child, steps=REC_TRAIN_STEPS))] + [
         (key, gate_config(), F32_PROC_STEPS, functools.partial(
             f32_proc_child, want=wants[key], plant=gate_plant, batch=batch,
-            noise_unit=noise_unit, seq=seq))
+            noise_unit=noise_unit, seq=seq, fault_peers=fault_peers))
         for key, gate_config, gate_plant, _ in gates]
     for key, cfg, steps, hook in runs:
         t0 = time.perf_counter()
-        res = _train_rank(mesh, cfg, [stack_params(torch, cfg, train=True)],
+        params = stack_params(torch, cfg, train=True) \
+            if train_wholes is None else train_wholes[key]
+        res = _train_rank(mesh, cfg, [params],
                           proc_data(cfg, batch, seq),
                           proc_train_options(steps), steps, True, None,
                           hook=hook)
@@ -7915,6 +8004,524 @@ def phase_rec(torch, kernels):
     return serving, train, summary
 
 
+# -- phase 15: sequence parallelism and FSDP on one process per rank ----------
+
+@contextlib.contextmanager
+def decode_steps(n):
+    """``GEN`` at ``n + 1`` (the prompt pass's token and ``n`` decode
+    steps) while active, in this process."""
+    global GEN
+    was, GEN = GEN, n + 1
+    try:
+        yield
+    finally:
+        GEN = was
+
+
+def spf_config(arch, layers, **over):
+    """A phase 15 arch at its published widths, ``layers`` deep."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch, n_layers=layers, **over)
+
+
+class NeighbourChunk:
+    """While active, ``tp.scatter_seq`` keeps the next process's sequence
+    chunk of the sum in place of its own (phase 15 (a)'s serving
+    fault)."""
+
+    def __init__(self):
+        from repro_torch.models import tp
+        self.tp = tp
+
+    def __enter__(self):
+        self.real = real = self.tp.scatter_seq
+
+        def shifted(sp, x):
+            return real(sp, x.roll(-sp.chunk, 1))
+        self.tp.scatter_seq = shifted
+        return self
+
+    def __exit__(self, *exc):
+        self.tp.scatter_seq = self.real
+
+
+class NeighbourSlices:
+    """While active, ``fsdp.fsdp_gather`` joins the peers' slices of a leaf
+    rolled by one slice (phase 15 (b)'s serving fault)."""
+
+    def __init__(self):
+        from repro_torch.models import fsdp
+        self.fsdp = fsdp
+
+    def __enter__(self):
+        self.real = real = self.fsdp.fsdp_gather
+
+        def rolled(mesh, w, dim, axes):
+            return real(mesh, w, dim, axes).roll(w.shape[dim], dim)
+        self.fsdp.fsdp_gather = rolled
+        return self
+
+    def __exit__(self, *exc):
+        self.fsdp.fsdp_gather = self.real
+
+
+@contextlib.contextmanager
+def norms_unsummed():
+    """Phase 15 (a)'s training fault: under SP the sync leaving the
+    gradients of the leaves used on a sequence chunk (the norms) as each
+    process's chunk's part, unsummed over "model"."""
+    from repro_torch.launch import train
+
+    real = train._sum_seq_partial
+    train._sum_seq_partial = lambda grads, mesh, names: grads
+    try:
+        yield
+    finally:
+        train._sum_seq_partial = real
+
+
+@contextlib.contextmanager
+def fsdp_bwd_unsummed():
+    """Phase 15 (b)'s training fault: ``fsdp_gather``'s backward keeping
+    this process's slice of its own gradient, without the sum over the
+    FSDP peers."""
+    from repro_torch.models import fsdp
+
+    real = fsdp._FsdpGather.backward
+
+    def own(ctx, g):
+        mesh, j = ctx.mesh, 0
+        for a in ctx.axes:
+            j = j * mesh.axis_size(a) + \
+                mesh.rank_coords[mesh.axis_names.index(a)]
+        n = mesh.axis_size(ctx.axes)
+        return None, g.chunk(n, ctx.dim)[j].contiguous(), None, None
+    fsdp._FsdpGather.backward = staticmethod(own)
+    try:
+        yield
+    finally:
+        fsdp._FsdpGather.backward = staticmethod(real)
+
+
+def spf_identity(mesh, rows, plan, whole):
+    """Phase 15 (a)'s bit-identity runs, in each process: the 1-layer
+    model ``whole`` (the parent's, shared through CUDA IPC) cut for SP +
+    FSDP and for the same mesh's TP with neither knob, the prompt pass of
+    this process's ``rows`` through the plan in f32 and in bf16: the
+    logits and the caches of the two cuts, bit for bit."""
+    import torch
+
+    from repro_torch.convert import recast, shard_module
+    from repro_torch.launch.serve import make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        got = {}
+        for knobs in (True, False):
+            cfg = spf_config(SPF_ARCH, 1, compute_dtype=dt,
+                             seq_shard_activations=knobs, fsdp=knobs)
+            shard = recast(shard_module(whole, cfg, mesh), cfg)
+            prefill = make_prefill_step(cfg, mesh, "plan", plan,
+                                        cache_len=rows.shape[1] + 1,
+                                        device=DEVICE)
+            with torch.no_grad():
+                logits, cache = prefill(shard, {"tokens": rows})
+            got[knobs] = (logits, cache)
+            del shard
+        (a, ca), (b, cb) = got[True], got[False]
+        out[dt] = {"logits_equal": bool(torch.equal(a, b)),
+                   "logits_max_abs": float((a.float() - b.float()).abs()
+                                           .max()),
+                   "cache_equal": all(torch.equal(x[k], y[k])
+                                      for x, y in zip(ca, cb) for k in x)}
+        del got
+        free(torch)
+    return out
+
+
+def spf_states(outs, shape, cfg, replicas):
+    """The processes' prefill caches put together, one ``{dotted path:
+    tensor}`` a layer: each DP rank's model peers' by kv head
+    (``whole_kv_heads``, which raises where replicas differ) or, with
+    ``replicas`` (the model peers hold every head), one peer's after
+    checking the others' bit for bit; the DP ranks' rows joined."""
+    import torch
+
+    from repro_torch.launch.shardings import whole_kv_heads
+
+    groups = {}
+    for o in sorted(outs, key=lambda o: o["coords"][2]):
+        groups.setdefault(dp_index(o["coords"], shape), []).append(o)
+    layers = []
+    for i in range(len(outs[0]["cache"])):
+        parts = []
+        for _, g in sorted(groups.items()):
+            caches = [o["cache"][i] for o in g]
+            if replicas:
+                for c in caches[1:]:
+                    if any(not torch.equal(c[k], caches[0][k]) for k in c):
+                        raise AssertionError(f"layer {i}: a model peer's "
+                                             f"cache differs")
+                parts.append(flat_tree(caches[0]))
+            else:
+                parts.append(flat_tree(whole_kv_heads(caches, cfg)))
+        layers.append({k: torch.cat([p[k] for p in parts])
+                       for k in parts[0]})
+    return layers
+
+
+def spf_serve_check(torch, ctx, res, shape, batch, label, replicas):
+    """Phase 15's serving gates (``rec_serve_check``'s, each DP rank's
+    rows served by its model peers): f32 within 1e-4 of the stacked
+    oracle, tokens equal, routing apart only at near ties, the caches put
+    together (``spf_states``) within 1e-5 of the oracle's layer on the
+    processes' own input of it, the planted fault refused; bf16 launches
+    equal, tokens and the residual stream (the whole sequence under SP)
+    bit-identical on model peers, tokens held to the witness.  Returns
+    rank 0's launch counts and a summary."""
+    cfg, loc32, loc, wit = ctx["cfg"], ctx["loc32"], ctx["loc"], ctx["wit"]
+    summary = ctx["summary"]
+    summary["used_gb"].update(res.get("card_used_gb", {}))
+    outs = sorted(res["ranks"], key=lambda o: (dp_index(o["coords"], shape),
+                                               o["coords"][2]))
+    firsts = [o for o in outs if o["coords"][2] == 0]
+    err32 = rel_err(torch, res["logits"][0], loc32["logits"].cpu())
+    same32 = bool(torch.equal(res["tokens"], loc32["tokens"].cpu()))
+    got = spf_states(outs, shape, cfg, replicas)
+    stack = state_errs(torch, got, ctx["want_cache"], label)
+    layers = state_errs(torch, got, layer_oracle_states(
+        torch, outs, shape, ctx["cfg32"], ctx["prompts"].shape[1] + GEN,
+        False), label)
+    state_err, stack_err = max(layers.values()), max(stack.values())
+    fault = rel_err(torch, rec_rows(outs, shape, lambda o: o["fault"],
+                                    False, cfg.vocab),
+                    loc32["logits"].cpu())
+    routes32 = [torch.cat([o["routes32"][i] for o in firsts])
+                for i in range(len(loc32["routes"]))]
+    flips, n_dec, tie = near_tie_flips(torch, loc32["routes"], routes32,
+                                       loc32["margins"], batch) \
+        if loc32["routes"] else (0, 0, 0.0)
+    log(f"{label}[f32]: serve_procs' prompt-pass logits gathered, max rel "
+        f"diff {err32:.3e} against LocalMesh (limit 1e-4); greedy tokens of "
+        f"the prompt pass and {GEN - 1} steps equal {same32}; "
+        + (f"{flips} of {n_dec} routing decisions differ, each sequence's "
+           f"first at an oracle margin of at most {tie:.3e} (limit "
+           f"{NEAR_TIE}); " if n_dec else "")
+        + f"the caches put together ({'one model peer of each DP rank, '
+        'the others bit-identical' if replicas else 'by kv head over the '
+        'model peers, the replicas bit-identical'}), each layer on "
+        f"identical inputs within {state_err:.3e} of the oracle's (limit "
+        f"1e-5); the whole stack's against the oracle's prompt pass "
+        f"(reported): {stack_err:.3e}; under the planted fault the logits "
+        f"lie {fault:.3e} apart: the gate (1e-4) "
+        f"{'refuses' if fault > 1e-4 else 'PASSES'} it")
+    if not (err32 < 1e-4 and same32 and state_err <= 1e-5
+            and tie <= NEAR_TIE):
+        raise AssertionError(f"{label}: f32 prompt pass {err32}, tokens "
+                             f"equal {same32}, states {state_err}, routing "
+                             f"tie {tie}")
+    if not fault > 1e-4:
+        raise AssertionError(f"{label}: the planted fault passes the f32 "
+                             f"gate ({fault})")
+    summary["f32"] = {"max_rel_diff": err32, "tokens_equal": same32,
+                      "state_rel_diff": state_err,
+                      "stack_state_rel_diff": stack_err,
+                      "routing_differs": flips,
+                      "first_difference_margin": tie,
+                      "planted_fault_rel_diff": fault}
+    want_l = run_counts(loc)
+    check_tp_launches(outs, want_l, label)
+    if cfg.moe is not None and not all(
+            want_l["prefill"][k] for k in ("grouped_matmul", "flash_attention",
+                                           "a2a_pack", "a2a_unpack")):
+        raise AssertionError(f"{label}: the oracle launched "
+                             f"{want_l['prefill']} in its prefill")
+    check_peers(outs, lambda o: o["serve"]["tokens"].tolist(), label,
+                "the greedy tokens")
+    check_peers(outs, lambda o: o["stream"], label,
+                "the residual stream's digest")
+    logits = rec_rows(outs, shape, lambda o: o["serve"]["logits"], False,
+                      cfg.vocab)
+    tokens = rec_rows(outs, shape, lambda o: o["serve"]["tokens"], False)
+    w_routes = [e.cpu() for e in wit["routes"]]
+    routes = [torch.cat([o["serve"]["routes"][i] for o in firsts])
+              for i in range(len(w_routes))]
+    n_flip, n_bf, _, per_seq = route_flips(torch, w_routes, routes, batch) \
+        if w_routes else (0, 0, [], torch.zeros(batch, dtype=torch.bool))
+    w = summary["witness"] = witness_tokens(torch, wit, loc, tokens, logits,
+                                            per_seq)
+    w.update(routing_differs=n_flip, sequences_routed_apart=int(
+        per_seq.sum()))
+    log(f"{label}[bf16]: every process launched each kernel as often as the "
+        f"oracle in its prefill ({want_l['prefill']}) and decode; the "
+        f"residual stream (the whole sequence) and the greedy tokens "
+        f"bit-identical on model peers; against the "
+        + ("plain oracle (no TP under pure_dp)" if replicas else
+           "witness (the oracle with TP rounding of the row-parallel "
+           "products alone)")
+        + f": prompt-pass logits max rel diff {w['logits_rel_diff']:.3e} "
+        f"(bit-identical {w['logits_equal']}); "
+        + (f"routing differs in {n_flip} of {n_bf} decisions, "
+           f"{w['sequences_routed_apart']} sequences apart (limit "
+           f"{PROC_BF16_APART_MAX}); " if n_bf else "")
+        + f"greedy tokens equal in {w['sequences_same_tokens']} of {batch} "
+        f"(the plain oracle's in {w['oracle_sequences_same_tokens']}); "
+        f"each sequence whose tokens differ (sequence, step, gap): "
+        f"{w['token_gaps']} (limit {BF16_TOKEN_TIE}; one planted at the "
+        f"median gap reads {w['planted_token_gap']:.3e})")
+    check_witness_tokens(label, w)
+    if not w["sequences_routed_apart"] <= PROC_BF16_APART_MAX:
+        raise AssertionError(f"{label}: {w['sequences_routed_apart']} "
+                             f"sequences routed apart in bf16")
+    tp_report(outs, summary, label)
+    for o, r in zip(outs, summary["ranks"]):
+        r["shard_gb"] = o["shard_gb"]
+        log(f"{label}[rank {o['rank']}]: traced prompt pass "
+            f"{o['shares']['host_ms']:.3f} ms, each collective's share: "
+            + ", ".join(f"{k} {v['share']:.4f} ({v['calls']})"
+                        for k, v in o["shares"]["spans"].items()))
+    r0 = next(o for o in outs if o["rank"] == 0)
+    return {"prefill": r0["serve"]["prefill_launches"],
+            "decode": r0["serve"]["decode_launches"]}, summary
+
+
+def spf_train_check(torch, oracle, outs, metrics, cfg, shape, batch, seq,
+                    label):
+    """Phase 15's bf16 training gates: each process's launches each step
+    equal to the stacked oracle's, the gradients of the leaves replicated
+    over "model" bit-identical on model peers, losses within 2e-2.
+    Returns rank 0's launches over its steps and a summary."""
+    for o in outs:
+        if o["launches"] != oracle["launches"]:
+            raise AssertionError(f"{label}: rank {o['rank']} launched "
+                                 f"{o['launches']}; the oracle "
+                                 f"{oracle['launches']}")
+    check_peers(outs, lambda o: o["replicated"], label,
+                "a gradient of a leaf replicated over 'model'")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(metrics, oracle["metrics"])]
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layer(s)) at its published "
+        f"widths on a {shape} mesh of {ranks_of(shape)} processes "
+        f"({PROC_BACKEND}); {batch} x {seq} tokens a step, "
+        f"{REC_TRAIN_STEPS} AdamW steps: every process launched each "
+        f"kernel as often as the oracle each step ({oracle['launches']}); "
+        f"the gradients of the {len(outs[0]['replicated'][0])} leaves "
+        f"replicated over 'model' bit-identical on model peers every step; "
+        f"step losses {[round(m['loss'], 6) for m in metrics]} against the "
+        f"oracle's, relative differences {[f'{d:.3e}' for d in diffs]} "
+        f"(limit 2e-2); the oracle's step 0 {oracle['step_ms'][0]:.1f} ms, "
+        f"peak {oracle['peak_gb']:.2f} GB; {TP_LABEL}")
+    if not max(diffs) < 2e-2:
+        raise AssertionError(f"{label}: step losses against the oracle "
+                             f"{diffs}")
+    summary = {"oracle": {"step_ms": oracle["step_ms"],
+                          "peak_gb": oracle["peak_gb"]},
+               "loss_diffs": diffs, "ranks": []}
+    for o in outs:
+        ms = o["train"]["step_ms"]
+        r = {"rank": o["rank"], "coords": list(o["coords"]), "step_ms": ms,
+             "peak_gb": o["peak_gb"], "card_gb": max(o["card_gb"]),
+             "shard_gb": o["shard_gb"], **o["trace"]}
+        summary["ranks"].append(r)
+        log(f"{label}[rank {o['rank']} {tuple(o['coords'])}]: step ms "
+            f"{[round(x, 3) for x in ms]} (the last traced); peak "
+            f"{o['peak_gb']:.2f} GB (f32 shard {o['shard_gb']:.2f} GB, "
+            f"with its moments {3 * o['shard_gb']:.2f} GB); the card "
+            f"{r['card_gb']:.2f} GB in use; traced step {r['host_ms']:.3f} "
+            f"ms: gradient sync {r['sync_share']:.4f}, each collective: "
+            + ", ".join(f"{k} {v['share']:.4f} ({v['calls']})"
+                        for k, v in r["spans"].items()))
+    counts = {k: sum(step[k] for step in outs[0]["launches"])
+              for k in outs[0]["launches"][0]}
+    return counts, summary
+
+
+def spf_check_identity(outs, label):
+    """Phase 15 (a)'s bit-identity gate: every process's 1-layer prompt
+    pass with SP + FSDP bit for bit the knob-free TP run's, in f32 and
+    bf16, logits and caches."""
+    for dt in ("float32", "bfloat16"):
+        got = [o["extra"][dt] for o in outs]
+        log(f"{label}[identity {dt}]: 1 layer, the prompt pass with SP + "
+            f"FSDP against the same mesh's TP with neither knob in the "
+            f"same processes: logits bit-identical on "
+            f"{sum(g['logits_equal'] for g in got)} of {len(got)} "
+            f"processes (largest difference "
+            f"{max(g['logits_max_abs'] for g in got):.3e}), caches on "
+            f"{sum(g['cache_equal'] for g in got)}")
+        if not all(g["logits_equal"] and g["cache_equal"] for g in got):
+            raise AssertionError(f"{label}: SP + FSDP's {dt} prompt pass "
+                                 f"is not the TP run's bits: {got}")
+    return {dt: all(o["extra"][dt]["logits_equal"] for o in outs)
+            for dt in ("float32", "bfloat16")}
+
+
+def phase_spf_cell(torch, kernels, key, config, shape, prompt_shape, plant,
+                   train_config, train_shape, gate, impl, replicas,
+                   identity=False, steps=GEN - 1):
+    """One cell of phase 15: ``config()`` served on the processes of
+    ``shape`` and ``train_config()`` trained there with the f32 gate
+    ``gate`` ((f32 config, planted fault, its name)), in one spawn
+    (``rec_cell_child`` on the 1-layer trainable model the parent makes
+    from the seed, shared through CUDA IPC; with ``identity`` also
+    ``spf_identity`` on it), against the stacked oracles of its DP shape;
+    ``steps`` decode steps.  Returns the serving launches, the training's
+    and a summary."""
+    with decode_steps(steps):
+        return spf_cell(torch, kernels, key, config, shape, prompt_shape,
+                        plant, train_config, train_shape, gate, impl,
+                        replicas, identity)
+
+
+def spf_cell(torch, kernels, key, config, shape, prompt_shape, plant,
+             train_config, train_shape, gate, impl, replicas, identity):
+    """``phase_spf_cell``'s run, ``GEN`` set."""
+    from repro_torch.launch.serve import flash_plan, serve_procs
+    from repro_torch.launch.shardings import named_params
+
+    (batch, prompt), (tbatch, tseq) = prompt_shape, train_shape
+    label, tlabel = f"spf[{key}]", f"spf[{key} train]"
+    t0 = time.perf_counter()
+    plan = flash_plan(shape[0], shape[1], SEED) if impl == "plan" else None
+    # the witness: TP's rounding over "model" (SP's bits being TP's), or
+    # the plain oracle where the model peers are replicas (no TP)
+    ctx = rec_oracles(torch, kernels, config, shape, batch, prompt, impl,
+                      plan, pure_dp=replicas)
+    cfg = ctx["cfg"]
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers) at its published "
+        f"widths on a {shape} mesh of {ranks_of(shape)} processes "
+        f"({PROC_BACKEND}), seq_shard_activations "
+        f"{cfg.seq_shard_activations}, fsdp {cfg.fsdp}, pure_dp "
+        f"{cfg.pure_dp}; {batch} requests of {prompt} tokens and {GEN - 1} "
+        f"decode steps" + (f" through the {impl}" if impl else "")
+        + f"; {TP_LABEL}")
+    tcfg = train_config()
+    oracle = local_oracle(torch, tcfg, tbatch, tseq, REC_TRAIN_STEPS,
+                          kernels, shape=shape[:2] + (1,))
+    gate_config, gate_plant, gate_name = gate
+    oracle32, want = f32_gate_oracle(torch, kernels, gate_config(), tbatch,
+                                     tseq, shape)
+    wholes = {"train": {k: v.detach() for k, v in named_params(
+        stack_params(torch, tcfg, train=True)).items()}}
+    gcfg = gate_config()
+    # one model for both where the f32 gate's has the bf16 run's depth
+    wholes["f32"] = wholes["train"] if gcfg.n_layers == tcfg.n_layers \
+        else {k: v.detach() for k, v in named_params(
+            stack_params(torch, gcfg, train=True)).items()}
+    whole_gb = sum(t.numel() * t.element_size()
+                   for t in wholes["train"].values()) / 1e9
+    t_oracles = time.perf_counter() - t0
+    holder = [ctx.pop("params32")]
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0, wall0 = time.perf_counter(), time.time()
+    res = serve_procs(
+        ctx["cfg32"], holder, ctx["prompts"], shape, PROC_BACKEND, DEVICE,
+        impl, plan, GEN,
+        hook=functools.partial(
+            rec_cell_child, config=config, plant=plant, impl=impl,
+            plan=plan, train_config=train_config,
+            gates=[("f32", gate_config, gate_plant, gate_name)],
+            batch=tbatch, seq=tseq, noise_unit="dp", wants={"f32": want},
+            train_wholes=wholes, extra=spf_identity if identity else None,
+            fault_peers=True, gen=GEN),
+        timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    t_procs, wall1 = time.perf_counter() - t0, time.time()
+    del os.environ["PYTORCH_CUDA_ALLOC_CONF"], want, wholes
+    free(torch)
+    torch.cuda.ipc_collect()
+    ranks = res["ranks"]
+    r0 = next(o for o in ranks if o["rank"] == 0)
+    serving, summary = spf_serve_check(torch, ctx, res, shape, batch, label,
+                                       replicas)
+    if identity:
+        summary["bit_identical_to_tp"] = spf_check_identity(ranks, label)
+    counts, summary["train"] = spf_train_check(
+        torch, oracle, [o["train"] for o in ranks], r0["train_metrics"],
+        tcfg, shape, tbatch, tseq, tlabel)
+    shard_gb = [o["train"]["shard_gb"] for o in ranks]
+    summary["train"]["whole_gb"] = whole_gb
+    log(f"{tlabel}: each process holds {min(shard_gb):.3f} to "
+        f"{max(shard_gb):.3f} GB of f32 parameters and twice that in AdamW "
+        f"moments; the same model without FSDP and "
+        + ("SP (the TP shard of each process: the whole's 1 / "
+           f"{shape[2]} and more)" if not replicas else
+           "(pure_dp: the whole on every process)")
+        + f": the whole holds {whole_gb:.3f} GB, {3 * whole_gb:.3f} GB "
+        f"with its moments")
+    summary["train"]["f32"] = f32_gate_check(
+        torch, oracle32, [o["f32"] for o in ranks], r0["f32_metrics"], shape,
+        tlabel, gate_name, tbatch, tseq, gate_config(), "dp")
+    # the faulty step's replicated gradients must also part model peers
+    try:
+        check_peers([o["f32"] for o in ranks], lambda o: o["fault_peers"],
+                    tlabel, "a faulty step's gradient of a leaf replicated "
+                    "over 'model'")
+        apart = False
+    except AssertionError:
+        apart = True
+    log(f"{tlabel}[f32 planted fault]: {gate_name}: the faulty step's "
+        f"gradients of the leaves replicated over 'model' "
+        f"{'differ between model peers: the peers gate refuses it' if apart else 'bit-identical on model peers'}")
+    if replicas is False and not apart:
+        raise AssertionError(f"{tlabel}: under the planted fault the model "
+                             f"peers' replicated gradients stay equal")
+    summary["train"]["f32"]["fault_parts_model_peers"] = apart
+    summary["oracles_s"], summary["processes_s"] = t_oracles, t_procs
+    summary["rank0_stages_s"] = r0["stages_s"]
+    start = max(o["entered"] for o in ranks) - wall0
+    end = wall1 - max(o["left"] for o in ranks)
+    summary["start_s"], summary["end_s"] = start, end
+    log(f"phase spf[{key}]: oracles {t_oracles:.1f} s, the processes "
+        f"{t_procs:.1f} s: the last to hold its shard after {start:.1f} s, "
+        f"the spawn returned {end:.1f} s after the last finished (rank 0 "
+        f"from its shard on: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r0["stages_s"].items()) + ")")
+    return serving, counts, summary
+
+
+def phase_spf(torch, kernels):
+    """Phase 15: sequence parallelism and FSDP on one process per rank.
+    (a) megatron-moe-32e with SP + FSDP on (1, 2, 4), served through the
+    plan and trained, and a 1-layer prompt pass bit for bit the same
+    mesh's TP run without either knob; (b) qwen3-0.6b with ``pure_dp`` +
+    FSDP on (1, 2, 2), served and trained.  Returns the serving launches
+    by path, the training's and a summary."""
+    both = {"seq_shard_activations": True, "fsdp": True}
+    pure = {"pure_dp": True, "fsdp": True}
+    f32 = {"compute_dtype": "float32"}
+    cells = (
+        ("a", SPF_PATH, SPF_TRAIN_PATH,
+         functools.partial(spf_config, SPF_ARCH, SPF_LAYERS, **both),
+         SPF_MESH, (SPF_BATCH, SPF_PROMPT), NeighbourChunk,
+         functools.partial(spf_config, SPF_ARCH, 1, **both), SPF_TRAIN,
+         (functools.partial(spf_config, SPF_ARCH, 1, **both, **f32),
+          norms_unsummed, "under SP the sync leaving the norms' "
+          "chunk-partial gradients unsummed over 'model'"),
+         "plan", False, True, GEN - 1),
+        ("b", FSDP_PATH, FSDP_TRAIN_PATH,
+         functools.partial(spf_config, FSDP_ARCH, FSDP_LAYERS, **pure),
+         FSDP_MESH, (FSDP_BATCH, FSDP_PROMPT), NeighbourSlices,
+         functools.partial(spf_config, FSDP_ARCH, FSDP_LAYERS, **pure),
+         FSDP_TRAIN,
+         (functools.partial(spf_config, FSDP_ARCH, 1, **pure, **f32),
+          fsdp_bwd_unsummed, "fsdp_gather's backward keeping this "
+          "process's slice of its own gradient, unsummed over its FSDP "
+          "peers"),
+         None, True, False, FSDP_STEPS))
+    summary, serving, train = {}, {}, {}
+    for (key, path, train_path, config, shape, prompts, plant, tcfg,
+         tshape, gate, impl, replicas, identity, steps) in cells:
+        t0 = time.perf_counter()
+        serving[path], train[train_path], summary[key] = phase_spf_cell(
+            torch, kernels, key, config, shape, prompts, plant, tcfg, tshape,
+            gate, impl, replicas, identity, steps)
+        summary[key]["cell_s"] = time.perf_counter() - t0
+        free(torch)
+    return serving, train, summary
+
+
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
                 "flash_attention mixtral-8x7b long prefill": 1.5,
@@ -8092,6 +8699,14 @@ def main() -> int:
     launches.update(rec_launches)
     log(f"phase rec: {time.perf_counter() - t0:.1f} s; {json.dumps(rec)}")
 
+    # 15. sequence parallelism and FSDP on one process per rank:
+    # megatron-moe-32e with both on (1, 2, 4), qwen3-0.6b with pure_dp and
+    # FSDP on (1, 2, 2), served and trained
+    t0 = time.perf_counter()
+    spf_launches, spf_train_launches, spf = phase_spf(torch, kernels)
+    launches.update(spf_launches)
+    log(f"phase spf: {time.perf_counter() - t0:.1f} s; {json.dumps(spf)}")
+
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for
     # pack and unpack, which training does not launch: the main path of
@@ -8125,7 +8740,8 @@ def main() -> int:
         for path, counts in head_train_launches.items():
             by_path[f"{path} ({HEAD_TRAIN_STEPS} steps, rank 0)"] = \
                 counts[name]
-        for path, counts in rec_train_launches_.items():
+        for path, counts in list(rec_train_launches_.items()) + list(
+                spf_train_launches.items()):
             by_path[f"{path} ({REC_TRAIN_STEPS} steps, rank 0)"] = \
                 counts[name]
         for path, counts in stack_launches.items():

@@ -153,13 +153,13 @@ def shard_module(params: Any, cfg: ModelConfig, mesh,
     ``models/tp.py`` and ``models/ssm.py`` run them), and keeps whole each
     leaf whose dim "model" does not divide (``_drop_uneven``), for every
     family; under ``pure_dp`` every leaf but an expert stack's EP dim is
-    whole.  ``_check_tp`` raises for what is not ported
-    (``seq_shard_activations``, FSDP, ``pure_dp`` with FSDP)."""
+    whole.  Under FSDP each leaf of two or more dims is also cut over the
+    intra-pod DP axes (per layer: ``module_specs``), which
+    ``models/fsdp.py`` gathers before use."""
     from .launch.shardings import module_specs, named_params, shard_tensor
 
     dev = mesh.device if device is None else resolve_device(device)
     named = named_params(params)
-    _check_tp(cfg, mesh)
     specs = module_specs(cfg, mesh, named)
     local = {}
     with torch.no_grad():
@@ -167,26 +167,6 @@ def shard_module(params: Any, cfg: ModelConfig, mesh,
             local[k] = shard_tensor(v.detach(), specs[k], mesh).to(
                 device=dev, copy=True).contiguous()
         return _assign(_shell(cfg, train), local, dev)
-
-
-def _check_tp(cfg: ModelConfig, mesh) -> None:
-    """Raise a ``ValueError`` naming what is not ported when ``mesh`` has a
-    "model" axis above 1 that ``cfg`` cannot run on:
-    ``seq_shard_activations`` and FSDP (``pure_dp`` with FSDP included,
-    which the FSDP clause names)."""
-    if "model" not in mesh.axis_names or mesh.axis_size("model") == 1:
-        return
-    why = None
-    if cfg.seq_shard_activations:
-        why = ("seq_shard_activations (activations sharded over 'model' "
-               "along the sequence) is not ported")
-    elif cfg.fsdp:
-        why = ("FSDP on a process mesh (parameters and moments sharded "
-               "over the data axes" + (", with pure_dp" if cfg.pure_dp
-                                       else "") + ") is not ported")
-    if why:
-        shape = dict(zip(mesh.axis_names, mesh.shape))
-        raise ValueError(f"{cfg.name} on mesh {shape}: {why}")
 
 
 def recast(params: Any, cfg: ModelConfig, device: Optional[Any] = None,

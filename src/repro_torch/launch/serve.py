@@ -72,6 +72,14 @@ together, as the reference's):
         --arch megatron-moe-32e --smoke --device cpu --mesh 1,2,2 \\
         --pure-dp --procs --backend gloo
 
+``--seq-shard`` and ``--fsdp`` serve the same tokens with sequence
+parallelism (the prompt pass's residual on a sequence chunk) and FSDP
+(every weight gathered at each use, decode steps included):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch megatron-moe-32e --smoke --device cpu --mesh 1,2,2 --procs \\
+        --backend gloo --seq-shard --fsdp --prompt-len 7
+
 In code, ``serve_procs`` also serves an encoder-decoder (whisper-tiny,
 given its ``frames`` in ``extras``) and the vision stub's
 ``patch_embeds``; the demo below feeds token prompts alone and refuses
@@ -457,6 +465,14 @@ def main(argv=None):
     ap.add_argument("--pure-dp", action="store_true",
                     help="the config's pure_dp: weights replicated, the "
                          "prompts cut over every mesh axis")
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="the config's seq_shard_activations: the residual "
+                         "stream on a sequence chunk between the TP regions "
+                         "(with --procs and a MODEL above 1)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="the config's fsdp: each weight stored over the "
+                         "intra-pod DP axes, gathered before use (with "
+                         "--procs)")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -472,6 +488,10 @@ def main(argv=None):
         over["n_layers"] = args.n_layers
     if args.pure_dp:
         over["pure_dp"] = True
+    if args.seq_shard:
+        over["seq_shard_activations"] = True
+    if args.fsdp:
+        over["fsdp"] = True
     cfg = dataclasses.replace(cfg, **over) if over else cfg
     device = resolve_device(args.device)
     if args.procs and not (args.mesh and args.backend):

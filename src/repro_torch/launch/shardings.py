@@ -57,6 +57,7 @@ the peers that share one where the reference shards ``n``'s ``dh``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -70,7 +71,7 @@ from .mesh import ProcessMesh, all_gather
 __all__ = ["param_specs", "batch_specs", "cache_specs", "state_specs",
            "spec_tree", "param_tree", "cache_tree", "module_specs",
            "shard_tensor", "gather_tensor", "tree_map_with_path",
-           "flatten_with_path", "named_params", "sharded_axes",
+           "flatten_with_path", "named_params", "sharded_axes", "fsdp_layout",
            "whole_kv_heads", "whole_states"]
 
 Spec = Tuple[Any, ...]
@@ -396,24 +397,53 @@ def spec_tree(specs: Any) -> Any:
 def module_specs(cfg: ModelConfig, mesh, params) -> Dict[str, Spec]:
     """``{parameter name: spec}`` for a port module's own (per-layer)
     parameters (or its ``{name: tensor}``): ``param_specs`` of its
-    reference-layout tree, a scanned
-    stack's spec without its layer entry.  Raises where the reference
-    shards the layer axis (FSDP on a stack), which per-layer modules
-    cannot hold."""
+    reference-layout tree, a scanned stack's spec without its layer entry.
+    Under FSDP, where the reference's rule shards a scanned stack's layer
+    axis (its first free dim), per-layer modules apply the rule to each
+    layer's own leaf instead: ``param_specs`` of the unscanned config
+    (each process holds ``1 / D`` of every layer, the reference's bytes)."""
+    if cfg.fsdp:
+        cfg = dataclasses.replace(cfg, scan_layers=False)
     flat = flatten_with_path(param_specs(cfg, mesh, param_tree(params, cfg)))
     out = {}
     for name in named_params(params):
         path = tuple(int(p) if p.isdigit() else p for p in name.split("."))
         if cfg.scan_layers and path[0] == "blocks":
-            spec = flat[("blocks",) + path[2:]]
-            if spec and spec[0] is not None:
-                raise ValueError(f"{name}: the reference shards the layer "
-                                 f"axis ({spec}); per-layer modules cannot")
-            spec = spec[1:]
+            # without FSDP no rule gives the layer axis an entry
+            spec = flat[("blocks",) + path[2:]][1:]
         else:
             spec = flat[path]
         out[name] = spec
     return out
+
+
+_FSDP_LAYOUTS: Dict[tuple, Dict[str, Tuple[int, Tuple[str, ...]]]] = {}
+
+
+def fsdp_layout(cfg: ModelConfig, mesh
+                ) -> Dict[str, Tuple[int, Tuple[str, ...]]]:
+    """``{parameter name: (dim, axes)}`` of every leaf that FSDP stores
+    sliced over ``axes`` (of size above 1) along ``dim`` on ``mesh``: the
+    entry ``module_specs`` adds with ``cfg.fsdp`` (``models/fsdp.py``
+    gathers these); empty without FSDP."""
+    if not cfg.fsdp:
+        return {}
+    key = (cfg, tuple(mesh.shape), tuple(mesh.axis_names))
+    got = _FSDP_LAYOUTS.get(key)
+    if got is None:
+        from ..models import build_model
+
+        module = build_model(cfg, "meta").init(torch.Generator())
+        with_ = module_specs(cfg, mesh, module)
+        without = module_specs(dataclasses.replace(cfg, fsdp=False), mesh,
+                               module)
+        got = {}
+        for name, spec in with_.items():
+            for dim, (a, b) in enumerate(zip(spec, without[name])):
+                if a != b and mesh.axis_size(_axes(a)) > 1:
+                    got[name] = (dim, _axes(a))
+        _FSDP_LAYOUTS[key] = got
+    return got
 
 
 # shards ---------------------------------------------------------------------

@@ -72,6 +72,15 @@ over every axis, the reference's knob for small models:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch megatron-moe-32e --smoke --device cpu --mesh 1,2,2 \\
         --pure-dp --procs --backend gloo --batch 8 --seq 16 --steps 2
+
+``--seq-shard`` (the config's ``seq_shard_activations``: the residual
+stream on a sequence chunk between the TP regions) and ``--fsdp`` (each
+weight stored over the intra-pod DP axes and gathered before use) take
+the same steps, apart or together, with ``--pure-dp`` too:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen3-0.6b --smoke --device cpu --mesh 1,2,2 --procs \\
+        --backend gloo --fsdp --seq-shard --batch 4 --seq 16 --steps 2
 """
 
 from __future__ import annotations
@@ -128,6 +137,11 @@ def make_dist_context(cfg: ModelConfig, mesh,
     if impl == "plan" and plan is None:
         raise ValueError('a2a_impl="plan" needs a synthesized plan; pass '
                          "plan=")
+    fsdp = None
+    if cfg.fsdp and isinstance(mesh, ProcessMesh):
+        from .shardings import fsdp_layout
+
+        fsdp = fsdp_layout(cfg, mesh)
     return DistContext(
         mesh=mesh,
         dp_axes=dp_axes(mesh),
@@ -137,6 +151,8 @@ def make_dist_context(cfg: ModelConfig, mesh,
         plan=plan,
         use_kernel=use_kernel,
         pure_dp=cfg.pure_dp,
+        seq_shard=cfg.seq_shard_activations,
+        fsdp=fsdp,
     )
 
 
@@ -212,6 +228,33 @@ def _batch_axes(cfg: ModelConfig, mesh) -> Tuple[str, ...]:
     return dp_axes(mesh)
 
 
+def _seq_partial_leaves(cfg: ModelConfig, mesh, names) -> Tuple[str, ...]:
+    """Under sequence parallelism (``seq_shard_activations`` with TP over
+    "model") the leaves each process uses on its sequence chunk alone, so
+    that its gradient is its tokens' part: the norms' ``scale`` and
+    ``bias`` and the MLP's ``b_down`` (added after the chunk's sum).  Empty
+    without SP."""
+    if not cfg.seq_shard_activations or cfg.pure_dp \
+            or "model" not in mesh.axis_names \
+            or mesh.axis_size("model") == 1:
+        return ()
+    return tuple(k for k in names
+                 if k.rsplit(".", 1)[-1] in ("scale", "bias", "b_down"))
+
+
+def _sum_seq_partial(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
+                     names) -> Dict[str, torch.Tensor]:
+    """The gradients of ``names`` (``_seq_partial_leaves``) summed over
+    "model" in member order (gathered on the host): each model peer then
+    holds the whole sequence's, the same bits on every peer, before
+    ``_sync_grads`` sums over the DP axes."""
+    for k in names:
+        g = grads[k]
+        grads[k] = member_sum(all_gather(mesh, g[None], ("model",), "cpu")[0],
+                              g.device)
+    return grads
+
+
 def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
                 specs: Dict[str, tuple],
                 axes: Optional[Tuple[str, ...]] = None
@@ -224,8 +267,10 @@ def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
     is every axis, "model" included: each process ran its own rows on
     whole weights (an expert shard's gradient, which its exchange's
     backward filled over its EP group, is summed over "model" alone).
-    Otherwise never over "model": a process's TP slice already holds its
-    whole gradient (its model peers ran the same rows), and a leaf
+    Otherwise never over "model" (the leaves SP uses on a sequence chunk
+    are summed over it before, ``_sum_seq_partial``): a process's TP slice
+    already holds its whole gradient (its model peers ran the same rows),
+    and a leaf
     replicated over "model" (the norms, the router, ``q_norm``/``k_norm``,
     an encoder-decoder's ``enc_pos`` and ``dec_pos``, a leaf
     ``_drop_uneven`` keeps whole) reaches it whole and with the same bits
@@ -235,8 +280,13 @@ def _sync_grads(grads: Dict[str, torch.Tensor], mesh: ProcessMesh,
     group (the exchange's backward brought them): on the island, EP over
     every DP axis, that is every process's, so it is only divided; with
     EP over ``pod`` alone it is summed over ``data``, with no EP over
-    every DP axis.  ``grads`` is emptied as it goes: each gradient is
-    freed once its synced form exists."""
+    every DP axis.  An FSDP leaf's gradient comes out of its gather's
+    backward summed over the axes its spec adds (``models/fsdp.py``), which
+    the spec holds: it is summed over the others alone.  Under ``pure_dp``
+    with FSDP the batch goes over the DP axes alone: the model peers ran
+    the same rows, hold the same gradients, and are summed over by no one
+    (the gather's backward slices over "model").  ``grads`` is emptied as
+    it goes: each gradient is freed once its synced form exists."""
     from .shardings import sharded_axes
 
     dp = dp_axes(mesh) if axes is None else axes
@@ -342,11 +392,6 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
     same bits in every process.
     """
     proc = isinstance(mesh, ProcessMesh)
-    if proc and cfg.fsdp:
-        raise ValueError("FSDP on a process mesh is not ported: it needs "
-                         "each layer's weights gathered over the data axes "
-                         "before use, its gradients reduce-scattered and "
-                         "the AdamW state sharded")
     if device is not None:
         dev = resolve_device(device)
     else:
@@ -355,6 +400,7 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
     dist = make_dist_context(cfg, mesh, use_kernel=use_kernel) \
         if mesh is not None else None
     specs = train_specs(cfg, mesh) if proc else None
+    seq_partial = _seq_partial_leaves(cfg, mesh, specs) if proc else ()
     lr_fn = cosine_schedule(options.peak_lr, options.warmup_steps,
                             options.total_steps)
 
@@ -395,6 +441,7 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
         if proc:
             axes = _batch_axes(cfg, mesh)
             with torch.profiler.record_function("train.grad_sync"):
+                grads = _sum_seq_partial(grads, mesh, seq_partial)
                 grads = _sync_grads(grads, mesh, specs, axes)
             metrics = _global_metrics(metricses, mesh, axes)
         else:
@@ -596,6 +643,14 @@ def main(argv=None):
     ap.add_argument("--pure-dp", action="store_true",
                     help="the config's pure_dp: weights replicated, the "
                          "batch cut over every mesh axis")
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="the config's seq_shard_activations: the residual "
+                         "stream on a sequence chunk between the TP regions "
+                         "(with --procs and a MODEL above 1)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="the config's fsdp: each weight stored over the "
+                         "intra-pod DP axes, gathered before use (with "
+                         "--procs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
                     help="run through the Trainer, checkpointing here")
@@ -604,8 +659,11 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    if args.pure_dp:
-        cfg = dataclasses.replace(cfg, pure_dp=True)
+    if args.pure_dp or args.seq_shard or args.fsdp:
+        cfg = dataclasses.replace(
+            cfg, pure_dp=cfg.pure_dp or args.pure_dp,
+            seq_shard_activations=cfg.seq_shard_activations or args.seq_shard,
+            fsdp=cfg.fsdp or args.fsdp)
     device = resolve_device(args.device)
     if args.procs and not (args.mesh and args.backend):
         ap.error("--procs needs --mesh and --backend")

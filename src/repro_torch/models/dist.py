@@ -5,6 +5,9 @@ Counterpart of ``src/repro/models/dist.py`` over a ``LocalMesh`` or a
 read the whole mesh's shape, whichever ranks this process holds, and
 ``tp_size`` the size of "model" on a ``ProcessMesh`` (1 on a ``LocalMesh``,
 which keeps whole weights: ``models/tp.py``, and 1 under ``pure_dp``).
+``seq_shard`` runs the residual stream on a sequence chunk under TP, and
+``fsdp`` names the leaves a ``ProcessMesh`` stores over its DP axes
+(``models/fsdp.py``).
 ``None`` in place of a context means the single-device path, the
 correctness oracle for the distributed one.
 """
@@ -12,7 +15,7 @@ correctness oracle for the distributed one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 from ..configs.registry import ModelConfig
 from ..core.topology import Topology
@@ -41,6 +44,13 @@ class DistContext:
     # axis, "model" included; no TP, and the MoE routes a (pod, data)
     # shard's rows together (models/moe.py)
     pure_dp: bool = False
+    # cfg.seq_shard_activations: the residual stream on a sequence chunk
+    # between the TP regions (models/tp.py's SeqShard; only with TP)
+    seq_shard: bool = False
+    # FSDP on a ProcessMesh: {parameter name: (dim, axes)} of every leaf
+    # whose spec adds the intra-pod DP axes (launch/shardings.fsdp_layout),
+    # each gathered before use (models/fsdp.py); None without FSDP
+    fsdp: Optional[Dict[str, Tuple[int, Tuple[str, ...]]]] = None
 
     @property
     def ep_size(self) -> int:

@@ -59,7 +59,8 @@ from .layers import (
     param,
     take_rows,
 )
-from .tp import copy_in, row_parallel, tp_mesh, tp_of
+from .fsdp import gather_params, gather_top, whole_shapes
+from .tp import enter, own_seq, row_parallel, seq_shard, tp_mesh, tp_of
 from .transformer import _embed_tokens, _vocab_parallel_nll
 
 __all__ = [
@@ -121,47 +122,54 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig, device="cuda",
 
 def _cross_attend(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                   enc_k: torch.Tensor, enc_v: torch.Tensor,
-                  tp=None) -> torch.Tensor:
+                  tp=None, sp=None) -> torch.Tensor:
     """x [B, Sq, d]; enc_k, enc_v [B, Se, K, Dh] (already projected: the kv
-    heads that the query heads ``p``'s columns touch read, ``_heads``)."""
-    b, sq, _ = x.shape
+    heads that the query heads ``p``'s columns touch read, ``_heads``);
+    under SP (``sp``) ``x`` and the output are sequence chunks."""
     tp = _attn_tp(cfg, p, tp)
     heads, off, _ = _heads(cfg, p, tp)
     h, kv, dh = len(heads), enc_k.shape[2], cfg.resolved_head_dim
-    q = _project_q(cfg, p, copy_in(tp, x), tp, heads)
+    q = _project_q(cfg, p, enter(tp, sp, x), tp, heads)
+    b, sq = q.shape[:2]
     k = _repeat_kv(enc_k, h // kv)
     v = _repeat_kv(enc_v, h // kv)
     mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=x.device)
     out = _own_cols(mha_einsum(q, k, v, mask).reshape(b, sq, h * dh), off,
                     p.wo.shape[0])
-    return row_parallel(tp, torch.matmul, out, p.wo.to(x.dtype))
+    return row_parallel(tp, torch.matmul, out, p.wo.to(x.dtype), sp=sp)
 
 
 def _project_enc_kv(cfg: ModelConfig, p: Attention, enc_out: torch.Tensor,
-                    tp=None):
+                    tp=None, sp=None):
     """The cross keys and values ``[B, Se, K_sel, Dh]`` of the kv heads
     that the query heads ``p``'s columns touch read (every kv head without
-    TP)."""
+    TP); under SP ``enc_out`` is this process's chunk of the encoder
+    stream (``sp.whole`` its gathered sequence)."""
     tp = _attn_tp(cfg, p, tp)
-    return _project_kv(cfg, p, copy_in(tp, enc_out), tp, _heads(cfg, p, tp)[2])
+    return _project_kv(cfg, p, enter(tp, sp, enc_out), tp,
+                       _heads(cfg, p, tp)[2])
 
 
-def _logits(cfg: ModelConfig, params: EncDec, x: torch.Tensor, tp=None
-            ) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: EncDec, x: torch.Tensor, tp=None,
+            sp=None) -> torch.Tensor:
     """The tied head's logits, or over a sharded vocabulary this process's
-    shard of them."""
+    shard of them; under SP ``x`` is a sequence chunk, gathered after the
+    final norm."""
     x = norm_apply(cfg, params.dec_final, x)
-    x = copy_in(tp_of(tp, params.embed.shape[0], cfg.vocab), x)
-    return x @ params.embed.T.to(x.dtype)
+    embed = params.embed
+    x = enter(tp_of(tp, embed.shape[0], cfg.vocab), sp, x)
+    return x @ embed.T.to(x.dtype)
 
 
 def encode(cfg: ModelConfig, params: EncDec, frames,
            use_kernel: bool = True,
-           dist: Optional[DistContext] = None) -> torch.Tensor:
+           dist: Optional[DistContext] = None, sp=None) -> torch.Tensor:
     """frames [B, encoder_len, d] stub embeddings -> the encoder stream
-    [B, encoder_len, d] in the compute dtype."""
+    [B, encoder_len, d] in the compute dtype; under SP (``sp``, the
+    encoder's ``tp.SeqShard``) this process's sequence chunk of it."""
     compute = getattr(torch, cfg.compute_dtype)
     tp = tp_mesh(dist)
+    params = gather_top(params, dist, ("enc_pos",))
     frames = torch.as_tensor(frames, device=params.enc_pos.device)
     if frames.dim() != 3 or tuple(frames.shape[1:]) != (cfg.encoder_len,
                                                         cfg.d_model):
@@ -171,12 +179,26 @@ def encode(cfg: ModelConfig, params: EncDec, frames,
     b, se = x.shape[:2]
     positions = torch.arange(se, dtype=torch.int32,
                              device=x.device).expand(b, se)
-    for blk in params.enc_blocks:
+    if sp is not None:
+        x = own_seq(sp, x)
+    for i, blk in enumerate(params.enc_blocks):
+        blk = gather_params(blk, dist, f"enc_blocks.{i}.")
         h = norm_apply(cfg, blk.norm1, x)
         x = x + attention_apply(cfg, blk.attn, h, positions=positions,
-                                causal=False, use_kernel=use_kernel, tp=tp)
-        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x), tp)
+                                causal=False, use_kernel=use_kernel, tp=tp,
+                                sp=sp)
+        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x), tp,
+                          sp)
     return norm_apply(cfg, params.enc_final, x)
+
+
+def _encode_gathered(cfg: ModelConfig, params: EncDec, frames,
+                     use_kernel: bool, dist):
+    """(the encoder stream, its ``SeqShard`` with the whole sequence
+    gathered, or None without SP)."""
+    sp = seq_shard(dist, cfg.encoder_len)
+    enc_out = encode(cfg, params, frames, use_kernel, dist, sp)
+    return enc_out, (sp.gathered(enc_out) if sp is not None else None)
 
 
 def encdec_forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
@@ -186,25 +208,32 @@ def encdec_forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
     [B, S] and ``extras["frames"]`` -> (logits [B, S, V], aux = 0); under
     TP with a sharded vocabulary this process's ``[B, S, V/tp]``."""
     tp = tp_mesh(dist)
-    enc_out = encode(cfg, params, extras["frames"], use_kernel, dist)
+    enc_out, esp = _encode_gathered(cfg, params, extras["frames"],
+                                    use_kernel, dist)
+    params = gather_top(params, dist, ("embed", "dec_pos"))
     compute = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
+    sp = seq_shard(dist, s)
     # saturate at the learned table's last row (the reference's clamp)
     pos_idx = torch.clamp(torch.arange(s, device=enc_out.device),
                           max=_MAX_DECODE_POS - 1)
-    x = _embed_tokens(cfg, params, tokens, None, tp) \
-        + take_rows(params.dec_pos, pos_idx, compute)[None]
+    pos = take_rows(params.dec_pos, pos_idx, compute)[None]
+    x = _embed_tokens(cfg, params, tokens, None, tp, sp) \
+        + (pos if sp is None else own_seq(sp, pos))
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    for blk in params.dec_blocks:
+    for i, blk in enumerate(params.dec_blocks):
+        blk = gather_params(blk, dist, f"dec_blocks.{i}.")
         h = norm_apply(cfg, blk.norm1, x)
         x = x + attention_apply(cfg, blk.attn, h, positions=positions,
-                                causal=True, use_kernel=use_kernel, tp=tp)
+                                causal=True, use_kernel=use_kernel, tp=tp,
+                                sp=sp)
         hx = norm_apply(cfg, blk.norm_x, x)
-        ek, ev = _project_enc_kv(cfg, blk.xattn, enc_out, tp)
-        x = x + _cross_attend(cfg, blk.xattn, hx, ek, ev, tp)
-        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x), tp)
-    logits = _logits(cfg, params, x, tp)
+        ek, ev = _project_enc_kv(cfg, blk.xattn, enc_out, tp, esp)
+        x = x + _cross_attend(cfg, blk.xattn, hx, ek, ev, tp, sp)
+        x = x + mlp_apply(cfg, blk.mlp, norm_apply(cfg, blk.norm2, x), tp,
+                          sp)
+    logits = _logits(cfg, params, x, tp, sp)
     return logits, torch.zeros((), dtype=_F32, device=x.device)
 
 
@@ -248,15 +277,18 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                          "process's shard: pass its params")
     dh = cfg.resolved_head_dim
     compute = getattr(torch, cfg.compute_dtype)
-    enc_out = None
+    enc_out = esp = None
     if frames is not None and params is not None:
-        enc_out = encode(cfg, params, frames, use_kernel, dist)
+        enc_out, esp = _encode_gathered(cfg, params, frames, use_kernel,
+                                        dist)
         device = enc_out.device
     layers = []
     for i in range(cfg.n_layers):
+        if params is not None:
+            attn = whole_shapes(params.dec_blocks[i], dist,
+                                f"dec_blocks.{i}.").attn
         kv = cfg.n_kv_heads if params is None else len(_heads(
-            cfg, params.dec_blocks[i].attn,
-            _attn_tp(cfg, params.dec_blocks[i].attn, tp))[2])
+            cfg, attn, _attn_tp(cfg, attn, tp))[2])
         entry = {
             "k": torch.zeros((batch, seq_len, kv, dh), dtype=compute,
                              device=device),
@@ -265,7 +297,9 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, seq_len: int,
         }
         if enc_out is not None:
             entry["xk"], entry["xv"] = _project_enc_kv(
-                cfg, params.dec_blocks[i].xattn, enc_out, tp)
+                cfg, gather_params(params.dec_blocks[i], dist,
+                                   f"dec_blocks.{i}.").xattn, enc_out, tp,
+                esp)
         else:
             for key in ("xk", "xv"):
                 entry[key] = torch.zeros((batch, cfg.encoder_len, kv, dh),
@@ -284,10 +318,12 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDec, cache,
     tp = tp_mesh(dist)
     compute = getattr(torch, cfg.compute_dtype)
     pos = int(pos)
+    params = gather_top(params, dist, ("embed", "dec_pos"))
     pos_emb = params.dec_pos[min(pos, _MAX_DECODE_POS - 1)].to(compute)
     x = _embed_tokens(cfg, params, tokens[:, None], None, tp) \
         + pos_emb[None, None]
-    for blk, cache_l in zip(params.dec_blocks, cache):
+    for i, (blk, cache_l) in enumerate(zip(params.dec_blocks, cache)):
+        blk = gather_params(blk, dist, f"dec_blocks.{i}.")
         h = norm_apply(cfg, blk.norm1, x)
         attn, _, _ = attention_decode(cfg, blk.attn, h, cache_l["k"],
                                       cache_l["v"], pos, tp=tp)

@@ -56,8 +56,8 @@ from ..configs.registry import ModelConfig
 # plain wrapper call
 from ..kernels.flash_attention import flash_attention_autograd as \
     flash_attention
-from .tp import copy_in, gather_cols, kv_heads, model_coord, q_heads, \
-    row_parallel, tp_of
+from .tp import copy_in, enter, gather_cols, kv_heads, model_coord, \
+    q_heads, row_parallel, tp_of
 
 NEG_INF = -1e30
 
@@ -263,12 +263,14 @@ def _own_cols(out: torch.Tensor, off: int, cols: int) -> torch.Tensor:
 
 
 def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                 positions: torch.Tensor, rope: bool = True, tp=None):
+                 positions: torch.Tensor, rope: bool = True, tp=None,
+                 sp=None):
     """q, k, v of the query heads ``p``'s ``wq`` columns touch and the kv
     heads they read (``_heads``), and the offset of those columns in the
-    first head; ``tp`` (or None) as ``_attn_tp`` gives it."""
+    first head; ``tp`` (or None) as ``_attn_tp`` gives it, ``sp`` the
+    sequence chunks ``x`` is one of under SP (``tp.enter``)."""
     heads, off, sel = _heads(cfg, p, tp)
-    x = copy_in(tp, x)
+    x = enter(tp, sp, x)
     q = _project_q(cfg, p, x, tp, heads)
     kk, v = _project_kv(cfg, p, x, tp, sel)
     if cfg.qk_norm:
@@ -361,7 +363,7 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None, use_window: bool = True,
                     chunked_threshold: int = 2048, return_kv: bool = False,
-                    use_kernel: bool = True, tp=None):
+                    use_kernel: bool = True, tp=None, sp=None):
     """Self-attention over a full sequence (prefill).
 
     ``use_kernel`` runs it on the ``flash_attention`` kernel over the
@@ -372,11 +374,14 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     keys/values of the kv heads read (``_heads``).  ``tp``: the
     ``ProcessMesh`` of a TP run (the query heads ``p``'s columns touch and
     the kv heads they read, this process's columns of their output times
-    its ``wo`` rows summed over "model"), or None."""
-    b, s, _ = x.shape
+    its ``wo`` rows summed over "model"), or None.  ``sp``: under SP
+    (``tp.SeqShard``) ``x`` is this process's sequence chunk, gathered on
+    entry, and the output is its chunk of the sum; the keys and values are
+    the whole sequence's."""
     tp = _attn_tp(cfg, p, tp)
-    q, k, v, off = _project_qkv(cfg, p, x, positions, tp=tp)
-    h, kv = q.shape[2], k.shape[2]
+    q, k, v, off = _project_qkv(cfg, p, x, positions, tp=tp, sp=sp)
+    b, s, h = q.shape[:3]
+    kv = k.shape[2]
     eff = window if (window is not None and use_window) else None
     if use_kernel:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -391,7 +396,7 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
                          _band_mask(s, s, 0, eff, causal, x.device))
     out = _own_cols(out.reshape(b, s, h * cfg.resolved_head_dim), off,
                     p.wo.shape[0])
-    out = row_parallel(tp, torch.matmul, out, p.wo.to(out.dtype))
+    out = row_parallel(tp, torch.matmul, out, p.wo.to(out.dtype), sp=sp)
     if not return_kv:
         return out
     return out, (k, v)
@@ -471,16 +476,17 @@ class MLP(nn.Module):
 
 
 def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor,
-              tp=None) -> torch.Tensor:
+              tp=None, sp=None) -> torch.Tensor:
     """The MLP; under TP (``tp``, and ``p`` holding a slice of the hidden
     dim) on this process's slice, the partial products summed over
-    "model"."""
+    "model"; ``sp`` as ``attention_apply``'s (``b_down`` is then added to
+    the chunk)."""
     dt = x.dtype
     tp = tp_of(tp, p.w_down.shape[0], cfg.d_ff)
-    x = copy_in(tp, x)
+    x = enter(tp, sp, x)
     if cfg.act == "silu":
         h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
-        return row_parallel(tp, torch.matmul, h, p.w_down.to(dt))
+        return row_parallel(tp, torch.matmul, h, p.w_down.to(dt), sp=sp)
     h = F.gelu(x @ p.w_up.to(dt) + p.b_up.to(dt), approximate="tanh")
-    return row_parallel(tp, torch.matmul, h, p.w_down.to(dt)) \
+    return row_parallel(tp, torch.matmul, h, p.w_down.to(dt), sp=sp) \
         + p.b_down.to(dt)

@@ -12,7 +12,8 @@ f32 masters of the expert stacks (``transformer.LM``).  Every family takes
 the ``dist`` of a ``ProcessMesh`` with TP over "model" (the encoder-decoder
 since the cut through a query head: ``models/encdec.py``; the recurrent
 and hybrid families since their TP slice, ``models/ssm.py``) or with
-``pure_dp`` (weights whole, the batch over every axis).
+``pure_dp`` (weights whole, the batch over every axis), with sequence
+parallelism and FSDP too (``models/tp.py``, ``models/fsdp.py``).
 
 Two quirks of the reference's encoder-decoder surface are kept: its
 ``prefill`` is the teacher-forced forward and returns ``(logits [B, S, V],

@@ -85,8 +85,8 @@ from ..kernels.grouped_matmul import grouped_matmul_autograd as \
 from ..launch.mesh import ProcessMesh, pmean
 from .dist import DistContext
 from .layers import dense_init, param
-from .tp import copy_in, gather_rows, model_coord, row_parallel, tp_mesh, \
-    tp_of
+from .tp import copy_in, gather_rows, model_coord, own_seq, row_parallel, \
+    tp_mesh, tp_of, whole_seq
 
 __all__ = ["MoE", "init_moe", "moe_apply"]
 
@@ -354,8 +354,9 @@ def _held_ranks(dist: DistContext) -> int:
 
 def _row_peers(dist: Optional[DistContext]) -> Optional[ProcessMesh]:
     """The ``ProcessMesh`` whose model peers' rows a ``pure_dp`` MoE takes
-    together (one ``(pod, data)`` shard), else None."""
-    if dist is None or not dist.pure_dp \
+    together (one ``(pod, data)`` shard), else None (also under ``pure_dp``
+    with FSDP, whose batch the model peers share)."""
+    if dist is None or not dist.pure_dp or dist.fsdp is not None \
             or not isinstance(dist.mesh, ProcessMesh) \
             or "model" not in dist.mesh.axis_names \
             or dist.mesh.axis_size("model") == 1:
@@ -365,11 +366,20 @@ def _row_peers(dist: Optional[DistContext]) -> Optional[ProcessMesh]:
 
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
               dist: Optional[DistContext] = None, *,
-              use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              use_kernel: bool = True, sp=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [B,S,d], aux_loss scalar).
 
     The kernels run unless ``use_kernel`` or ``dist.use_kernel`` is
-    False."""
+    False.  Under SP (``sp``, a ``tp.SeqShard``) ``x`` is this process's
+    sequence chunk: the block gathers the whole sequence (``whole_seq``:
+    routing, capacity and dispatch see whole sequences, as the reference's
+    ``shard_map`` hands them, every model peer alike) and keeps its chunk of
+    the output (``own_seq``)."""
+    if sp is not None:
+        y, aux = moe_apply(cfg, p, whole_seq(sp, x), dist,
+                           use_kernel=use_kernel)
+        return own_seq(sp, y), aux
     peers = _row_peers(dist)
     if peers is None:
         return _moe_rows(cfg, p, x, dist, use_kernel)

@@ -69,8 +69,8 @@ from torch.profiler import record_function
 
 from ..configs.registry import ModelConfig
 from .layers import _own_cols, dense_init, param
-from .tp import channels, copy_in, gather_cols, model_coord, q_heads, \
-    row_parallel, tp_of
+from .tp import channels, copy_in, enter, gather_cols, model_coord, \
+    q_heads, row_parallel, tp_of
 
 __all__ = [
     "MLSTM", "SLSTM", "Mamba", "softplus",
@@ -184,22 +184,24 @@ def _mlstm_inputs(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, tp=None,
 
 
 def _mlstm_out(p: MLSTM, x: torch.Tensor, hs: torch.Tensor, tp, off: int,
-               cols: int) -> torch.Tensor:
+               cols: int, sp=None) -> torch.Tensor:
     """``hs [B, T, H, W]`` (the touched heads' outputs): this process's
     columns of them times ``silu(z)``, into ``wo``'s rows."""
     b, t = hs.shape[:2]
     hs = _own_cols(hs.reshape(b, t, -1), off, cols).to(x.dtype)
     z = F.silu(x @ p.wz.to(x.dtype))
-    return row_parallel(tp, torch.matmul, hs * z, p.wo.to(x.dtype))
+    return row_parallel(tp, torch.matmul, hs * z, p.wo.to(x.dtype), sp=sp)
 
 
 def mlstm_apply(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
-                return_state: bool = False, tp=None):
+                return_state: bool = False, tp=None, sp=None):
     """x [B, T, d] -> [B, T, d] (and, with ``return_state``, the state
-    after the last step); ``tp`` as the module's docstring says."""
+    after the last step); ``tp`` as the module's docstring says; under SP
+    (``sp``, a ``tp.SeqShard``) ``x`` and the output are this process's
+    sequence chunks, the block running on the whole sequence between."""
     b = x.shape[0]
     tp, heads, off, cols = _mlstm_layout(cfg, p, tp)
-    x = copy_in(tp, x)
+    x = enter(tp, sp, x)
     ins = _mlstm_inputs(cfg, p, x, tp, heads, off)
     steps = zip(*(a.unbind(1) for a in ins))
     state = mlstm_zero_state(cfg, b, x.device, len(heads), ins[2].shape[-1])
@@ -208,7 +210,7 @@ def mlstm_apply(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
         for step in steps:
             state, h = _mlstm_step(state, *step)
             hs.append(h)
-    out = _mlstm_out(p, x, torch.stack(hs, dim=1), tp, off, cols)
+    out = _mlstm_out(p, x, torch.stack(hs, dim=1), tp, off, cols, sp)
     return (out, state) if return_state else out
 
 
@@ -307,10 +309,11 @@ def _slstm_inputs(p: SLSTM, x: torch.Tensor, tp):
 
 
 def slstm_apply(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
-                return_state: bool = False, tp=None):
+                return_state: bool = False, tp=None, sp=None):
+    """``sp`` as ``mlstm_apply``'s."""
     b = x.shape[0]
     tp = _slstm_tp(cfg, p, tp)
-    x = copy_in(tp, x)
+    x = enter(tp, sp, x)
     wx, r = _slstm_inputs(p, x, tp)
     state = slstm_zero_state(cfg, b, x.device, wx.shape[-1] // 4)
     hs = []
@@ -319,7 +322,7 @@ def slstm_apply(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
             state, h = _slstm_step(r, state, wx_t, tp)
             hs.append(h)
     out = row_parallel(tp, torch.matmul, torch.stack(hs, dim=1).to(x.dtype),
-                       p.wo.to(x.dtype))
+                       p.wo.to(x.dtype), sp=sp)
     return (out, state) if return_state else out
 
 
@@ -424,18 +427,18 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def mamba_apply(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
-                return_state: bool = False, tp=None):
+                return_state: bool = False, tp=None, sp=None):
     """x [B, T, d] -> [B, T, d].  With ``return_state`` also the decode
     state: the last SSM state and the last ``K - 1`` conv inputs, which
     needs ``T >= K - 1`` (the reference's next decode step fails on the
     shorter window of a shorter prompt).  ``tp`` as the module's docstring
-    says."""
+    says, ``sp`` as ``mlstm_apply``'s."""
+    tp = _mamba_tp(cfg, p, tp)
+    x = enter(tp, sp, x)
     b, t, _ = x.shape
     if return_state and t < _CONV_K - 1:
         raise ValueError(f"a Mamba prompt needs at least {_CONV_K - 1} "
                          f"tokens to leave a decode state, got {t}")
-    tp = _mamba_tp(cfg, p, tp)
-    x = copy_in(tp, x)
     xt_pre, z = _mamba_in(p, x, tp)
     xt = F.silu(_causal_depthwise_conv(xt_pre, p.conv_w.to(x.dtype)))
     dt, b_t, c_t = _mamba_scan_inputs(p, xt, tp)
@@ -457,7 +460,7 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
     y = (torch.stack(hs, dim=1) * c_t[:, :, None, :]).sum(-1) \
         + p.d_skip * x32                                    # [B, T, c]
     y = y.to(x.dtype) * F.silu(z)
-    out = row_parallel(tp, torch.matmul, y, p.out_proj.to(x.dtype))
+    out = row_parallel(tp, torch.matmul, y, p.out_proj.to(x.dtype), sp=sp)
     if not return_state:
         return out
     return out, {"h": h, "conv": xt_pre[:, t - (_CONV_K - 1):].float()}

@@ -40,6 +40,10 @@ hands them); its backward is the same member-order scatter as
 ``procmesh.tp_*:scatter`` and ``:gather`` within it), a backward's inside
 ``procmesh.tp_*.bwd``.
 
+Sequence parallelism's operators (``SeqShard``, ``gather_seq``,
+``scatter_seq``, ``whole_seq``, ``own_seq``, ``enter``, ``leave``) close
+the module; their section says how they keep TP's bits.
+
 ``tp`` below is the ``ProcessMesh`` whose "model" group the collectives run
 over, or None: on a ``LocalMesh`` (which keeps whole weights), where
 "model" has size 1, or for a leaf its spec keeps whole, every operator is
@@ -48,6 +52,7 @@ the identity (``tp_of``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -56,7 +61,9 @@ from ..launch.mesh import ProcessMesh, all_gather, all_to_all, member_sum
 
 __all__ = ["tp_mesh", "tp_of", "vocab_slice", "copy_in", "sum_out",
            "row_parallel", "gather_cols", "gather_rows", "channels",
-           "q_heads", "kv_heads", "model_coord", "max_over", "argmax_over"]
+           "q_heads", "kv_heads", "model_coord", "max_over", "argmax_over",
+           "SeqShard", "seq_shard", "gather_seq", "scatter_seq",
+           "whole_seq", "own_seq", "enter", "leave"]
 
 AXIS = ("model",)
 
@@ -97,20 +104,23 @@ def vocab_slice(tp: ProcessMesh, ids: torch.Tensor, n_loc: int):
     return torch.where(owned, local, torch.zeros_like(local)), owned
 
 
-def _gather(tp: ProcessMesh, x: torch.Tensor, span: str) -> torch.Tensor:
-    """``[n, *x.shape]``: every model peer's ``x``, by model coordinate."""
+def _gather(tp: ProcessMesh, x: torch.Tensor, span: str,
+            axes: Tuple[str, ...] = AXIS) -> torch.Tensor:
+    """``[n, *x.shape]``: every peer's ``x`` over ``axes`` (default
+    "model"), by combined coordinate."""
     with torch.no_grad():
-        return all_gather(tp, x.unsqueeze(0), AXIS, span=span)[0]
+        return all_gather(tp, x.unsqueeze(0), axes, span=span)[0]
 
 
-def _scatter_sum(tp: ProcessMesh, chunks: torch.Tensor,
-                 span: str) -> torch.Tensor:
-    """This process's chunk of the peers' ``chunks [n, ...]`` (chunk ``j``
-    for model coordinate ``j``): the peers' copies of it added in member
-    order in f32, rounded to the chunks' dtype (a reduce-scatter whose bits
-    do not depend on the backend)."""
+def _scatter_sum(tp: ProcessMesh, chunks: torch.Tensor, span: str,
+                 axes: Tuple[str, ...] = AXIS) -> torch.Tensor:
+    """This process's chunk of the peers' ``chunks [n, ...]`` over ``axes``
+    (default "model"; chunk ``j`` for combined coordinate ``j``): the
+    peers' copies of it added in member order in f32, rounded to the
+    chunks' dtype (a reduce-scatter whose bits do not depend on the
+    backend)."""
     with torch.no_grad():
-        got = all_to_all(tp, chunks.unsqueeze(0), AXIS, span=span)[0]
+        got = all_to_all(tp, chunks.unsqueeze(0), axes, span=span)[0]
     return member_sum(p.float() for p in got).to(chunks.dtype)
 
 
@@ -212,12 +222,14 @@ def sum_out(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
 
 
 def row_parallel(tp: Optional[ProcessMesh], product, x: torch.Tensor,
-                 w: torch.Tensor, *extra) -> torch.Tensor:
+                 w: torch.Tensor, *extra, sp: Optional["SeqShard"] = None
+                 ) -> torch.Tensor:
     """A row-parallel product: ``product(x, w, *extra)`` on this process's
     slice of the contraction (``x``'s last dim, ``w``'s second to last:
     attention's ``wo``, the MLP's and the experts' ``w_down``), each
-    peer's partial output rounded to its dtype, then ``sum_out``."""
-    return sum_out(tp, product(x, w, *extra))
+    peer's partial output rounded to its dtype, then ``sum_out``; under
+    sequence parallelism (``sp``) ``leave``: its chunk of the sum."""
+    return leave(tp, sp, product(x, w, *extra))
 
 
 def gather_cols(tp: Optional[ProcessMesh], x: torch.Tensor) -> torch.Tensor:
@@ -303,3 +315,203 @@ def argmax_over(tp: Optional[ProcessMesh], logits: torch.Tensor
     # coordinate, whose slice holds the lower indices
     pick = both[:, 0].argmax(0, keepdim=True)
     return both[:, 1].gather(0, pick)[0].long()
+
+
+# -- sequence parallelism ------------------------------------------------------
+#
+# Under ``cfg.seq_shard_activations`` (Megatron's SP, the reference's
+# ``act_seq = "model"``) the residual stream between the TP regions lies on
+# a sequence chunk: process ``m`` of ``n`` holds rows ``[m·L, (m+1)·L)`` of
+# ``[B, S, d]``, ``L = ceil(S / n)``, the last chunks padded with zero rows
+# that no output reads.  A region's entry gathers the chunks (``gather_seq``)
+# where ``copy_in`` stood and its exit keeps this process's chunk of the
+# member-order sum (``scatter_seq``) where ``sum_out`` stood: each element
+# is the same f32 sum in the same order, and a norm or a residual add on a
+# chunk computes each row as on the whole, so the bits are TP's.  A region
+# whose weights are whole (every peer computes the same output, as the MoE
+# block and a leaf ``_drop_uneven`` keeps whole) enters through
+# ``whole_seq`` and leaves through ``own_seq`` instead: no sum either way.
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """The sequence chunks of a ``length``-row sequence over ``mesh``'s
+    "model" axis; ``whole``, when set, is the gathered sequence of the
+    tensor a region enters with (a block that feeds one input to two
+    regions gathers it once)."""
+
+    mesh: ProcessMesh
+    length: int
+    whole: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                      compare=False)
+
+    @property
+    def n(self) -> int:
+        return self.mesh.axis_size("model")
+
+    @property
+    def chunk(self) -> int:
+        """``L``: the rows of every process's chunk, padding included."""
+        return -(-self.length // self.n)
+
+    @property
+    def start(self) -> int:
+        """The first row of this process's chunk."""
+        return model_coord(self.mesh) * self.chunk
+
+    def chunks(self, x: torch.Tensor) -> torch.Tensor:
+        """``[n, B, L, ...]``: ``x [B, S, ...]`` padded with zero rows to
+        ``n · L`` and cut into the chunks, by model coordinate."""
+        pad = self.n * self.chunk - x.shape[1]
+        if pad:
+            x = torch.cat([x, x.new_zeros(x.shape[0], pad, *x.shape[2:])], 1)
+        return x.reshape(x.shape[0], self.n, self.chunk, *x.shape[2:]) \
+            .movedim(1, 0).contiguous()
+
+    def join(self, parts: torch.Tensor) -> torch.Tensor:
+        """``[B, S, ...]``: the chunks ``parts [n, B, L, ...]`` in order,
+        the padding cut."""
+        whole = parts.movedim(0, 1).reshape(parts.shape[1], -1,
+                                            *parts.shape[3:])
+        # contiguous, as the whole tensor a TP run holds: a product reads
+        # a strided operand with other roundings
+        return whole[:, :self.length].contiguous()
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's chunk ``[B, L, ...]`` of ``x [B, S, ...]``, a
+        copy padded with zero rows past ``S`` (no gradient of its own: for
+        inputs, positions and masks)."""
+        part = x[:, min(self.start, x.shape[1]):self.start + self.chunk]
+        pad = self.chunk - part.shape[1]
+        if pad:
+            part = torch.cat([part, part.new_zeros(
+                part.shape[0], pad, *part.shape[2:])], 1)
+        return part.contiguous()
+
+    def gathered(self, x: torch.Tensor) -> "SeqShard":
+        """This shard with ``whole`` set to the chunks of ``x`` gathered
+        (no gradient: each region's entry takes its own backward)."""
+        parts = _gather(self.mesh, x.detach().contiguous(),
+                        "procmesh.tp_gather_seq")
+        return dataclasses.replace(self, whole=self.join(parts))
+
+
+def seq_shard(dist, length: int) -> Optional[SeqShard]:
+    """The ``SeqShard`` of a ``length``-row sequence when ``dist`` runs SP
+    (``dist.seq_shard`` with TP over "model", ``tp_size > 1``; never under
+    ``pure_dp``, as the reference's ``act_seq`` is None there), else None.
+    A decode step (one row) keeps its residual whole."""
+    tp = tp_mesh(dist)
+    if tp is None or not dist.seq_shard or length < 2:
+        return None
+    return SeqShard(tp, length)
+
+
+class _GatherSeq(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, sp, x, whole):
+        ctx.sp = sp
+        if whole is not None:
+            return whole.view_as(whole)
+        parts = _gather(sp.mesh, x.contiguous(), "procmesh.tp_gather_seq")
+        return sp.join(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.sp
+        return None, _scatter_sum(sp.mesh, sp.chunks(g),
+                                  "procmesh.tp_gather_seq.bwd"), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, sp, x):
+        ctx.sp = sp
+        return _scatter_sum(sp.mesh, sp.chunks(x), "procmesh.tp_scatter_seq")
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.sp
+        parts = _gather(sp.mesh, g.contiguous(),
+                        "procmesh.tp_scatter_seq.bwd")
+        return None, sp.join(parts)
+
+
+class _WholeSeq(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, sp, x, whole):
+        ctx.sp = sp
+        if whole is not None:
+            return whole.view_as(whole)
+        parts = _gather(sp.mesh, x.contiguous(), "procmesh.tp_whole_seq")
+        return sp.join(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.sp.own(g), None
+
+
+class _OwnSeq(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, sp, x):
+        ctx.sp = sp
+        return sp.own(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.sp
+        parts = _gather(sp.mesh, g.contiguous(), "procmesh.tp_own_seq.bwd")
+        return None, sp.join(parts)
+
+
+def gather_seq(sp: SeqShard, x: torch.Tensor) -> torch.Tensor:
+    """``[B, S, ...]``: the peers' chunks ``x [B, L, ...]`` joined along
+    the sequence by model coordinate, no arithmetic (``sp.whole`` when
+    set, with no collective); its gradient summed over "model" in member
+    order (f32), this process's chunk kept: the entry of a TP region whose
+    peers each give a partial cotangent."""
+    return _GatherSeq.apply(sp, x, sp.whole)
+
+
+def scatter_seq(sp: SeqShard, x: torch.Tensor) -> torch.Tensor:
+    """``[B, L, ...]``: this process's chunk of the peers' partial ``x [B,
+    S, ...]`` summed over "model" in member order (f32); its gradient the
+    peers' cotangent chunks joined."""
+    return _ScatterSeq.apply(sp, x)
+
+
+def whole_seq(sp: SeqShard, x: torch.Tensor) -> torch.Tensor:
+    """``gather_seq``'s forward, for a region every peer computes whole:
+    the peers' cotangents are the same, so the backward keeps this
+    process's chunk of its own, with no sum."""
+    return _WholeSeq.apply(sp, x, sp.whole)
+
+
+def own_seq(sp: SeqShard, x: torch.Tensor) -> torch.Tensor:
+    """This process's chunk of ``x [B, S, ...]``, which every peer holds
+    whole; its gradient the peers' cotangent chunks joined."""
+    return _OwnSeq.apply(sp, x)
+
+
+def enter(tp: Optional[ProcessMesh], sp: Optional[SeqShard],
+          x: torch.Tensor) -> torch.Tensor:
+    """A region's input: ``copy_in`` without SP; under SP the whole
+    sequence, by ``gather_seq`` into a TP region (``tp``) or ``whole_seq``
+    into a whole one."""
+    if sp is None:
+        return copy_in(tp, x)
+    return gather_seq(sp, x) if tp is not None else whole_seq(sp, x)
+
+
+def leave(tp: Optional[ProcessMesh], sp: Optional[SeqShard],
+          x: torch.Tensor) -> torch.Tensor:
+    """A region's output: ``sum_out`` without SP; under SP this process's
+    chunk, of the sum over "model" (``scatter_seq``) out of a TP region or
+    of ``x`` (``own_seq``) out of a whole one."""
+    if sp is None:
+        return sum_out(tp, x)
+    return scatter_seq(sp, x) if tp is not None else own_seq(sp, x)

@@ -49,6 +49,22 @@ their decode states hold its channels or touched heads
 (``init_decode_cache`` with a shard sizes them).  The vision stub's
 ``patch_embeds`` take the first positions on every process, as without
 TP.  ``models/encdec.py`` reuses the vocabulary-parallel lookup and loss.
+
+Under sequence parallelism (``cfg.seq_shard_activations`` with TP; the
+reference's ``act_seq = "model"``) the residual stream between the TP
+regions is this process's chunk of the sequence (``tp.SeqShard``, from
+``tp.seq_shard``): the embedding's lookup leaves through the chunk's
+sum, the norms, the residual adds and the hybrid's ``_fuse`` run on the
+chunk, each region gathers the sequence on entry and keeps its chunk of
+the sum on exit (``tp.enter`` / ``tp.leave``), the hybrid gathers its
+``h`` once for attention and Mamba, the MoE block gathers the whole
+sequence before the router, and the head gathers it after the final
+norm.  The bits are TP's.  A decode step keeps its residual whole.  Under
+FSDP each block gathers its stored slices at its start
+(``fsdp.gather_params``, inside the function ``_remat`` wraps, so the
+backward gathers them again), and the model's own leaves are gathered
+once a forward (``fsdp.gather_top``: the tied table's lookup and head
+share one gather).
 """
 
 from __future__ import annotations
@@ -76,9 +92,10 @@ from .layers import (
     param,
     take_rows,
 )
+from .fsdp import gather_params, gather_top, whole_shapes
 from .moe import MoE, moe_apply
-from .tp import argmax_over, copy_in, max_over, sum_out, tp_mesh, tp_of, \
-    vocab_slice
+from .tp import SeqShard, argmax_over, enter, leave, max_over, seq_shard, \
+    sum_out, tp_mesh, tp_of, vocab_slice
 from .ssm import (
     MLSTM, SLSTM, Mamba,
     mamba_apply, mamba_decode, mamba_zero_state,
@@ -187,66 +204,86 @@ def _fuse(cfg: ModelConfig, p: Block, attn_out: torch.Tensor,
 
 
 def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor, kind: str, dist,
-         use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+         use_kernel: bool, sp: Optional[SeqShard] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second half of an attention block: (x, aux)."""
     h2 = norm_apply(cfg, p.norm2, x)
     if kind == "moe":
-        y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel)
+        y, aux = moe_apply(cfg, p.moe, h2, dist, use_kernel=use_kernel,
+                           sp=sp)
         return x + y, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp_apply(cfg, p.mlp, h2, tp_mesh(dist)), aux
+    return x + mlp_apply(cfg, p.mlp, h2, tp_mesh(dist), sp), aux
+
+
+def _hybrid_sp(kind: str, sp: Optional[SeqShard], h: torch.Tensor):
+    """The hybrid block's attention and Mamba take one input: under SP it
+    is gathered once, each region's entry keeping its own backward."""
+    return sp.gathered(h) if sp is not None and kind == "hybrid" else sp
 
 
 def _block_prefill(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
                    positions, dist, kind: str, full_flag: bool,
-                   cache_len: int, use_kernel: bool):
-    """Returns (x, aux, cache_entry)."""
+                   cache_len: int, use_kernel: bool, name: str = "",
+                   sp: Optional[SeqShard] = None):
+    """Returns (x, aux, cache_entry).  ``name``: the block's parameter
+    prefix (``"blocks.3."``), whose FSDP leaves it gathers first; ``sp``:
+    the residual's sequence chunks under SP (``x`` this process's)."""
+    p = gather_params(p, dist, name)
     if kind in ("m", "s"):
-        apply, _, name = _recurrent(kind)
-        y, st = apply(cfg, getattr(p, name), norm_apply(cfg, p.norm1, x),
-                      return_state=True, tp=tp_mesh(dist))
+        apply, _, attr = _recurrent(kind)
+        y, st = apply(cfg, getattr(p, attr), norm_apply(cfg, p.norm1, x),
+                      return_state=True, tp=tp_mesh(dist), sp=sp)
         return x + y, torch.zeros((), dtype=torch.float32,
                                   device=x.device), {"state": st}
     window, use_window = _window_args(cfg, full_flag)
     h = norm_apply(cfg, p.norm1, x)
+    hsp = _hybrid_sp(kind, sp, h)
     attn_out, (k_raw, v_raw) = attention_apply(
         cfg, p.attn, h, positions=positions, window=window,
         use_window=use_window, return_kv=True, use_kernel=use_kernel,
-        tp=tp_mesh(dist))
+        tp=tp_mesh(dist), sp=hsp)
     cache_window = None if (cfg.swa_window is None or full_flag) \
         else cfg.swa_window
     k_c, v_c = assemble_kv_cache(k_raw, v_raw, cache_window, cache_len)
     cache = {"k": k_c, "v": v_c}
     if kind == "hybrid":
         ssm, cache["ssm"] = mamba_apply(cfg, p.mamba, h, return_state=True,
-                                        tp=tp_mesh(dist))
+                                        tp=tp_mesh(dist), sp=hsp)
         x = x + _fuse(cfg, p, attn_out, ssm)
     else:
         x = x + attn_out
-    x, aux = _ffn(cfg, p, x, kind, dist, use_kernel)
+    x, aux = _ffn(cfg, p, x, kind, dist, use_kernel, sp)
     return x, aux, cache
 
 
 def _block_train(cfg: ModelConfig, p: Block, x: torch.Tensor, *,
                  positions, dist, kind: str, full_flag: bool,
-                 use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer of the training forward: (x, aux)."""
+                 use_kernel: bool, name: str = "",
+                 sp: Optional[SeqShard] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the training forward: (x, aux); ``name`` and ``sp`` as
+    ``_block_prefill``'s."""
+    p = gather_params(p, dist, name)
     if kind in ("m", "s"):
-        apply, _, name = _recurrent(kind)
-        y = apply(cfg, getattr(p, name), norm_apply(cfg, p.norm1, x),
-                  tp=tp_mesh(dist))
+        apply, _, attr = _recurrent(kind)
+        y = apply(cfg, getattr(p, attr), norm_apply(cfg, p.norm1, x),
+                  tp=tp_mesh(dist), sp=sp)
         return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
     window, use_window = _window_args(cfg, full_flag)
     h = norm_apply(cfg, p.norm1, x)
+    hsp = _hybrid_sp(kind, sp, h)
     attn_out = attention_apply(cfg, p.attn, h, positions=positions,
                                window=window, use_window=use_window,
-                               use_kernel=use_kernel, tp=tp_mesh(dist))
+                               use_kernel=use_kernel, tp=tp_mesh(dist),
+                               sp=hsp)
     if kind == "hybrid":
         x = x + _fuse(cfg, p, attn_out,
-                      mamba_apply(cfg, p.mamba, h, tp=tp_mesh(dist)))
+                      mamba_apply(cfg, p.mamba, h, tp=tp_mesh(dist),
+                                  sp=hsp))
     else:
         x = x + attn_out
-    return _ffn(cfg, p, x, kind, dist, use_kernel)
+    return _ffn(cfg, p, x, kind, dist, use_kernel, sp)
 
 
 def _layers(fns, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -268,13 +305,15 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     """tokens [B, S] -> (logits [B, S, V], aux summed over the layers);
     under TP with a sharded vocabulary this process's ``[B, S, V/tp]``."""
     b, s = tokens.shape
-    x = _embed_tokens(cfg, params, tokens, extras, tp_mesh(dist))
+    sp = seq_shard(dist, s)
+    params = gather_top(params, dist)
+    x = _embed_tokens(cfg, params, tokens, extras, tp_mesh(dist), sp)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     kinds = layer_kinds(cfg)
     fns = [partial(_block_train, cfg, p_l, positions=positions, dist=dist,
                    kind=kinds[i], full_flag=i in cfg.full_attn_layers,
-                   use_kernel=use_kernel)
+                   use_kernel=use_kernel, name=f"blocks.{i}.", sp=sp)
            for i, p_l in enumerate(params.blocks)]
     g = cfg.remat_group
     if cfg.remat and g and cfg.n_layers % g == 0:
@@ -285,7 +324,7 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     elif cfg.remat:
         fns = [_remat(f) for f in fns]
     x, aux = _layers(fns, x)
-    return _lm_logits(cfg, params, x, tp_mesh(dist)), aux
+    return _lm_logits(cfg, params, x, tp_mesh(dist), sp), aux
 
 
 def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, Any],
@@ -343,35 +382,55 @@ def _vocab_parallel_nll(cfg: ModelConfig, tp, logits: torch.Tensor,
 
 
 def _embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
-                  extras, tp=None) -> torch.Tensor:
+                  extras, tp=None, sp: Optional[SeqShard] = None
+                  ) -> torch.Tensor:
     """The tokens' embeddings (and the vision stub's patches); over a
     vocabulary sharded across ``tp``'s "model" axis, this process's rows,
-    zero for ids outside them, summed over "model"."""
+    zero for ids outside them, summed over "model".  Under SP (``sp``)
+    this process's sequence chunk of them (``tp.leave``).  An FSDP-stored
+    table comes gathered (``fsdp.gather_top``)."""
     compute = getattr(torch, cfg.compute_dtype)
-    tp = tp_of(tp, params.embed.shape[0], cfg.vocab)
+    embed = params.embed
+    tp = tp_of(tp, embed.shape[0], cfg.vocab)
     if tp is None:
-        x = take_rows(params.embed, tokens, compute)
+        x = take_rows(embed, tokens, compute)
     else:
-        local, owned = vocab_slice(tp, tokens, params.embed.shape[0])
-        rows = take_rows(params.embed, local, compute)
-        x = sum_out(tp, torch.where(owned[..., None], rows,
-                                    torch.zeros_like(rows)))
+        local, owned = vocab_slice(tp, tokens, embed.shape[0])
+        rows = take_rows(embed, local, compute)
+        x = torch.where(owned[..., None], rows, torch.zeros_like(rows))
+    x = leave(tp, sp, x)
     if cfg.frontend == "vision_stub" and extras is not None:
         fl = cfg.frontend_len
         patch = torch.as_tensor(extras["patch_embeds"],
                                 device=x.device).to(compute)
-        x = torch.cat([patch, x[:, fl:]], dim=1) \
-            if x.shape[1] > fl else patch[:, :x.shape[1]]
+        if sp is None:
+            x = torch.cat([patch, x[:, fl:]], dim=1) \
+                if x.shape[1] > fl else patch[:, :x.shape[1]]
+        else:
+            # the patches of this process's chunk, at the positions below
+            # frontend_len
+            patch = patch[:, :sp.length]
+            whole = torch.cat([patch, patch.new_zeros(
+                patch.shape[0], sp.length - patch.shape[1],
+                patch.shape[2])], 1)
+            pos = sp.start + torch.arange(sp.chunk, device=x.device)
+            x = torch.where((pos < fl)[None, :, None], sp.own(whole), x)
     return x
 
 
-def _lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor, tp=None
-               ) -> torch.Tensor:
+def _lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor, tp=None,
+               sp: Optional[SeqShard] = None,
+               last: bool = False) -> torch.Tensor:
     """The logits, or over a sharded vocabulary this process's shard of
-    them."""
+    them; of the last position alone with ``last``.  Under SP ``x`` is
+    this process's sequence chunk, gathered after the final norm."""
+    if last and sp is None:
+        x = x[:, -1:]
     x = norm_apply(cfg, params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    x = copy_in(tp_of(tp, head.shape[-1], cfg.vocab), x)
+    x = enter(tp_of(tp, head.shape[-1], cfg.vocab), sp, x)
+    if last and sp is not None:
+        x = x[:, -1:].contiguous()    # the rows a TP run's norm writes
     return x @ head.to(x.dtype)
 
 
@@ -424,8 +483,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
     compute = getattr(torch, cfg.compute_dtype)
     cache = []
     for i, kind in enumerate(kinds):
-        w = {} if params is None else _layer_widths(cfg, params.blocks[i],
-                                                    kind, dist)
+        w = {} if params is None else _layer_widths(
+            cfg, whole_shapes(params.blocks[i], dist, f"blocks.{i}."), kind,
+            dist)
         if kind == "m":
             cache.append({"state": mlstm_zero_state(
                 cfg, batch, device, w.get("heads"), w.get("width"))})
@@ -454,10 +514,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def _block_decode(cfg: ModelConfig, p: Block, cache: dict, x, pos: int, *,
                   kind: str, full_flag: bool, dist,
-                  use_kernel: bool) -> torch.Tensor:
+                  use_kernel: bool, name: str = "") -> torch.Tensor:
+    p = gather_params(p, dist, name)
     if kind in ("m", "s"):
-        _, decode, name = _recurrent(kind)
-        y, cache["state"] = decode(cfg, getattr(p, name),
+        _, decode, attr = _recurrent(kind)
+        y, cache["state"] = decode(cfg, getattr(p, attr),
                                    norm_apply(cfg, p.norm1, x),
                                    cache["state"], tp=tp_mesh(dist))
         return x + y
@@ -484,12 +545,13 @@ def lm_decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor,
                    use_kernel: bool = True):
     """tokens [B] int, pos int -> (logits [B, V], cache updated in place);
     the logits are this process's vocabulary shard under TP."""
+    params = gather_top(params, dist)
     x = _embed_tokens(cfg, params, tokens[:, None], None, tp_mesh(dist))
     kinds = layer_kinds(cfg)
     for i, (p_l, cache_l) in enumerate(zip(params.blocks, cache)):
         x = _block_decode(cfg, p_l, cache_l, x, int(pos), kind=kinds[i],
                           full_flag=_full_flag(cfg, i), dist=dist,
-                          use_kernel=use_kernel)
+                          use_kernel=use_kernel, name=f"blocks.{i}.")
     return _lm_logits(cfg, params, x, tp_mesh(dist))[:, 0], cache
 
 
@@ -505,7 +567,9 @@ def lm_prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     cache_len = cache_len or s
     if cache_len < s:
         raise ValueError("cache must at least hold the prompt")
-    x = _embed_tokens(cfg, params, tokens, extras, tp_mesh(dist))
+    sp = seq_shard(dist, s)
+    params = gather_top(params, dist)
+    x = _embed_tokens(cfg, params, tokens, extras, tp_mesh(dist), sp)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     kinds = layer_kinds(cfg)
@@ -520,7 +584,7 @@ def lm_prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
         x, _, cache_l = _block_prefill(
             eff_cfg, p_l, x, positions=positions, dist=dist, kind=kinds[i],
             full_flag=_full_flag(cfg, i), cache_len=cache_len,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, name=f"blocks.{i}.", sp=sp)
         cache.append(cache_l)
-    logits = _lm_logits(cfg, params, x[:, -1:], tp_mesh(dist))
+    logits = _lm_logits(cfg, params, x, tp_mesh(dist), sp, last=True)
     return logits[:, 0], cache

@@ -215,8 +215,10 @@ def test_input_specs_match_reference(ref):
 
 def test_module_specs_unstack_the_scanned_layers():
     """A scanned config's per-layer parameters take their stack's spec
-    without the layer entry; a spec over the layer axis (FSDP on a stack)
-    cannot be held per layer and raises."""
+    without the layer entry.  Under FSDP, where the reference's rule takes
+    a stack's layer axis, each layer's own leaf takes the rule instead:
+    its first free dim that "data" divides (the experts' stacks, whose EP
+    axes hold "data" already, stay as they were)."""
     cfg = get_config("megatron-moe-32e")
     mesh = make_mesh((2, 2, 2), AXES, device="cpu")
     module = build_model(cfg, "meta").init(torch.Generator())
@@ -225,9 +227,13 @@ def test_module_specs_unstack_the_scanned_layers():
     assert specs["blocks.0.attn.wo"] == ("model", None)
     assert specs["embed"] == ("model", None)
     assert set(specs) == {k for k, _ in module.named_parameters()}
-    fsdp = dataclasses.replace(cfg, fsdp=True)
-    with pytest.raises(ValueError, match="layer axis"):
-        S.module_specs(fsdp, mesh, module)
+    fsdp = S.module_specs(dataclasses.replace(cfg, fsdp=True), mesh, module)
+    assert fsdp["blocks.3.moe.w_gate"] == (("pod", "data"), None, "model")
+    assert fsdp["blocks.3.moe.router"] == ("data", None)
+    assert fsdp["blocks.0.attn.wq"] == ("data", "model")
+    assert fsdp["blocks.0.attn.wo"] == ("model", "data")
+    assert fsdp["embed"] == ("model", "data")
+    assert fsdp["blocks.0.norm1.scale"] == (None,)
 
 
 @pytest.mark.parametrize("spec", [

@@ -25,8 +25,8 @@ with each row-parallel product rounded per peer (``_TPRounding``); a
 planted fault (each process reading its neighbour's kv head) fails the
 logits check.  megatron-moe-32e trained on (2, 1, 4) for 2 steps at
 ``test_torch_train.py``'s tolerances, replicated gradients bit for bit the
-same on model peers.  ``convert._check_tp`` accepts every published 8-kv-
-head config on a (1, 1, 16) mesh, and internvl2-1b's 14 heads and
+same on model peers.  ``convert.shard_module`` cuts every published
+8-kv-head config on a (1, 1, 16) mesh, and internvl2-1b's 14 heads and
 whisper-tiny's 6 there.
 The reference runs once, in one subprocess on 8 fake devices.
 """
@@ -46,7 +46,7 @@ from test_torch_train import OPTIONS, STEPS as TRAIN_STEPS, \
 from test_torch_train import _unflatten as _unflatten_dotted
 
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.convert import _check_tp, from_jax_params, recast
+from repro_torch.convert import from_jax_params, recast, shard_module
 from repro_torch.data import DataConfig
 from repro_torch.launch import serve
 from repro_torch.launch import train as pt_train
@@ -432,6 +432,18 @@ def test_replicated_gradients_identical_on_model_peers(trained):
                     assert np.array_equal(a[k], b[k]), k
 
 
+def _shard_meta(cfg, mesh):
+    """``shard_module`` of ``cfg``'s whole model on the meta device (no
+    memory): the cut a process of ``mesh`` takes, refused nowhere."""
+    from repro_torch.models import build_model
+
+    whole = build_model(cfg, "meta").init(torch.Generator())
+    shard = shard_module(whole, cfg, mesh, device="meta")
+    assert set(dict(shard.named_parameters())) == \
+        set(dict(whole.named_parameters()))
+    return shard
+
+
 PUBLISHED = ("llama3.2-1b", "granite-3-2b", "qwen3-0.6b", "megatron-moe-32e",
              "mixtral-8x7b", "mistral-large-123b", "dbrx-132b")
 
@@ -440,7 +452,7 @@ PUBLISHED = ("llama3.2-1b", "granite-3-2b", "qwen3-0.6b", "megatron-moe-32e",
 def test_check_tp_accepts_the_published_8_kv_head_configs(arch):
     cfg = get_config(arch)
     assert cfg.n_kv_heads == 8 and cfg.n_heads % 16 == 0
-    _check_tp(cfg, _fake_mesh((1, 1, 16)))
+    _shard_meta(cfg, _fake_mesh((1, 1, 16)))
 
 
 @pytest.mark.parametrize("arch", ("internvl2-1b", "whisper-tiny"))
@@ -449,7 +461,7 @@ def test_check_tp_accepts_a_cut_through_a_query_head(arch):
     16-way "model": each process's columns cut through a query head."""
     cfg = get_config(arch)
     assert cfg.n_heads % 16
-    _check_tp(cfg, _fake_mesh((1, 1, 16)))
+    _shard_meta(cfg, _fake_mesh((1, 1, 16)))
 
 
 @pytest.mark.parametrize("n_heads,n_kv,n,want", [

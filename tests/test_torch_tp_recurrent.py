@@ -493,19 +493,19 @@ PUBLISHED_WIDTHS = {
 
 @pytest.mark.parametrize("arch", sorted(PUBLISHED_WIDTHS))
 def test_published_recurrent_archs_cut_on_16(arch):
-    """``convert._check_tp`` accepts xlstm-125m and hymba-1.5b at their
+    """``convert.shard_module`` accepts xlstm-125m and hymba-1.5b at their
     published widths on the reference's 16-way "model", and the specs cut
     their columns as the module's docstring says (``wif``'s 8 columns
     kept whole by ``_drop_uneven``)."""
     from repro_torch.configs import get_config
-    from repro_torch.convert import _check_tp
+    from repro_torch.convert import shard_module
     from repro_torch.launch.shardings import module_specs, shard_tensor
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
     mesh = _fake_mesh((1, 1, 16))
-    _check_tp(cfg, mesh)
     module = build_model(cfg, "meta").init(torch.Generator())
+    shard_module(module, cfg, mesh, device="meta")
     specs = module_specs(cfg, mesh, module)
     named = dict(module.named_parameters())
     for leaf, width in PUBLISHED_WIDTHS[arch].items():
@@ -513,6 +513,13 @@ def test_published_recurrent_archs_cut_on_16(arch):
 
 
 def test_check_tp_accepts_pure_dp():
-    from repro_torch.convert import _check_tp
+    """``convert.shard_module`` cuts a ``pure_dp`` shard: every leaf
+    whole."""
+    from repro_torch.convert import shard_module
+    from repro_torch.models import build_model
 
-    _check_tp(smoke_config("llama3.2-1b", pure_dp=True), _fake_mesh((1, 1, 2)))
+    cfg = smoke_config("llama3.2-1b", pure_dp=True)
+    whole = build_model(cfg, "meta").init(torch.Generator())
+    shard = shard_module(whole, cfg, _fake_mesh((1, 1, 2)), device="meta")
+    for k, v in shard.named_parameters():
+        assert v.shape == whole.get_parameter(k).shape, k

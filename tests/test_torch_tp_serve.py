@@ -283,8 +283,8 @@ class _TPRounding:
     def __enter__(self):
         self.real = layers.row_parallel
 
-        def split(tp, product, x, w, *extra):
-            assert tp is None
+        def split(tp, product, x, w, *extra, sp=None):
+            assert tp is None and sp is None
             n = w.shape[-2] // self.parts
             outs = [product(x[..., i * n:(i + 1) * n].contiguous(),
                             w[..., i * n:(i + 1) * n, :].contiguous(),
@@ -452,37 +452,21 @@ def _fake_mesh(shape):
                        root_coords=(0,) * len(shape), groups={})
 
 
-REFUSED = {
-    "seq_shard": ("llama3.2-1b", (1, 1, 2),
-                  {"seq_shard_activations": True}, "seq_shard_activations"),
-    "fsdp": ("llama3.2-1b", (1, 1, 2), {"fsdp": True}, "FSDP"),
-    "pure_dp_fsdp": ("llama3.2-1b", (1, 1, 2),
-                     {"pure_dp": True, "fsdp": True}, "FSDP.*pure_dp"),
-}
-
-
-@pytest.mark.parametrize("case", list(REFUSED))
-def test_shard_module_refuses_what_is_not_ported(case):
-    arch, shape, over, word = REFUSED[case]
-    cfg = dataclasses.replace(smoke_config(arch), **over)
-    module = transformer.init_lm(torch.Generator().manual_seed(0), cfg,
-                                 "cpu") if not cfg.encdec else None
-    if module is None:
-        from repro_torch.models import build_model
-        module = build_model(cfg, "cpu").init(torch.Generator())
-    with pytest.raises(ValueError, match=word):
-        shard_module(module, cfg, _fake_mesh(shape))
-
-
 # what shard_module refused before: a "model" axis that does not divide
 # the heads, the encoder-decoder family (before the cut through a query
-# head); the ssm and hybrid families and pure_dp (before their slice)
+# head); the ssm and hybrid families and pure_dp (before their slice);
+# seq_shard_activations, FSDP and pure_dp with FSDP (before theirs)
 ACCEPTED = {
     "heads": ("llama3.2-1b", (1, 1, 3), {}),
     "encdec": ("whisper-tiny", (1, 1, 2), {}),
     "ssm": ("xlstm-125m", (1, 1, 2), {}),
     "hybrid": ("hymba-1.5b", (1, 1, 2), {}),
     "pure_dp": ("llama3.2-1b", (1, 1, 2), {"pure_dp": True}),
+    "seq_shard": ("llama3.2-1b", (1, 1, 2),
+                  {"seq_shard_activations": True}),
+    "fsdp": ("llama3.2-1b", (1, 2, 1), {"fsdp": True}),
+    "pure_dp_fsdp": ("llama3.2-1b", (1, 1, 2),
+                     {"pure_dp": True, "fsdp": True}),
 }
 # case -> (leaf, the dim "model" cuts) of some TP leaves; the leaves named
 # by WHOLE_LEAVES stay whole
@@ -495,11 +479,23 @@ HALF_LEAVES = {
     "hybrid": (("blocks.0.mamba.in_proj", 1), ("blocks.0.mamba.a_log", 0),
                ("blocks.0.mamba.w_dt2", 1), ("blocks.0.mamba.out_proj", 0),
                ("blocks.1.attn.wq", 1)),
+    # SP cuts the TP leaves alone; FSDP the first free dim "data" divides
+    # of each leaf of two or more dims, "model" taking its place under
+    # pure_dp
+    "seq_shard": (("embed", 0), ("blocks.0.attn.wq", 1),
+                  ("blocks.0.mlp.w_down", 0)),
+    "fsdp": (("embed", 1), ("blocks.0.attn.wq", 0), ("blocks.0.attn.wo", 1),
+             ("blocks.1.mlp.w_down", 1)),
+    "pure_dp_fsdp": (("embed", 0), ("blocks.0.attn.wq", 0),
+                     ("blocks.1.mlp.w_down", 0)),
 }
 WHOLE_LEAVES = {
     "encdec": ("enc_pos", "dec_pos", "dec_blocks.0.mlp.b_down"),
     "ssm": ("blocks.0.norm1.scale", "blocks.1.norm1.bias"),
     "hybrid": ("blocks.0.fuse_norm_ssm.scale",),
+    "seq_shard": ("blocks.0.norm1.scale", "final_norm.scale"),
+    "fsdp": ("blocks.0.norm2.scale", "final_norm.scale"),
+    "pure_dp_fsdp": ("blocks.0.norm1.scale", "final_norm.scale"),
 }
 
 
@@ -510,7 +506,9 @@ def test_shard_module_accepts_a_cut_through_a_head_and_the_encdec(case):
     replicated); whisper-tiny's, xlstm-125m's and hymba-1.5b's on 2 hold
     half of each TP leaf (heads, ``d_ff``, the tied vocabulary, the
     recurrent blocks' columns and Mamba's channels) and the whole of the
-    rest."""
+    rest; llama's with ``seq_shard_activations`` on 2 its TP leaves' half,
+    with FSDP on (1, 2, 1) and ``pure_dp`` with FSDP on 2 half of a dim of
+    each leaf of two or more dims, the norms whole."""
     from repro_torch.models import build_model
 
     arch, shape, over = ACCEPTED[case]
