@@ -335,6 +335,20 @@ Phases (each raises on failure; none is caught):
    process: each ``procmesh.*`` range's share of a traced prompt pass and
    step, f32 parameter and moment GB beside the whole model's, step ms,
    peak and card GB.
+16. the roofline and the dry run (``launch/roofline.py``,
+   ``launch/dryrun.py``).  (a) rank 0 of the multi-pod production mesh
+   (2, 16, 16) dry-run at the published widths on meta tensors, on the
+   host: mixtral-8x7b ``prefill_32k`` through the plan and
+   megatron-moe-32e ``train_4k``; every key printed, ``params_total``,
+   ``params_active`` and ``model_flops_total`` gated against the config's
+   own counts.  (b) phase 8's megatron-moe-32e cell on its 4 processes:
+   rank 0's prompt pass under ``count()`` must equal the dry run of the
+   same cell and mesh exactly (FLOPs, bytes, kernels, collectives by op
+   and tier), and must not with ``grouped_matmul``'s report removed in the
+   processes (the planted fault).  (c) phase 4's stacked mixtral-8x7b
+   plan prefill under ``count()``, beside the same step's count on meta
+   tensors: its compute, memory and collective terms, the dominant one
+   and its measured time.
 
 Every bf16 serving and training run must launch grouped_matmul on its TMA +
 wgmma instance alone (``grouped_matmul.launches_by_variant``), training its
@@ -373,8 +387,6 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, no TF32
 ARCH, N_LAYERS = "megatron-moe-32e", 4
 MIX_ARCH, MIX_LAYERS = "mixtral-8x7b", 4
 MESH = (2, 16, 1)
@@ -545,6 +557,15 @@ SPF_PATH = "megatron-moe-32e sp+fsdp procs (1,2,4)"
 SPF_TRAIN_PATH = "megatron-moe-32e sp+fsdp train procs (1,2,4)"
 FSDP_PATH = "qwen3-0.6b pure_dp+fsdp procs (1,2,2)"
 FSDP_TRAIN_PATH = "qwen3-0.6b pure_dp+fsdp train procs (1,2,2)"
+# phase 16: the roofline and the dry run.  (a) rank 0 of the multi-pod
+# production mesh (2, 16, 16) at the published widths on meta tensors, the
+# DRY_CELLS (arch, shape, exchange); (b) phase 8's megatron-moe-32e cell on
+# its 4 processes, rank 0's prompt pass counted against the dry run of the
+# same cell and mesh (ROOF_GEN - 1 decode steps served after); (c) phase
+# 4's stacked mixtral-8x7b plan prefill counted, and timed over ROOF_RUNS
+DRY_CELLS = (("mixtral-8x7b", "prefill_32k", "plan"),
+             ("megatron-moe-32e", "train_4k", None))
+ROOF_GEN, ROOF_RUNS = 3, 3
 # phase 9's f32 gate: an element whose oracle gradient stays within
 # NOISE_GRAD of its tensor slice's largest, every step, lies at the f32
 # noise floor of the gradient sums (the processes' and the stacked mesh's
@@ -824,31 +845,52 @@ def check_unpack(torch, k, y, idx, block_rows, n_out, trash=None,
     return err
 
 
+def roofline():
+    """The port's roofline module: the H100's rates and the kernels'
+    formulas (operations and bytes of a call), which the bounds here and
+    ``count()`` share."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.launch import roofline as R
+
+    return R
+
+
+def hbm_bytes_per_s() -> float:
+    return roofline().HBM_BW
+
+
+def peak_ops_per_s() -> dict:
+    """Dense peak operations a second by dtype name (no TF32)."""
+    return roofline().PEAK_FLOPS_BY_DTYPE
+
+
+def bound_of(cost, dtype_name="bfloat16"):
+    """(bound ms, what bounds it) of a call of ``cost`` (operations,
+    bytes): the larger of the operations at the dtype's peak and the bytes
+    at the HBM rate."""
+    flops, nbytes = cost
+    t_ops = flops / peak_ops_per_s()[dtype_name] * 1e3
+    t_bytes = nbytes / hbm_bytes_per_s() * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def gmm_bound(x, w):
     """(bound ms, what bounds it) of ``x [E, C, D] @ w [E, D, F]`` in bf16."""
     ee, c, dd = x.shape
-    ff = w.shape[2]
-    t_ops = 2 * ee * c * dd * ff / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    t_bytes = (x.numel() + w.numel() + ee * c * ff) * 2 \
-        / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return bound_of(roofline().gmm_cost(ee, c, dd, w.shape[2], 2))
 
 
 def band_pairs(s, causal, window) -> int:
     """Visible (query, key) pairs of one head of S tokens."""
-    q = np.arange(s, dtype=np.int64)
-    hi = q if causal else np.full(s, s - 1, np.int64)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
+    return roofline().band_pairs(s, causal, window)
 
 
 def attn_bound(b, h, kv, s, d, causal, window, dtype_name, elem):
     """(bound ms, what bounds it) of one flash_attention call: 4 * D
     operations per visible pair and head; q, k, v read and o written once."""
-    t_ops = 4 * b * h * d * band_pairs(s, causal, window) \
-        / PEAK_OPS_PER_S[dtype_name] * 1e3
-    t_bytes = (2 * b * h + 2 * b * kv) * s * d * elem / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return bound_of(roofline().attn_cost(b, h, kv, s, d, causal, window,
+                                         elem), dtype_name)
 
 
 def exchange_rows(torch, mesh_shape, plan):
@@ -1076,7 +1118,8 @@ def phase_kernels(torch):
                                      f"{d} bf16",
                             **copy_times(torch, k, x, idx, block, d, n_out,
                                          unpack),
-                            "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+                            "bound_ms": bound_of(roofline().copy_cost(
+                                nbytes))[0],
                             "bound_by": "bytes", "instance": want[kname]}
                         entry["ratio_to_library"] = (entry["ms"]
                                                      / entry["library_ms"])
@@ -2002,11 +2045,8 @@ def attn_bwd_bound(b, h, kv, s, d, causal, window, dtype_name, elem):
     """(bound ms, what bounds it) of one flash_attention_bwd call: 10 * D
     operations per visible pair and head; q, o, dO, k, v and the f32 lse
     read once, dq, dk, dv written once."""
-    t_ops = 10 * b * h * d * band_pairs(s, causal, window) \
-        / PEAK_OPS_PER_S[dtype_name] * 1e3
-    t_bytes = ((4 * b * h + 4 * b * kv) * s * d * elem + 4 * b * h * s) \
-        / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return bound_of(roofline().attn_bwd_cost(b, h, kv, s, d, causal, window,
+                                             elem), dtype_name)
 
 
 def forced_bwd(q, k, v, o, lse, do, causal, window, name):
@@ -3925,7 +3965,7 @@ def pmean_local():
 
 def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
                    batch=TRAIN_BATCH, noise_unit="process",
-                   seq=F32_TRAIN_SEQ, fault_peers=False):
+                   seq=F32_TRAIN_SEQ, fault_peers=False, watch=None):
     """One rank of phase 9 (b): the first step's gradients under the
     planted fault ``plant()`` (default: ``pmean``'s backward a local ``1 /
     n``; no update),
@@ -3936,7 +3976,12 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
     thresholds), of those inside it, and of two planted controls on that
     class, its update skipped (the initial value) and its sign flipped.
     With ``fault_peers`` also the digests of the faulty step's gradients
-    of the leaves replicated over "model" (``fault_peers``)."""
+    of the leaves replicated over "model" (``fault_peers``).  With
+    ``watch`` ((leaf, global index or None)) also, under ``"watch"`` of
+    that leaf, one element's synced gradient each step beside the
+    oracle's, and its update beside the oracle's: the element at the index,
+    where this process holds it, or this process's worst strict element of
+    the leaf."""
     import torch
 
     from repro_torch.launch.train import (init_train_state, make_train_step,
@@ -3978,9 +4023,14 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
         launches.append(read_launches(kernels))
         return res
 
-    with GradSpy(on_grads=lambda i, g: grad_stats(
-            torch, mesh, specs, g, want["grads"][i])) as spy, \
-            RouteRecorder() as rec:
+    watched = []
+
+    def on_grads(i, g):
+        if watch is not None:
+            watched.append(g[watch[0]].detach().to("cpu", copy=True))
+        return grad_stats(torch, mesh, specs, g, want["grads"][i])
+
+    with GradSpy(on_grads=on_grads) as spy, RouteRecorder() as rec:
         res = train(each_step=each)
     grads, card = spy.grads, card_used_gb(torch)
     free(torch)   # the steps' cached blocks, before the reading below
@@ -4068,6 +4118,9 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
                              zip(mine, tops["process"])],
             "update": float(p[idx].cpu() - x[idx]),
             "oracle_update": float(w[idx].cpu() - x[idx])}
+        if watch is not None and watch[0] == k:
+            e["watch"] = watch_element(torch, mesh, specs[k], want, k, p, x,
+                                       watched, watch[1], idx)
         params[k] = e
         del x, tops
     # release the parent's tensors now, not at this process's exit, so the
@@ -4079,6 +4132,30 @@ def f32_proc_child(mesh, cfg, shards, train, want, plant=pmean_local,
             "fault": fault, "fault_peers": peers, "coords": mesh.rank_coords,
             "params": params, "launches": launches,
             "routes": [e.cpu() for e in rec.eids], "card_gb": card}
+
+
+def watch_element(torch, mesh, spec, want, k, p, x, watched, where, worst):
+    """``f32_proc_child``'s watched element of leaf ``k``: its global
+    index ``where`` (None: this process's worst strict element, local index
+    ``worst``); its synced gradient each step (``watched``: this process's
+    copies) beside the oracle's, its update beside the oracle's; None where
+    this process does not hold it."""
+    from repro_torch.launch.shardings import _slices
+
+    full = tuple(want["final"][k].shape)
+    starts = [sl.start or 0 for sl in _slices(full, spec, mesh,
+                                              mesh.rank_coords)]
+    where = tuple(a + i for a, i in zip(starts, worst)) if where is None \
+        else tuple(int(i) for i in where)
+    local = tuple(g - a for g, a in zip(where, starts))
+    if not all(0 <= i < n for i, n in zip(local, p.shape)):
+        return None
+    return {"index": list(where), "rank": mesh.rank,
+            "grads": [float(g[local]) for g in watched],
+            "oracle_grads": [float(m[k][where]) for m in want["grads"]],
+            "init": float(x[local]),
+            "update": float(p[local].cpu() - x[local]),
+            "oracle_update": float(want["final"][k][where].cpu() - x[local])}
 
 
 def rel_norms(stats):
@@ -4097,7 +4174,7 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
                          label="train-procs", plant=pmean_local,
                          fault_name="pmean's backward a local 1 / n",
                          batch=TRAIN_BATCH, noise_unit="process", cfg=None,
-                         seq=F32_TRAIN_SEQ):
+                         seq=F32_TRAIN_SEQ, watch=None, outs=None):
     """Phase 9 (b): 1 layer in f32 (``cfg``, default megatron-moe-32e's;
     phase 13's internvl2-1b and whisper-tiny), ``batch`` (TRAIN_BATCH) x
     ``seq`` (F32_TRAIN_SEQ) tokens, F32_PROC_STEPS steps on the processes
@@ -4116,7 +4193,9 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
     vocabulary is 1/16 of it); the other unit's reading is logged.  A
     leaf initialised at zero (an encoder-decoder's LayerNorm and MLP
     biases) holds its updates alone: its elements join the noise class
-    (``f32_proc_child``), their strict reading is logged."""
+    (``f32_proc_child``), their strict reading is logged.  ``watch`` reaches
+    ``f32_proc_child``; ``outs``, a list, receives the processes' results
+    before the gates read them."""
     from repro_torch.launch.train import train_procs
 
     cfg = cfg or train_config(n_layers=1, compute_dtype="float32")
@@ -4127,11 +4206,14 @@ def train_procs_f32_gate(torch, kernels, shape=PROC_MESH,
                       proc_train_options(F32_PROC_STEPS), F32_PROC_STEPS,
                       hook=functools.partial(f32_proc_child, want=want,
                                              plant=plant, batch=batch,
-                                             noise_unit=noise_unit, seq=seq),
+                                             noise_unit=noise_unit, seq=seq,
+                                             watch=watch),
                       timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
     del want
     free(torch)
     torch.cuda.ipc_collect()  # the oracle's tensors the processes mapped
+    if outs is not None:
+        outs.append(res)
     return f32_gate_check(torch, oracle, res["ranks"], res["metrics"],
                           shape, label, fault_name, batch, seq, cfg,
                           noise_unit)
@@ -8522,6 +8604,257 @@ def phase_spf(torch, kernels):
     return serving, train, summary
 
 
+@contextlib.contextmanager
+def unreported(name):
+    """Phase 16 (b)'s planted fault: kernel ``name``'s wrapper neither
+    reports its formula to ``count()`` nor hides its own work (its launch
+    goes unseen on the card)."""
+    module = sys.modules[{
+        "grouped_matmul": "repro_torch.kernels.grouped_matmul.grouped_matmul",
+        "flash_attention":
+            "repro_torch.kernels.flash_attention.flash_attention"}[name]]
+    real = module._counted
+    module._counted = lambda kernel, cost: contextlib.nullcontext() \
+        if kernel == name else real(kernel, cost)
+    try:
+        yield
+    finally:
+        module._counted = real
+
+
+def roofline_child(mesh, cfg, shards, rows, serve_cli, plan, cache_len):
+    """One rank of phase 16 (b): this process's prompt pass (the step
+    ``serve_procs`` runs) under ``count()``, then again with
+    ``grouped_matmul``'s report removed (the planted fault), then the serve
+    the hook owes."""
+    from repro_torch.launch.roofline import count
+    from repro_torch.launch.serve import make_prefill_step
+
+    import torch
+
+    step = make_prefill_step(cfg, mesh, "plan", plan, cache_len=cache_len)
+    batch = {"tokens": rows}
+    with count() as sound:
+        step(shards[0], batch)
+    torch.cuda.synchronize()
+    with unreported("grouped_matmul"), count() as fault:
+        step(shards[0], batch)
+    torch.cuda.synchronize()
+    serve_cli()
+    return {"rank": mesh.rank, "counts": sound.summary(),
+            "fault": fault.summary()}
+
+
+def counted_ops(run):
+    """``run()`` under ``count()``: the counts, and the bytes by aten op."""
+    import collections
+
+    from repro_torch.launch import roofline as R
+
+    by_op, real = collections.Counter(), R._op_bytes
+
+    def spy(func, args, kwargs, out, lifted=None):
+        n = real(func, args, kwargs, out, lifted)
+        by_op[str(func)] += n
+        return n
+
+    R._op_bytes = spy
+    try:
+        with R.count() as c:
+            run()
+    finally:
+        R._op_bytes = real
+    return c, by_op
+
+
+def log_counts(label, c):
+    coll = c["collectives"]
+    log(f"{label}: FLOPs {c['flops']}, bytes {c['bytes']}; kernels "
+        + ", ".join(f"{k} {v['calls']} calls ({v['flops']} FLOPs, "
+                    f"{v['bytes']} bytes)" for k, v in c["kernels"].items())
+        + f"; {coll['count']} collectives, wire bytes ici "
+        f"{coll['ici_bytes']} dcn {coll['dcn_bytes']}, by op and tier "
+        f"{json.dumps(coll['by_tier'])}")
+
+
+def phase_dryrun_cells(torch):
+    """Phase 16 (a): DRY_CELLS dry-run on rank 0 of the multi-pod
+    production mesh; each key printed, ``params_total``, ``params_active``
+    and ``model_flops_total`` gated against the config's own counts."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch, shape_name, impl in DRY_CELLS:
+        t0 = time.perf_counter()
+        res = run_cell(arch, shape_name, "multi", impl)
+        wall = time.perf_counter() - t0
+        label = f"roofline[dry {arch} {shape_name} multi"
+        label += f" {impl}]" if impl else "]"
+        if res["status"] != "ok":
+            raise AssertionError(f"{label}: {res.get('error')}\n"
+                                 f"{res.get('traceback')}")
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        tokens = shape.global_batch * (shape.seq_len
+                                       if shape.kind != "decode" else 1)
+        per_token = {"train": 6.0}.get(shape.kind, 2.0)
+        want = {"params_total": cfg.n_params(),
+                "params_active": cfg.n_active_params(),
+                "model_flops_total": per_token * cfg.n_active_params()
+                * tokens}
+        module = sum(p.numel() for p in build_model(cfg, "meta").init(
+            torch.Generator()).parameters())
+        for key, value in res.items():
+            if key not in ("arch", "shape", "mesh"):
+                log(f"{label}: {key} = {json.dumps(value)}")
+        log(f"{label}: {wall:.1f} s on the host; the module holds {module} "
+            f"parameters (the config counts {cfg.n_params()}: norms "
+            f"and biases aside)")
+        bad = {k: (res[k], v) for k, v in want.items() if res[k] != v}
+        if bad or res["flops_per_chip"] <= 0 or res["bytes_per_chip"] <= 0:
+            raise AssertionError(f"{label}: against the config's counts "
+                                 f"{bad}")
+        out[f"{arch} {shape_name}"] = {
+            "run_s": wall, "roofline": res["roofline"],
+            "flops_per_chip": res["flops_per_chip"],
+            "bytes_per_chip": res["bytes_per_chip"],
+            "useful_flop_ratio": res["useful_flop_ratio"],
+            "memory": res["memory"], "collectives": res["collectives"]}
+    return out
+
+
+def phase_roofline_procs(torch):
+    """Phase 16 (b): phase 8's megatron-moe-32e cell on the processes of
+    PROC_MESH sharing the card; rank 0's counted prompt pass must equal the
+    dry run of the same cell and mesh exactly (FLOPs, bytes, kernels,
+    collectives by op and tier), and with ``grouped_matmul``'s report
+    removed in the processes must not."""
+    from repro_torch.launch.dryrun import dry_counts
+    from repro_torch.launch.serve import flash_plan, serve_procs
+
+    cfg = serve_config()
+    plan = flash_plan(PROC_MESH[0], PROC_MESH[1], SEED)
+    prompts = stack_prompts(torch, cfg, PROC_BATCH, PROMPT)
+    cache_len = PROMPT + ROOF_GEN
+    t0 = time.perf_counter()
+    want, _ = dry_counts(cfg, "prefill", PROMPT, PROC_BATCH, PROC_MESH,
+                         AXES, "plan", plan, cache_len=cache_len)
+    want = want.summary()
+    t_dry = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = serve_procs(cfg, [stack_params(torch, cfg)], prompts, PROC_MESH,
+                      PROC_BACKEND, DEVICE, "plan", plan, ROOF_GEN,
+                      hook=functools.partial(roofline_child, plan=plan,
+                                             cache_len=cache_len),
+                      timeout=PROC_TIMEOUT_S, join_timeout=PROC_JOIN_S)
+    t_procs = time.perf_counter() - t0
+    free(torch)
+    torch.cuda.ipc_collect()
+    r0 = next(r for r in res["ranks"] if r["rank"] == 0)
+    label = (f"roofline[procs {cfg.name} {cfg.n_layers} layers "
+             f"{PROC_MESH}, {PROC_BATCH} x {PROMPT} prompt pass, rank 0]")
+    log_counts(f"{label} on the card", r0["counts"])
+    log_counts(f"{label} dry run", want)
+    log_counts(f"{label} planted fault, grouped_matmul unreported",
+               r0["fault"])
+    tiers = {t for by in want["collectives"]["by_tier"].values()
+             for t, v in by.items() if v}
+    equal = r0["counts"] == want
+    refused = r0["fault"] != want
+    log(f"{label}: the card's counts {'equal' if equal else 'DIFFER FROM'} "
+        f"the dry run's (tiers {sorted(tiers)}); the planted fault "
+        f"{'is refused' if refused else 'PASSES'}; dry run {t_dry:.1f} s, "
+        f"the processes {t_procs:.1f} s")
+    if not equal:
+        diff = {k: (r0["counts"][k], want[k]) for k in want
+                if r0["counts"][k] != want[k]}
+        raise AssertionError(f"{label}: the card's counts differ from the "
+                             f"dry run's: {diff}")
+    if not refused or tiers != {"ici", "dcn"}:
+        raise AssertionError(f"{label}: planted fault refused {refused}, "
+                             f"tiers {tiers}")
+    return {"flops": want["flops"], "bytes": want["bytes"],
+            "collectives": want["collectives"], "dry_s": t_dry,
+            "processes_s": t_procs,
+            "fault_flops": r0["fault"]["flops"]}
+
+
+def phase_roofline_mixtral(torch, smi):
+    """Phase 16 (c): phase 4's stacked mixtral-8x7b plan prefill (MESH on
+    the card) under ``count()``: its roofline terms beside its measured
+    time (host clock to a synchronize, after a warm-up; ROOF_RUNS runs)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import HW, count, roofline_terms
+    from repro_torch.launch.serve import flash_plan, make_prefill_step
+
+    cfg = mixtral_config()
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(MESH, AXES, dev)
+    plan = flash_plan(MESH[0], MESH[1], SEED)
+    params = stack_params(torch, cfg)
+    prompts = stack_prompts(torch, cfg, BATCH, MIX_PROMPT)
+    step = make_prefill_step(cfg, mesh, "plan", plan,
+                             cache_len=MIX_PROMPT + GEN)
+    batch = {"tokens": prompts}
+    step(params, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ROOF_RUNS):
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    c, by_op = counted_ops(lambda: step(params, batch))
+    torch.cuda.synchronize()
+    del params
+    free(torch)
+    # the same step on meta tensors, as the dry run would count it
+    meta_mesh = make_mesh(MESH, AXES, "meta")
+    meta = make_prefill_step(cfg, meta_mesh, "plan", plan,
+                             cache_len=MIX_PROMPT + GEN, device="meta")
+    from repro_torch.models import build_model
+
+    meta_params = build_model(cfg, "meta").init(torch.Generator())
+    m, meta_by_op = counted_ops(lambda: meta(meta_params, {
+        "tokens": torch.empty(prompts.shape, dtype=prompts.dtype,
+                              device="meta")}))
+    terms = roofline_terms(c.flops, c.bytes, c.collectives, HW())
+    label = (f"roofline[stacked {cfg.name} {cfg.n_layers} layers {MESH}, "
+             f"plan prefill {BATCH} x {MIX_PROMPT}]")
+    log_counts(label, c.summary())
+    apart = {k: (by_op[k], meta_by_op[k]) for k in set(by_op) | set(
+        meta_by_op) if by_op[k] != meta_by_op[k]}
+    log(f"{label}: on meta tensors FLOPs {m.flops}, bytes {m.bytes}: "
+        + ("the card's counts" if c.summary() == m.summary()
+           else f"apart from the card's, by op (card, meta) "
+                f"{json.dumps(apart)}"))
+    bound_ms = max(terms["compute_s"], terms["memory_s"],
+                   terms["collective_s"]) * 1e3
+    log(f"{label}: compute_s {terms['compute_s']:.6f}, memory_s "
+        f"{terms['memory_s']:.6f}, collective_s {terms['collective_s']:.6f} "
+        f"(a stacked mesh's exchange is device copies: no process "
+        f"collective), dominant {terms['dominant']}; measured prefill "
+        f"{statistics.median(times):.3f} ms (median of {ROOF_RUNS}: "
+        f"{', '.join(f'{t:.3f}' for t in times)}), "
+        f"{statistics.median(times) / bound_ms:.3f}x the bound; on {smi}")
+    return {"roofline": terms, "flops": c.flops, "bytes": c.bytes,
+            "meta_equal": c.summary() == m.summary(),
+            "prefill_ms": times, "bound_ms": bound_ms}
+
+
+def phase_roofline(torch, smi):
+    """Phase 16: the roofline and the dry run, (a) to (c)."""
+    out = {}
+    for key, fn in (("a", phase_dryrun_cells), ("b", phase_roofline_procs),
+                    ("c", functools.partial(phase_roofline_mixtral,
+                                            smi=smi))):
+        t0 = time.perf_counter()
+        out[key] = fn(torch)
+        log(f"phase roofline ({key}): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 RATIO_LIMITS = {"grouped_matmul prefill": 2.5, "grouped_matmul decode": 3.0,
                 "flash_attention mixtral-8x7b prefill": 3.5,
                 "flash_attention mixtral-8x7b long prefill": 1.5,
@@ -8706,6 +9039,14 @@ def main() -> int:
     spf_launches, spf_train_launches, spf = phase_spf(torch, kernels)
     launches.update(spf_launches)
     log(f"phase spf: {time.perf_counter() - t0:.1f} s; {json.dumps(spf)}")
+
+    # 16. the roofline and the dry run: two full-width cells on one rank of
+    # the multi-pod production mesh, phase 8's cell counted on its
+    # processes against the dry run, phase 4's plan prefill's terms
+    t0 = time.perf_counter()
+    roof = phase_roofline(torch, smi)
+    log(f"phase roofline: {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(roof)}")
 
     # Each kernel's count is that of the megatron-moe-32e training cell for
     # grouped_matmul and both attention kernels, mixtral's plan run for

@@ -22,7 +22,11 @@ written over the HBM rate; the TPU kernel's 128-lane pad-and-slice and
 8-row sublane tiling have no counterpart here.
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the chosen instance or raises.  ``launches`` on each wrapper counts kernel
+the chosen instance or raises; a meta tensor, taken only while
+``launch/roofline.count()`` is active (the dry run), gets an empty output of
+the right shape.  Each call reports its bytes to ``launch/roofline.count()``
+(``copy_cost``: the moved blocks read and written once), and nothing run
+inside it is counted.  ``launches`` on each wrapper counts kernel
 launches, ``launches_by_variant`` the same by instance.
 
 Neither wrapper has a gradient, on either device: under autograd (an input
@@ -40,6 +44,8 @@ from typing import Optional
 import torch
 
 from ... import _build
+from ...launch.roofline import copy_cost, devices
+from ...launch.roofline import counted as _counted
 from .ref import a2a_pack_ref, a2a_unpack_ref
 
 __all__ = ["a2a_pack", "a2a_unpack", "variant", "BULK_MIN_BYTES"]
@@ -75,9 +81,9 @@ def _fn():
 def _check(x: torch.Tensor, idx: torch.Tensor) -> None:
     """What the kernel takes, checked on every device so that a CPU run
     finds what the card would refuse."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"a2a kernels take CPU or CUDA tensors, not "
-                         f"{x.device}")
+    if x.device.type not in devices():
+        raise ValueError(f"a2a kernels take CPU or CUDA tensors (and meta "
+                         f"ones while counting), not {x.device}")
     if x.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"need x [N, D] and idx [M], got {tuple(x.shape)} "
                          f"and {tuple(idx.shape)}")
@@ -155,11 +161,16 @@ def _pack(x: torch.Tensor, idx: torch.Tensor, block_rows: int
     r = block_rows
     if r < 1 or n % r != 0:
         raise ValueError(f"block_rows={r} must divide N={n}")
-    if x.device.type == "cpu":
-        return a2a_pack_ref(x, idx, block_rows=r)
-    out = torch.empty((idx.shape[0] * r, d), dtype=x.dtype, device=x.device)
-    name = _block_copy(x, out, idx, n // r, r * d * x.element_size(),
-                       scatter=False)
+    with _counted("a2a_pack",
+                  copy_cost(idx.shape[0] * r * d * x.element_size())):
+        if x.device.type == "cpu":
+            return a2a_pack_ref(x, idx, block_rows=r)
+        out = torch.empty((idx.shape[0] * r, d), dtype=x.dtype,
+                          device=x.device)
+        if x.device.type == "meta":
+            return out
+        name = _block_copy(x, out, idx, n // r, r * d * x.element_size(),
+                           scatter=False)
     a2a_pack.launches += 1
     a2a_pack.launches_by_variant[name] += 1
     return out
@@ -187,11 +198,14 @@ def _unpack(x: torch.Tensor, idx: torch.Tensor, n_out_blocks: int,
     if r < 1 or n != m * r:
         raise ValueError(f"x rows {n} != M*block_rows = {m}*{r}")
     n_out = max(m, n_out_blocks)
-    if x.device.type == "cpu":
-        return a2a_unpack_ref(x, idx, n_out_blocks=n_out, block_rows=r)
-    out = torch.empty((n_out * r, d), dtype=x.dtype, device=x.device)
-    name = _block_copy(x, out, idx, n_out, r * d * x.element_size(),
-                       scatter=True)
+    with _counted("a2a_unpack", copy_cost(n * d * x.element_size())):
+        if x.device.type == "cpu":
+            return a2a_unpack_ref(x, idx, n_out_blocks=n_out, block_rows=r)
+        out = torch.empty((n_out * r, d), dtype=x.dtype, device=x.device)
+        if x.device.type == "meta":
+            return out
+        name = _block_copy(x, out, idx, n_out, r * d * x.element_size(),
+                           scatter=True)
     a2a_unpack.launches += 1
     a2a_unpack.launches_by_variant[name] += 1
     return out

@@ -43,7 +43,12 @@ written by one block, no atomics) and holds two instances, which
 autograd, on both devices.
 
 A CPU tensor goes to the plain versions in ``ref.py``; a CUDA tensor
-launches the kernel or raises.  ``flash_attention.launches`` and
+launches the kernel or raises; meta tensors, taken only while
+``launch/roofline.count()`` is active (the dry run), get empty outputs of the
+right shapes.  Each call reports its cost to ``launch/roofline.count()``
+(``attn_cost``, ``attn_bwd_cost``: 4·D and 10·D operations per visible pair
+and head), and nothing run inside it is counted.
+``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches,
 ``flash_attention_bwd.launches_by_variant`` the latter by instance.
 """
@@ -56,6 +61,8 @@ from typing import Optional
 import torch
 
 from ... import _build
+from ...launch.roofline import attn_bwd_cost, attn_cost, devices
+from ...launch.roofline import counted as _counted
 from .ref import attention_lse_ref, flash_attention_bwd_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd",
@@ -98,10 +105,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"match q {tuple(q.shape)}")
     if kv < 1 or h % kv:
         raise ValueError(f"GQA needs H % K == 0, got H={h}, K={kv}")
-    if q.device.type not in ("cpu", "cuda") or not (
+    if q.device.type not in devices() or not (
             k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention takes CPU or CUDA tensors on one "
-                         f"device, got {q.device}, {k.device}, {v.device}")
+        raise ValueError(f"flash_attention takes CPU or CUDA tensors (and "
+                         f"meta ones while counting) on one device, got "
+                         f"{q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or not (k.dtype == q.dtype
                                       and v.dtype == q.dtype):
         raise ValueError(f"flash_attention takes f32 or bf16 q, k, v of one "
@@ -138,19 +146,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     _check(q, k, v, window)
     b, h, s, d = q.shape
-    o = _bshd_output(q)
-    if q.device.type == "cpu":
-        out, lse = attention_lse_ref(q, k, v, causal=causal, window=window)
-        o.copy_(out)
-        return (o, lse) if return_lse else o
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
-        if return_lse else None
-    rc = _build.launch(_fn(), q.device, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), o.data_ptr(), _strides(q, k, v, o), b,
-                       h, k.shape[1], s, d, int(causal),
-                       -1 if window is None else int(window), 1.0 / d ** 0.5,
-                       _DTYPES[q.dtype],
-                       None if lse is None else lse.data_ptr())
+    with _counted("flash_attention", attn_cost(
+            b, h, k.shape[1], s, d, causal, window, q.element_size())):
+        o = _bshd_output(q)
+        if q.device.type == "cpu":
+            out, lse = attention_lse_ref(q, k, v, causal=causal,
+                                         window=window)
+            o.copy_(out)
+            return (o, lse) if return_lse else o
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
+            if return_lse else None
+        if q.device.type == "meta":
+            return (o, lse) if return_lse else o
+        rc = _build.launch(_fn(), q.device, q.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), o.data_ptr(), _strides(q, k, v, o),
+                           b, h, k.shape[1], s, d, int(causal),
+                           -1 if window is None else int(window),
+                           1.0 / d ** 0.5, _DTYPES[q.dtype],
+                           None if lse is None else lse.data_ptr())
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     flash_attention.launches += 1
@@ -243,12 +256,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, K, S, D]`` in the inputs' dtype, each a view of ``[B, S, ., D]``
     memory (the layout of the projections they flow back into).  On the
     card the instance is ``variant``'s for these inputs."""
-    o, do, lse = _bwd_inputs(q, k, v, o, lse, do, window)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       window=window)
-    name = variant(q.dtype, q.shape[-1], rows_aligned(q, k, v, o, do))
-    out = _bwd_call(q, k, v, o, lse, do, causal, window, name)
+    b, h, s, d = q.shape
+    with _counted("flash_attention_bwd", attn_bwd_cost(
+            b, h, k.shape[1], s, d, causal, window, q.element_size())):
+        o, do, lse = _bwd_inputs(q, k, v, o, lse, do, window)
+        grads = _bshd_output(q), _bshd_output(k), _bshd_output(v)
+        if q.device.type == "cpu":
+            # in the kernel's layout, as the forward's output
+            for g, ref in zip(grads, flash_attention_bwd_ref(
+                    q, k, v, o, lse, do, causal=causal, window=window)):
+                g.copy_(ref)
+            return grads
+        if q.device.type == "meta":
+            return grads
+        name = variant(q.dtype, q.shape[-1], rows_aligned(q, k, v, o, do))
+        out = _bwd_call(q, k, v, o, lse, do, causal, window, name)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_variant[name] += 1
     return out

@@ -17,7 +17,11 @@ and ``variant`` picks one by dtype and shape alone:
 
 Every instance skips the K loop of a row tile wholly past ``counts[e]``.
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  ``grouped_matmul.launches`` counts kernel launches,
+the kernel or raises; a meta tensor, taken only while
+``launch/roofline.count()`` is active (the dry run), gets an empty output of
+the right shape.  Each call reports its cost to ``launch/roofline.count()``
+(``gmm_cost``: 2·E·C·D·F operations, padded rows included), and nothing run
+inside it is counted.  ``grouped_matmul.launches`` counts kernel launches,
 ``grouped_matmul.launches_by_variant`` the same by instance.
 
 ``transpose_x`` / ``transpose_w`` multiply by ``x^T`` / ``w^T`` of the
@@ -48,6 +52,8 @@ from typing import Optional
 import torch
 
 from ... import _build
+from ...launch.roofline import counted as _counted
+from ...launch.roofline import devices, gmm_cost
 from .ref import grouped_matmul_ref
 
 __all__ = ["grouped_matmul", "grouped_matmul_autograd", "variant"]
@@ -107,9 +113,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     if counts is not None and tuple(counts.shape) != (e,):
         raise ValueError(f"counts must be [{e}], got {tuple(counts.shape)}")
     # checked on every device, so that a CPU run finds what the card refuses
-    if x.device.type not in ("cpu", "cuda") or w.device != x.device:
-        raise ValueError(f"grouped_matmul takes CPU or CUDA tensors on one "
-                         f"device, got {x.device} and {w.device}")
+    if x.device.type not in devices() or w.device != x.device:
+        raise ValueError(f"grouped_matmul takes CPU or CUDA tensors (and "
+                         f"meta ones while counting) on one device, got "
+                         f"{x.device} and {w.device}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise ValueError(f"grouped_matmul takes f32 or bf16 x and w of one "
                          f"dtype, got {x.dtype} and {w.dtype}")
@@ -121,24 +128,26 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                                or counts.device != x.device
                                or not counts.is_contiguous()):
         raise ValueError("counts must be contiguous int32 on x's device")
-    if x.device.type == "cpu":
-        return grouped_matmul_ref(xs, ws, counts)
-    fn = _fn()
-    y = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
-    name = variant(x.dtype, d, f, all(t.data_ptr() % 16 == 0
-                                      for t in (x, w, y)),
-                   c if transpose_x else 0)
-    if name != "tma" and (transpose_x or transpose_w):
-        # only the TMA instance reads a transposed operand in place
-        x, w = xs.contiguous(), ws.contiguous()
-        transpose_x = transpose_w = False
+    with _counted("grouped_matmul", gmm_cost(e, c, d, f, x.element_size())):
+        if x.device.type == "cpu":
+            return grouped_matmul_ref(xs, ws, counts)
+        y = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+        if x.device.type == "meta":
+            return y
         name = variant(x.dtype, d, f, all(t.data_ptr() % 16 == 0
-                                          for t in (x, w, y)))
-    rc = _build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
-                       y.data_ptr(),
-                       None if counts is None else counts.data_ptr(),
-                       e, c, d, f, _VARIANTS[name],
-                       int(transpose_x) | 2 * int(transpose_w))
+                                          for t in (x, w, y)),
+                       c if transpose_x else 0)
+        if name != "tma" and (transpose_x or transpose_w):
+            # only the TMA instance reads a transposed operand in place
+            x, w = xs.contiguous(), ws.contiguous()
+            transpose_x = transpose_w = False
+            name = variant(x.dtype, d, f, all(t.data_ptr() % 16 == 0
+                                              for t in (x, w, y)))
+        rc = _build.launch(_fn(), x.device, x.data_ptr(), w.data_ptr(),
+                           y.data_ptr(),
+                           None if counts is None else counts.data_ptr(),
+                           e, c, d, f, _VARIANTS[name],
+                           int(transpose_x) | 2 * int(transpose_w))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul ({name}) launch failed: "
                            f"cudaError {rc}")

@@ -22,6 +22,13 @@ pair reversed; ``pmean`` of the cotangents over the group).
 coordinates; ``local_size``, ``local_shape`` and ``local_coords()`` are those
 of the ranks this process holds (all of them on a ``LocalMesh``, its own on a
 ``ProcessMesh``).
+
+Each process collective reports itself to ``launch/roofline.count()`` (the
+op, the group's size, its operand's bytes and the tier, ``pod`` among the
+axes being the slow one) before it moves anything.  ``dry_mesh`` is one
+rank's ``ProcessMesh`` with no world: on ``meta`` tensors, its collectives
+report and return empty results of the right shapes, so a rank's program
+runs at any width with no memory and no other process (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -33,9 +40,11 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from . import roofline
+
 __all__ = ["LocalMesh", "ProcessMesh", "make_mesh", "make_production_mesh",
            "parse_mesh",
-           "resolve_device", "dp_axes", "slow_axis", "all_to_all",
+           "dry_mesh", "resolve_device", "dp_axes", "slow_axis", "all_to_all",
            "ppermute", "axis_index", "pmean", "all_gather", "member_sum",
            "all_ranks"]
 
@@ -262,15 +271,19 @@ def parse_mesh(text: str) -> Tuple[int, int, int]:
 def make_production_mesh(*, multi_pod: bool = False, process: bool = False,
                          device: Union[str, torch.device] = "cuda",
                          backend: Optional[str] = None,
-                         init_method: Optional[str] = None):
+                         init_method: Optional[str] = None,
+                         dry: bool = False, rank: int = 0):
     """The reference's production shapes: ``(pod 2, data 16, model 16)``
     with ``multi_pod``, else ``(data 16, model 16)``.  ``process=False``
     stacks them on ``device`` as a ``LocalMesh``; ``process=True`` joins
     this process to a world of one process per rank
     (``procs.init_process_mesh``, which needs ``backend`` and reads the
-    rank from the environment) and returns its ``ProcessMesh``."""
+    rank from the environment) and returns its ``ProcessMesh``; ``dry``
+    returns rank ``rank``'s ``dry_mesh`` and starts nothing."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dry:
+        return dry_mesh(shape, axes, rank)
     if not process:
         return make_mesh(shape, axes, device)
     if backend is None:
@@ -279,6 +292,20 @@ def make_production_mesh(*, multi_pod: bool = False, process: bool = False,
     from .procs import init_process_mesh
 
     return init_process_mesh(shape, axes, backend, device, init_method)
+
+
+def dry_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+             rank: int = 0) -> ProcessMesh:
+    """Rank ``rank``'s ``ProcessMesh`` of ``shape`` with no world: on the
+    meta device, backend ``"dry"``, no process group.  Its collectives
+    report to ``roofline.count()`` as a joined rank's do and return empty
+    meta tensors of the right shapes; nothing is started."""
+    shape = tuple(int(s) for s in shape)
+    coords = tuple(int(c) for c in np.unravel_index(int(rank), shape))
+    return ProcessMesh(shape=shape, axis_names=tuple(axes),
+                       device=torch.device("meta"), rank=int(rank),
+                       backend="dry", root_shape=shape,
+                       root_axes=tuple(axes), root_coords=coords, groups={})
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
@@ -365,6 +392,8 @@ def all_gather(mesh, x: torch.Tensor, axes: AxisNames,
     (default: ``x``'s).  A gather to the host under gloo, whose transport
     is host memory, never lands on the card."""
     axes = _as_tuple(axes)
+    if isinstance(mesh, ProcessMesh) and mesh.backend == "dry":
+        out_device = None       # a dry mesh keeps every tensor on meta
     if out_device is not None:
         out_device = torch.device(out_device)
         if out_device.type == "cpu" and isinstance(mesh, ProcessMesh) \
@@ -460,6 +489,10 @@ def _staged(mesh: ProcessMesh, x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor's bytes (the transport moves them unchanged,
     whatever the dtype)."""
@@ -469,7 +502,10 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 def _proc_all_to_all(mesh: ProcessMesh, x: torch.Tensor,
                      axes: Tuple[str, ...], k: int, n: int,
                      span: str = "procmesh.all_to_all") -> torch.Tensor:
-    with torch.profiler.record_function(span):
+    roofline.collective("all-to-all", axes, n, _nbytes(x))
+    with torch.profiler.record_function(span), roofline.quiet():
+        if mesh.backend == "dry":
+            return torch.empty_like(x)
         group = mesh.group(axes)
         if group is None:
             return x.clone()
@@ -496,12 +532,17 @@ def _proc_all_to_all(mesh: ProcessMesh, x: torch.Tensor,
 def _proc_ppermute(mesh: ProcessMesh, x: torch.Tensor, axis: str,
                    pairs: Tuple[Tuple[int, int], ...],
                    span: str = "procmesh.ppermute") -> torch.Tensor:
-    with torch.profiler.record_function(span):
-        a = mesh.axis_names.index(axis)
-        me = mesh.rank_coords[a]
+    a = mesh.axis_names.index(axis)
+    me = mesh.rank_coords[a]
+    dst = {s: d for s, d in pairs}.get(me)
+    src = {d: s for s, d in pairs}.get(me)
+    if dst is not None and dst != me:     # what this rank sends
+        roofline.collective("collective-permute", (axis,),
+                            mesh.axis_size(axis), _nbytes(x))
+    with torch.profiler.record_function(span), roofline.quiet():
+        if mesh.backend == "dry":
+            return torch.empty_like(x)
         peers = mesh.members((axis,))        # world rank at each coordinate
-        dst = {s: d for s, d in pairs}.get(me)
-        src = {d: s for s, d in pairs}.get(me)
         # the world's group (its ranks are the world ranks), created with
         # the mesh's collective timeout
         world = mesh.groups.get(tuple(range(int(np.prod(mesh.root_shape)))))
@@ -533,7 +574,10 @@ def _proc_ppermute(mesh: ProcessMesh, x: torch.Tensor, axis: str,
 def _proc_pmean(mesh: ProcessMesh, x: torch.Tensor,
                 axes: Tuple[str, ...], span: str = "procmesh.pmean"
                 ) -> torch.Tensor:
-    with torch.profiler.record_function(span):
+    roofline.collective("all-reduce", axes, mesh.axis_size(axes), _nbytes(x))
+    with torch.profiler.record_function(span), roofline.quiet():
+        if mesh.backend == "dry":
+            return torch.empty_like(x)
         group = mesh.group(axes)
         if group is None:
             return x.clone()

@@ -147,7 +147,10 @@ def _route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
     gates, eids = gates[..., :k], eids[..., :k]                # [G, T, k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance aux loss (fraction * mean prob).
-    frac = F.one_hot(eids[..., 0], e).float().mean(1)          # [G, E]
+    # one_hot's, compared on every device alike (F.one_hot validates the
+    # ids on the host on the CPU, which a meta tensor cannot)
+    top1 = eids[..., 0, None] == torch.arange(e, device=eids.device)
+    frac = top1.float().mean(1)                                # [G, E]
     aux = e * (frac * probs.mean(1)).sum(-1)
     return gates.to(x_flat.dtype), eids, aux
 
@@ -411,7 +414,11 @@ def _moe_rows(cfg: ModelConfig, p: MoE, x: torch.Tensor,
         gates, eids, aux = _route(cfg, p.router, x_flat)
         cap = _capacity(cfg, b * s, e)
         buf, slot, keep = _dispatch(x_flat, eids, cap, e)
-        counts = torch.bincount(eids.reshape(-1), minlength=e) \
+        # each expert's routed rows (bincount's, by a scatter: its shape
+        # does not depend on the ids, so it runs on meta tensors too)
+        ids = eids.reshape(-1)
+        counts = torch.zeros(e, dtype=ids.dtype, device=ids.device) \
+            .index_add_(0, ids, torch.ones_like(ids)) \
             .clamp(max=cap).to(torch.int32)
         y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down,
                         buf.reshape(e, cap, d), counts, use_kernel, tp)

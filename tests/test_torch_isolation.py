@@ -25,7 +25,7 @@ def _copied_files():
                 for n in sorted(os.listdir(os.path.join(REF, sub)))
                 if n.endswith(".py")]
     return out + [os.path.join("analysis", n)
-                  for n in ("locks.py", "planlint.py")]
+                  for n in ("corpus.py", "locks.py", "planlint.py")]
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -57,8 +57,9 @@ def test_copied_host_file_is_identical(rel):
 
 def test_no_copy_beyond_the_listed_ones():
     """configs/, core/, data/ and serving/ hold exactly the reference's
-    files; analysis/ holds locks.py and planlint.py only (guards.py imports
-    the reference by name)."""
+    files; analysis/ holds the copies corpus.py, locks.py and planlint.py
+    and the port's own guards.py (its registry names the port's modules),
+    astlint.py (it walks the port's tree) and __main__.py."""
     for sub in ("configs", "core", "data", "serving"):
         ours = {n for n in os.listdir(os.path.join(PORT, sub))
                 if n.endswith(".py")}
@@ -66,8 +67,9 @@ def test_no_copy_beyond_the_listed_ones():
                   if n.endswith(".py")}
         assert ours == theirs, sub
     assert {n for n in os.listdir(os.path.join(PORT, "analysis"))
-            if n.endswith(".py")} == {"__init__.py", "locks.py",
-                                      "planlint.py"}
+            if n.endswith(".py")} == {"__init__.py", "__main__.py",
+                                      "astlint.py", "corpus.py", "guards.py",
+                                      "locks.py", "planlint.py"}
 
 
 def test_comm_layer_has_no_det001_finding():
