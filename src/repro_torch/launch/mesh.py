@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from .. import trace
 from . import roofline
 
 __all__ = ["LocalMesh", "ProcessMesh", "make_mesh", "make_production_mesh",
@@ -503,7 +504,7 @@ def _proc_all_to_all(mesh: ProcessMesh, x: torch.Tensor,
                      axes: Tuple[str, ...], k: int, n: int,
                      span: str = "procmesh.all_to_all") -> torch.Tensor:
     roofline.collective("all-to-all", axes, n, _nbytes(x))
-    with torch.profiler.record_function(span), roofline.quiet():
+    with trace.span(span), roofline.quiet():
         if mesh.backend == "dry":
             return torch.empty_like(x)
         group = mesh.group(axes)
@@ -539,7 +540,7 @@ def _proc_ppermute(mesh: ProcessMesh, x: torch.Tensor, axis: str,
     if dst is not None and dst != me:     # what this rank sends
         roofline.collective("collective-permute", (axis,),
                             mesh.axis_size(axis), _nbytes(x))
-    with torch.profiler.record_function(span), roofline.quiet():
+    with trace.span(span), roofline.quiet():
         if mesh.backend == "dry":
             return torch.empty_like(x)
         peers = mesh.members((axis,))        # world rank at each coordinate
@@ -575,7 +576,7 @@ def _proc_pmean(mesh: ProcessMesh, x: torch.Tensor,
                 axes: Tuple[str, ...], span: str = "procmesh.pmean"
                 ) -> torch.Tensor:
     roofline.collective("all-reduce", axes, mesh.axis_size(axes), _nbytes(x))
-    with torch.profiler.record_function(span), roofline.quiet():
+    with trace.span(span), roofline.quiet():
         if mesh.backend == "dry":
             return torch.empty_like(x)
         group = mesh.group(axes)

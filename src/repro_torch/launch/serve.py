@@ -97,6 +97,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..configs import ModelConfig, get_config, smoke_config
 from ..models import build_model
 from ..models.transformer import greedy_tokens
@@ -170,8 +171,9 @@ def make_prefill_step(cfg: ModelConfig, mesh,
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch, dist, cache_len=cache_len,
-                             use_kernel=use_kernel)
+        with trace.span("serve.prefill", syncs=True):
+            return model.prefill(params, batch, dist, cache_len=cache_len,
+                                 use_kernel=use_kernel)
 
     return prefill_step
 

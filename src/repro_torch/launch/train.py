@@ -95,6 +95,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..configs import ModelConfig, get_config, smoke_config
 from ..models import DistContext, build_model, choose_ep_axes
 from ..models.sharding import MeshRules
@@ -405,7 +406,7 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
                             options.total_steps)
 
     def grads_of(params, named, batch):
-        with torch.profiler.record_function("train.forward_backward"):
+        with trace.span("train.forward_backward"):
             loss, metrics = model.loss(params, batch, dist, use_kernel)
             grads = torch.autograd.grad(loss, list(named.values()),
                                         allow_unused=True,
@@ -413,7 +414,7 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
         return dict(zip(named, grads)), \
             {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state, batch):
+    def step(state, batch):
         params = state["params"]
         named = dict(params.named_parameters())
         n_mb = options.microbatches
@@ -440,7 +441,7 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
             metricses = [m]
         if proc:
             axes = _batch_axes(cfg, mesh)
-            with torch.profiler.record_function("train.grad_sync"):
+            with trace.span("train.grad_sync"):
                 grads = _sum_seq_partial(grads, mesh, seq_partial)
                 grads = _sync_grads(grads, mesh, specs, axes)
             metrics = _global_metrics(metricses, mesh, axes)
@@ -459,6 +460,10 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
         metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, metrics
+
+    def train_step(state, batch):
+        with trace.span("train.step", syncs=True):
+            return step(state, batch)
 
     return train_step
 

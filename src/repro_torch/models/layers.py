@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
 from ..configs.registry import ModelConfig
 # the kernel's differentiable form: without a gradient to take it is the
 # plain wrapper call
@@ -378,28 +379,31 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
     (``tp.SeqShard``) ``x`` is this process's sequence chunk, gathered on
     entry, and the output is its chunk of the sum; the keys and values are
     the whole sequence's."""
-    tp = _attn_tp(cfg, p, tp)
-    q, k, v, off = _project_qkv(cfg, p, x, positions, tp=tp, sp=sp)
-    b, s, h = q.shape[:3]
-    kv = k.shape[2]
-    eff = window if (window is not None and use_window) else None
-    if use_kernel:
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal,
-                              window=eff).transpose(1, 2)
-    elif s > chunked_threshold:
-        out = mha_chunked(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
-                          q_offset=0, window=window, use_window=use_window,
-                          causal=causal)
-    else:
-        out = mha_einsum(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
-                         _band_mask(s, s, 0, eff, causal, x.device))
-    out = _own_cols(out.reshape(b, s, h * cfg.resolved_head_dim), off,
-                    p.wo.shape[0])
-    out = row_parallel(tp, torch.matmul, out, p.wo.to(out.dtype), sp=sp)
-    if not return_kv:
-        return out
-    return out, (k, v)
+    with trace.span("attn"):
+        tp = _attn_tp(cfg, p, tp)
+        q, k, v, off = _project_qkv(cfg, p, x, positions, tp=tp, sp=sp)
+        b, s, h = q.shape[:3]
+        kv = k.shape[2]
+        eff = window if (window is not None and use_window) else None
+        if use_kernel:
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=eff).transpose(1, 2)
+        elif s > chunked_threshold:
+            out = mha_chunked(q, _repeat_kv(k, h // kv),
+                              _repeat_kv(v, h // kv), q_offset=0,
+                              window=window, use_window=use_window,
+                              causal=causal)
+        else:
+            out = mha_einsum(q, _repeat_kv(k, h // kv),
+                             _repeat_kv(v, h // kv),
+                             _band_mask(s, s, 0, eff, causal, x.device))
+        out = _own_cols(out.reshape(b, s, h * cfg.resolved_head_dim), off,
+                        p.wo.shape[0])
+        out = row_parallel(tp, torch.matmul, out, p.wo.to(out.dtype), sp=sp)
+        if not return_kv:
+            return out
+        return out, (k, v)
 
 
 def assemble_kv_cache(k: torch.Tensor, v: torch.Tensor,

@@ -75,6 +75,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
 from ..comm.all_to_all import resolve_all_to_all
 from ..configs.registry import ModelConfig
 from ..kernels.grouped_matmul import grouped_matmul_ref
@@ -140,19 +141,21 @@ def _route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
     probabilities the lower expert first, as ``lax.top_k`` orders them
     (``torch.topk`` picks another set, on the CPU, and documents no order on
     the card).  Returns (gates [G, T, k], eids [G, T, k], aux [G])."""
-    e, k = cfg.moe.num_experts, cfg.moe.top_k
-    logits = x_flat.float() @ router_w                         # [G, T, E]
-    probs = torch.softmax(logits, dim=-1)
-    gates, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, eids = gates[..., :k], eids[..., :k]                # [G, T, k]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance aux loss (fraction * mean prob).
-    # one_hot's, compared on every device alike (F.one_hot validates the
-    # ids on the host on the CPU, which a meta tensor cannot)
-    top1 = eids[..., 0, None] == torch.arange(e, device=eids.device)
-    frac = top1.float().mean(1)                                # [G, E]
-    aux = e * (frac * probs.mean(1)).sum(-1)
-    return gates.to(x_flat.dtype), eids, aux
+    with trace.span("moe.route"):
+        e, k = cfg.moe.num_experts, cfg.moe.top_k
+        logits = x_flat.float() @ router_w                     # [G, T, E]
+        probs = torch.softmax(logits, dim=-1)
+        gates, eids = torch.sort(probs, dim=-1, descending=True,
+                                 stable=True)
+        gates, eids = gates[..., :k], eids[..., :k]            # [G, T, k]
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        # Switch-style load-balance aux loss (fraction * mean prob).
+        # one_hot's, compared on every device alike (F.one_hot validates
+        # the ids on the host on the CPU, which a meta tensor cannot)
+        top1 = eids[..., 0, None] == torch.arange(e, device=eids.device)
+        frac = top1.float().mean(1)                            # [G, E]
+        aux = e * (frac * probs.mean(1)).sum(-1)
+        return gates.to(x_flat.dtype), eids, aux
 
 
 def _dispatch(x_flat: torch.Tensor, eids: torch.Tensor, capacity: int,
@@ -160,44 +163,50 @@ def _dispatch(x_flat: torch.Tensor, eids: torch.Tensor, capacity: int,
     """Sort-based dispatch of ``x_flat [G, T, d]`` into ``[G, E * C, d]``.
 
     Returns (buffer, slot [G, T*k], keep [G, T*k]): ``slot`` is each
-    (token, choice)'s position in its rank's buffer (valid where keep).
+    (token, choice)'s position in its rank's buffer (valid where keep);
+    counts the pairs routed and kept (``trace``).
     """
-    g, t, k = eids.shape
-    d = x_flat.shape[-1]
-    n_slots = n_experts * capacity
-    flat_eid = eids.reshape(g, t * k)
-    sorted_eid, order = torch.sort(flat_eid, dim=-1, stable=True)
-    first = torch.searchsorted(sorted_eid, sorted_eid, side="left")
-    pos_in_e = torch.arange(t * k, device=x_flat.device) - first
-    keep_sorted = pos_in_e < capacity
-    slot_sorted = sorted_eid * capacity + pos_in_e
-    tokens_sorted = torch.gather(
-        x_flat, 1, (order // k)[..., None].expand(g, t * k, d))
-    # Overflow lands in one trash row per rank, sliced off below.
-    safe = torch.where(keep_sorted, slot_sorted, n_slots)
-    rank_base = torch.arange(g, device=x_flat.device)[:, None] * (n_slots + 1)
-    buf = torch.zeros(((n_slots + 1) * g, d), dtype=x_flat.dtype,
-                      device=x_flat.device)
-    buf.index_copy_(0, (safe + rank_base).reshape(-1),
-                    tokens_sorted.reshape(-1, d))
-    buf = buf.reshape(g, n_slots + 1, d)[:, :n_slots]
-    # map back to unsorted (token, choice) order
-    slot = torch.empty_like(slot_sorted).scatter_(1, order, slot_sorted)
-    keep = torch.empty_like(keep_sorted).scatter_(1, order, keep_sorted)
-    return buf, slot, keep
+    with trace.span("moe.dispatch"):
+        g, t, k = eids.shape
+        d = x_flat.shape[-1]
+        n_slots = n_experts * capacity
+        flat_eid = eids.reshape(g, t * k)
+        sorted_eid, order = torch.sort(flat_eid, dim=-1, stable=True)
+        first = torch.searchsorted(sorted_eid, sorted_eid, side="left")
+        pos_in_e = torch.arange(t * k, device=x_flat.device) - first
+        keep_sorted = pos_in_e < capacity
+        slot_sorted = sorted_eid * capacity + pos_in_e
+        tokens_sorted = torch.gather(
+            x_flat, 1, (order // k)[..., None].expand(g, t * k, d))
+        # Overflow lands in one trash row per rank, sliced off below.
+        safe = torch.where(keep_sorted, slot_sorted, n_slots)
+        rank_base = torch.arange(g, device=x_flat.device)[:, None] \
+            * (n_slots + 1)
+        buf = torch.zeros(((n_slots + 1) * g, d), dtype=x_flat.dtype,
+                          device=x_flat.device)
+        buf.index_copy_(0, (safe + rank_base).reshape(-1),
+                        tokens_sorted.reshape(-1, d))
+        buf = buf.reshape(g, n_slots + 1, d)[:, :n_slots]
+        # map back to unsorted (token, choice) order
+        slot = torch.empty_like(slot_sorted).scatter_(1, order, slot_sorted)
+        keep = torch.empty_like(keep_sorted).scatter_(1, order, keep_sorted)
+        trace.count("moe.pairs_routed", g * t * k)
+        trace.count_sum("moe.pairs_kept", keep)
+        return buf, slot, keep
 
 
 def _combine(y_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
              gates: torch.Tensor, t: int, k: int) -> torch.Tensor:
     """Gather expert outputs ``y_buf [G, E*C, d]`` back to (token, choice),
     weight and sum: ``[G, T, d]``."""
-    g, n_slots, d = y_buf.shape
-    # The reference's gather clamps out-of-range slots of dropped choices;
-    # keep = 0 then zeroes them.
-    idx = slot.clamp(max=n_slots - 1)[..., None].expand(g, t * k, d)
-    y = torch.gather(y_buf, 1, idx) * keep[..., None].to(y_buf.dtype)
-    y = y.reshape(g, t, k, d)
-    return (y * gates[..., None]).sum(dim=2)
+    with trace.span("moe.combine"):
+        g, n_slots, d = y_buf.shape
+        # The reference's gather clamps out-of-range slots of dropped
+        # choices; keep = 0 then zeroes them.
+        idx = slot.clamp(max=n_slots - 1)[..., None].expand(g, t * k, d)
+        y = torch.gather(y_buf, 1, idx) * keep[..., None].to(y_buf.dtype)
+        y = y.reshape(g, t, k, d)
+        return (y * gates[..., None]).sum(dim=2)
 
 
 def _expert_ffn(cfg: ModelConfig, w_gate, w_up, w_down,
@@ -208,7 +217,11 @@ def _expert_ffn(cfg: ModelConfig, w_gate, w_up, w_down,
     ``counts [E]`` marks each expert's filled rows (the rest are zero and
     stay zero); None treats every row as valid.  ``tp`` (``_moe_tp``): the
     stacks hold a slice of ``d_ff``, and the partial output is summed over
-    "model"."""
+    "model".  Counts the rows it runs over (``moe.grid_rows``)."""
+    if counts is None:
+        trace.count("moe.grid_rows", tokens.shape[0] * tokens.shape[1])
+    else:
+        trace.count_sum("moe.grid_rows", counts)
     dt = tokens.dtype
     gmm = grouped_matmul if use_kernel else grouped_matmul_ref
     tokens = copy_in(tp, tokens)
@@ -240,18 +253,20 @@ def _moe_island(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     buf = buf.reshape(r, g, e_loc * cap, d)
 
     a2a = resolve_all_to_all(dist)
-    recv = a2a(buf)                                   # [R, G, E_loc*C, d]
-
-    # [R, G, E_loc, C, d] -> [R*E_loc, G*C, d]: group r*E_loc + e is global
-    # expert r*E_loc + e, so the [E, d, f] stacks serve every rank at once.
-    # Each group is G chunks with their own filled prefix: no counts.
-    tokens = recv.reshape(r, g, e_loc, cap, d).transpose(1, 2) \
-        .reshape(r * e_loc, g * cap, d).contiguous()
+    with trace.span("moe.exchange"):
+        recv = a2a(buf)                               # [R, G, E_loc*C, d]
+        # [R, G, E_loc, C, d] -> [R*E_loc, G*C, d]: group r*E_loc + e is
+        # global expert r*E_loc + e, so the [E, d, f] stacks serve every
+        # rank at once.  Each group is G chunks with their own filled
+        # prefix: no counts.
+        tokens = recv.reshape(r, g, e_loc, cap, d).transpose(1, 2) \
+            .reshape(r * e_loc, g * cap, d).contiguous()
     y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down, tokens,
                     use_kernel=dist.use_kernel, tp=_moe_tp(cfg, dist, p))
-    y = y.reshape(r, e_loc, g, cap, d).transpose(1, 2) \
-        .reshape(r, g, e_loc * cap, d)
-    y = a2a(y)                                        # return trip
+    with trace.span("moe.exchange"):
+        y = y.reshape(r, e_loc, g, cap, d).transpose(1, 2) \
+            .reshape(r, g, e_loc * cap, d)
+        y = a2a(y)                                    # return trip
     out = _combine(y.reshape(r, e * cap, d), slot, keep, gates, t,
                    cfg.moe.top_k)
     # Aux loss averaged over all ranks, as the reference's pmean (over the
@@ -319,20 +334,21 @@ def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     if p_pods > 1:
         exchange = _pod_ep_exchange(cfg, dist, mesh, ep_axis,
                                     ep_axis == dist.slow_axis)
-    recv = buf.reshape(r, p_pods, e_loc * cap, d)
-    if exchange is not None:
-        recv = exchange(recv)
+    with trace.span("moe.exchange"):
+        recv = buf.reshape(r, p_pods, e_loc * cap, d)
+        if exchange is not None:
+            recv = exchange(recv)
 
-    # [*held dp dims, p_pods, E_loc, C, d] -> [ep dim, E_loc, other held dp
-    # dims, p_pods, C, d] -> [held experts, rows, d]
-    held = mesh.local_shape
-    n = len(held)
-    lead = [mesh.axis_names.index(ep_axis)] if ep_axis else []
-    perm = lead + [n + 1] + [i for i in range(n) if i not in lead] \
-        + [n, n + 2, n + 3]
-    grid = recv.reshape(*held, p_pods, e_loc, cap, d).permute(perm)
-    e_held = e_loc * (held[lead[0]] if lead else 1)
-    tokens = grid.reshape(e_held, -1, d).contiguous()
+        # [*held dp dims, p_pods, E_loc, C, d] -> [ep dim, E_loc, other held
+        # dp dims, p_pods, C, d] -> [held experts, rows, d]
+        held = mesh.local_shape
+        n = len(held)
+        lead = [mesh.axis_names.index(ep_axis)] if ep_axis else []
+        perm = lead + [n + 1] + [i for i in range(n) if i not in lead] \
+            + [n, n + 2, n + 3]
+        grid = recv.reshape(*held, p_pods, e_loc, cap, d).permute(perm)
+        e_held = e_loc * (held[lead[0]] if lead else 1)
+        tokens = grid.reshape(e_held, -1, d).contiguous()
     if tokens.shape[0] != p.w_gate.shape[0]:
         raise ValueError(
             f"the grid holds {tokens.shape[0]} experts' tokens and the "
@@ -341,9 +357,11 @@ def _moe_pod_ep(cfg: ModelConfig, dist: DistContext, x: torch.Tensor,
     y = _expert_ffn(cfg, p.w_gate, p.w_up, p.w_down, tokens,
                     use_kernel=dist.use_kernel, tp=_moe_tp(cfg, dist, p))
     inv = [perm.index(i) for i in range(len(perm))]
-    y = y.reshape(grid.shape).permute(inv).reshape(r, p_pods, e_loc * cap, d)
-    if exchange is not None:
-        y = exchange(y)                               # return trip
+    with trace.span("moe.exchange"):
+        y = y.reshape(grid.shape).permute(inv) \
+            .reshape(r, p_pods, e_loc * cap, d)
+        if exchange is not None:
+            y = exchange(y)                           # return trip
     out = _combine(y.reshape(r, e * cap, d), slot, keep, gates, t, k)
     aux = pmean(mesh, aux, dist.dp_axes)[0]
     return out.reshape(b, s, d), aux

@@ -12,8 +12,8 @@ arithmetic stays the reference's: Mamba's ``exp(dt * a)`` and its
 stacked states after it.  Decode runs one step on a carried state.
 
 These are plain PyTorch: the reference computes them outside any Pallas
-kernel.  Each time loop runs inside a ``torch.profiler`` range named
-``ssm_scan``, so that a trace can tell the loops' share of a prompt pass.
+kernel.  Each time loop runs inside a ``trace.span`` named ``ssm_scan``, so
+that a trace can tell the loops' share of a prompt pass.
 
 Under tensor parallelism (``tp``, a ``ProcessMesh`` whose "model" axis is
 above 1; ``models/tp.py``) each block runs on this process's slice of the
@@ -65,8 +65,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
+from .. import trace
 from ..configs.registry import ModelConfig
 from .layers import _own_cols, dense_init, param
 from .tp import channels, copy_in, enter, gather_cols, model_coord, \
@@ -206,7 +206,7 @@ def mlstm_apply(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
     steps = zip(*(a.unbind(1) for a in ins))
     state = mlstm_zero_state(cfg, b, x.device, len(heads), ins[2].shape[-1])
     hs = []
-    with record_function("ssm_scan"):
+    with trace.span("ssm_scan"):
         for step in steps:
             state, h = _mlstm_step(state, *step)
             hs.append(h)
@@ -317,7 +317,7 @@ def slstm_apply(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     wx, r = _slstm_inputs(p, x, tp)
     state = slstm_zero_state(cfg, b, x.device, wx.shape[-1] // 4)
     hs = []
-    with record_function("ssm_scan"):
+    with trace.span("ssm_scan"):
         for wx_t in wx.unbind(1):
             state, h = _slstm_step(r, state, wx_t, tp)
             hs.append(h)
@@ -451,7 +451,7 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
     h = torch.zeros((b, xt.shape[-1], a.shape[-1]), dtype=_F32,
                     device=x.device)
     hs = []
-    with record_function("ssm_scan"):
+    with trace.span("ssm_scan"):
         # unbind, not indexing: under autograd each index's backward would
         # write a gradient the size of the whole tensor
         for da_t, dbx_t in zip(da.unbind(0), dbx.unbind(0)):

@@ -57,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..launch.mesh import ProcessMesh, all_gather, all_to_all, member_sum
 
 __all__ = ["tp_mesh", "tp_of", "vocab_slice", "copy_in", "sum_out",
@@ -144,7 +145,7 @@ def _sum(tp: ProcessMesh, x: torch.Tensor, span: str) -> torch.Tensor:
     if n <= 2 or n * x.numel() * x.element_size() <= GATHER_SUM_MAX_BYTES:
         parts = _gather(tp, x.contiguous(), span)
         return member_sum(p.float() for p in parts).to(x.dtype)
-    with torch.profiler.record_function(span):
+    with trace.span(span):
         flat = x.reshape(-1)
         pad = -flat.numel() % n
         if pad:

@@ -24,6 +24,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
+
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update",
            "global_norm"]
 
@@ -101,31 +103,32 @@ def adamw_update(grads, state: OptState, params, lr: float,
     Returns (params, new state, grad norm before clipping); the new state
     holds the same moment tensors and the incremented count.  ``mesh`` and
     ``specs``: the norm over a ``ProcessMesh``'s shards (``global_norm``)."""
-    named = _named(params)
-    grads = _named(grads)
-    gnorm = global_norm(grads, mesh, specs)
-    scale = None
-    if cfg.clip_norm is not None:
-        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-    count = state.count + 1
-    c = np.float32(int(count))
-    bc1 = float(np.float32(1) - np.float32(cfg.b1) ** c)
-    bc2 = float(np.float32(1) - np.float32(cfg.b2) ** c)
-    lr = float(lr)
-    for k, p in named.items():
-        g32 = grads[k].float()
-        if scale is not None:
-            g32 = g32 * scale.to(g32.device)
-        m, v = state.m[k], state.v[k]
-        m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).add_(torch.square(g32).mul_(1 - cfg.b2))
-        del g32
-        p32 = p if p.dtype == torch.float32 else p.float()
-        step = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
-        step.add_(p32, alpha=cfg.weight_decay)
-        p32.sub_(step.mul_(lr))
-        if p32 is not p:
-            p.copy_(p32)
-        del step, p32
+    with trace.span("train.optimizer"):
+        named = _named(params)
+        grads = _named(grads)
+        gnorm = global_norm(grads, mesh, specs)
+        scale = None
+        if cfg.clip_norm is not None:
+            scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
+        count = state.count + 1
+        c = np.float32(int(count))
+        bc1 = float(np.float32(1) - np.float32(cfg.b1) ** c)
+        bc2 = float(np.float32(1) - np.float32(cfg.b2) ** c)
+        lr = float(lr)
+        for k, p in named.items():
+            g32 = grads[k].float()
+            if scale is not None:
+                g32 = g32 * scale.to(g32.device)
+            m, v = state.m[k], state.v[k]
+            m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+            v.mul_(cfg.b2).add_(torch.square(g32).mul_(1 - cfg.b2))
+            del g32
+            p32 = p if p.dtype == torch.float32 else p.float()
+            step = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
+            step.add_(p32, alpha=cfg.weight_decay)
+            p32.sub_(step.mul_(lr))
+            if p32 is not p:
+                p.copy_(p32)
+            del step, p32
     return params, OptState(m=state.m, v=state.v, count=count), gnorm
