@@ -25,7 +25,19 @@ Phases (each raises on failure; none is caught):
    per event pair (``call_ms``: host and device) and on each 16-byte
    instance; print the kernel to library ratios and each kernel's
    registers, shared memory and spills from ``ptxas -v``; then a small f32
-   MoE layer on a (2, 2, 1) mesh against its one-rank path;
+   MoE layer on a (2, 2, 1) mesh against its one-rank path; then AdamW's
+   two kernels (``phase_adamw``): ``sq_norm`` and ``adamw_step`` on 72
+   ragged leaves of every (parameter, gradient) dtype pair, two launches
+   each (more leaves than one table holds), three steps, clipped and not,
+   against their plain versions (p, m and v within 1e-6 of the largest
+   magnitude, a bf16 master within one bf16 ulp; each leaf's sum within a
+   relative 1e-5), then at megatron-moe-32e's training leaves (``[32,
+   2048, 8192]``, ``[32, 8192, 2048]``, ``[50304, 2048]``, ``[2048]``, f32):
+   the norm bit-identical over two calls, each timed beside its bound (28
+   B and 4 B a parameter), its plain version and PyTorch's
+   ``_fused_adamw_`` and ``_foreach_norm`` (yardsticks only: the port
+   never calls them); their launches are counted on every training path
+   below (one each a step on megatron-moe-32e's);
 3. megatron-moe-32e at its published widths (4 of 24 layers, random weights
    from a seed) on a local (pod 2, data 16, model 1) mesh, expert dispatch
    through the FAST plan: prefill of 32 prompts of 128 tokens, then 15
@@ -361,8 +373,9 @@ the prefill and in decode.
 The last lines are the card's name and power limit, one JSON line of kernel
 results, and ``{"ok": true, "device": {...}}``.  Each kernel's ``launches``
 there is its count on the port's main path, the MoE cells: the
-megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention
-and flash_attention_bwd, mixtral's plan run for pack and unpack;
+megatron-moe-32e training run (4 steps) for grouped_matmul, flash_attention,
+flash_attention_bwd, sq_norm and adamw_step, mixtral's plan run for pack
+and unpack;
 ``launches_by_path`` lists every path's counts, phases 7's to 15's
 too (phases 8's to 15's are rank 0's, equal in every process).  It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
@@ -400,6 +413,14 @@ DEVICE = "cuda"
 SERVE_KERNELS = ("a2a_pack", "a2a_unpack", "grouped_matmul",
                  "flash_attention")
 KERNELS = SERVE_KERNELS + ("flash_attention_bwd",)
+# AdamW's kernels: megatron-moe-32e's training leaves, the cell's largest
+# (the expert stacks), the embedding's and the smallest (a norm's scale),
+# f32 masters and gradients; and ragged leaves of every dtype pair, more
+# than one launch's table holds
+ADAMW_SHAPES = ((32, 2048, 8192), (32, 8192, 2048), (50304, 2048), (2048,))
+ADAMW_RAGGED = (1, 7, 8, 9, 31, 4096, 32768, 32769, 100_003) * 8
+ADAMW_CFG = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+ADAMW_KERNELS = ("sq_norm", "adamw_step")
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 32, 512, 4
 F32_TRAIN_SEQ = 128
 # phase 7: the recurrent, hybrid and encoder-decoder stacks, no mesh
@@ -716,6 +737,10 @@ def template_args(rest):
         elif a.startswith("f"):
             out.append("f32")
             a = a[1:]
+        elif re.match(r"S\d*_", a) and out:
+            # a substitution: here always the argument before
+            out.append(out[-1])
+            a = a[re.match(r"S\d*_", a).end():]
         else:
             break
     return out
@@ -750,7 +775,8 @@ def ptxas_lines(_build):
 
 
 # kernels that must build without a spill (ptxas -v)
-NO_SPILL = ("bwd_prep_kernel", "bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel")
+NO_SPILL = ("bwd_prep_kernel", "bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel",
+            "sq_norm_kernel", "adamw_kernel")
 
 
 def check_no_spill(lines):
@@ -1337,6 +1363,172 @@ def phase_flash_attention(torch):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "shapes": entries}
+
+
+def adamw_args(count, lr=3e-4) -> dict:
+    """``adamw_step``'s scalars at step ``count``, the bias corrections as
+    ``optim.adamw_update`` computes them."""
+    c = np.float32(count)
+    return dict(ADAMW_CFG, lr=lr,
+                bc1=float(np.float32(1) - np.float32(ADAMW_CFG["b1"]) ** c),
+                bc2=float(np.float32(1) - np.float32(ADAMW_CFG["b2"]) ** c))
+
+
+def adamw_leaves(torch, gen, dev, shapes, p_dtype, g_dtype):
+    """Parameters, gradients and moments (v positive) of ``shapes``."""
+    def randn(shape, scale, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+    p = [randn(s, 0.02, p_dtype) for s in shapes]
+    g = [randn(s, 1e-3, g_dtype) for s in shapes]
+    m = [randn(s, 1e-3) for s in shapes]
+    v = [torch.rand(s, generator=gen, device=dev) * 1e-6 for s in shapes]
+    return p, g, m, v
+
+
+def adamw_errs(torch, got, want):
+    """f32: the largest difference over all leaves against the plain
+    version's largest magnitude over all leaves; bf16: the largest
+    difference in units of the bf16 spacing at the plain version's value."""
+    if got[0].dtype == torch.bfloat16:
+        worst = 0.0
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                b.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 7)
+            worst = max(worst, ((a - b).abs() / ulp).max().item())
+        return worst
+    diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return diff / max(b.abs().max().item() for b in want)
+
+
+def phase_adamw(torch):
+    """AdamW's kernels against their plain versions: ragged leaves of every
+    (parameter, gradient) dtype pair and megatron-moe-32e's training
+    leaves, timed there beside their bounds, the plain versions and
+    PyTorch's own multi-tensor calls (timed only as yardsticks); the norm
+    bit-identical over two calls.  Returns the two kernels' result rows
+    (their launches are the training runs', counted in ``main``)."""
+    from repro_torch.kernels.adamw import (CAPACITY, adamw_step,
+                                           adamw_step_ref, sq_norm,
+                                           sq_norm_ref)
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = [(n,) for n in ADAMW_RAGGED]
+    tables = -(-len(shapes) // CAPACITY)
+    for p_dtype in (torch.float32, torch.bfloat16):
+        for g_dtype in (torch.float32, torch.bfloat16):
+            p, g, m, v = adamw_leaves(torch, gen, dev, shapes, p_dtype,
+                                      g_dtype)
+            sums = sq_norm(g)
+            want = sq_norm_ref(g)
+            err = ((sums - want).abs() / want.abs().clamp(min=1e-30)).max()
+            if err.item() > 1e-5:
+                raise AssertionError(f"sq_norm {g_dtype} on ragged leaves: "
+                                     f"rel err {err.item()}")
+            norm = torch.sqrt(sums.sum())
+            for count, clip in ((1, 1.0), (2, None), (3, 1e-3)):
+                ref = [[t.clone() for t in x] for x in (p, m, v)]
+                before = adamw_step.launches
+                adamw_step(p, g, m, v, **adamw_args(count), norm=norm,
+                           clip_norm=clip)
+                adamw_step_ref(ref[0], g, ref[1], ref[2],
+                               **adamw_args(count), norm=norm, clip_norm=clip)
+                torch.cuda.synchronize()
+                if adamw_step.launches - before != tables:
+                    raise AssertionError(
+                        f"adamw_step: {adamw_step.launches - before} "
+                        f"launches for {len(shapes)} leaves, want {tables}")
+                errs = [adamw_errs(torch, a, b)
+                        for a, b in zip((p, m, v), ref)]
+                limit = 1.0 if p_dtype == torch.bfloat16 else 1e-6
+                if errs[0] > limit or max(errs[1:]) > 1e-6:
+                    raise AssertionError(
+                        f"adamw_step {p_dtype} / {g_dtype} (clip {clip}, "
+                        f"step {count}): p, m, v errors {errs}")
+                del ref
+            log(f"adamw: {p_dtype} masters, {g_dtype} gradients, "
+                f"{len(shapes)} ragged leaves in {tables} launches: within "
+                f"limits, norm rel err {err.item():.2e}")
+            del p, g, m, v
+    free(torch)
+
+    # megatron-moe-32e's training leaves
+    p, g, m, v = adamw_leaves(torch, gen, dev, ADAMW_SHAPES, torch.float32,
+                              torch.float32)
+    n = sum(t.numel() for t in p)
+    shape = " ".join(str(list(s)) for s in ADAMW_SHAPES) + " f32"
+    sums = sq_norm(g)
+    again = sq_norm(g)
+    if not torch.equal(sums.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"sq_norm differs between two calls: {sums} "
+                             f"{again}")
+    want = sq_norm_ref(g)
+    norm_err = ((sums - want).abs() / want.abs()).max().item()
+    if norm_err > 1e-5:
+        raise AssertionError(f"sq_norm at the training leaves: rel err "
+                             f"{norm_err}")
+    norm = torch.sqrt(sums.sum())
+    ref = [[t.clone() for t in x] for x in (p, m, v)]
+    adamw_step(p, g, m, v, **adamw_args(1), norm=norm, clip_norm=1.0)
+    adamw_step_ref(ref[0], g, ref[1], ref[2], **adamw_args(1), norm=norm,
+                   clip_norm=1.0)
+    errs = [adamw_errs(torch, a, b) for a, b in zip((p, m, v), ref)]
+    if max(errs) > 1e-6:
+        raise AssertionError(f"adamw_step at the training leaves: p, m, v "
+                             f"errors {errs}")
+    log(f"adamw: training leaves {shape}: norm bit-identical over two calls "
+        f"(rel err {norm_err:.2e} to the plain sums), p, m, v errors {errs} "
+        f"(clip scale {min(1.0, 1.0 / norm.item()):.4g})")
+    del ref
+    free(torch)
+
+    steps = [torch.ones((), device=dev) for _ in p]
+    hbm = hbm_bytes_per_s()
+    rows = [{
+        "name": "sq_norm", "shape": shape, "path": "megatron-moe-32e train",
+        "ms": cuda_ms(torch, lambda: sq_norm(g)),
+        "bound_ms": (4 * n + 4 * len(p)) / hbm * 1e3, "bound_by": "bytes",
+        "plain_ms": cuda_ms(torch, lambda: sq_norm_ref(g), runs=5,
+                            warmup=1),
+        "library_ms": cuda_ms(torch, lambda: torch._foreach_norm(g)),
+        "library": "torch._foreach_norm",
+        "max_err": norm_err}, {
+        "name": "adamw_step", "shape": shape, "path": "megatron-moe-32e train",
+        "ms": cuda_ms(torch, lambda: adamw_step(
+            p, g, m, v, **adamw_args(2), norm=norm, clip_norm=1.0)),
+        "bound_ms": 28 * n / hbm * 1e3, "bound_by": "bytes",
+        "plain_ms": cuda_ms(torch, lambda: adamw_step_ref(
+            p, g, m, v, **adamw_args(2), norm=norm, clip_norm=1.0),
+            runs=5, warmup=1),
+        "library_ms": cuda_ms(torch, lambda: torch._fused_adamw_(
+            p, g, m, v, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)),
+        "library": "torch._fused_adamw_",
+        "max_err": max(errs)}]
+    # the library's update on the port's bf16 state (bf16 masters, f32
+    # gradients and moments), read and not gated
+    mixed = [[torch.zeros(8, dtype=torch.bfloat16, device=dev)]] + [
+        [torch.zeros(8, device=dev)] for _ in range(3)]
+    try:
+        torch._fused_adamw_(*mixed, [], steps[:1], lr=3e-4, beta1=0.9,
+                            beta2=0.95, weight_decay=0.1, eps=1e-8,
+                            amsgrad=False, maximize=False)
+        torch.cuda.synchronize()
+        rows[1]["library_mixed"] = "takes"
+    except Exception as e:  # what the library says is the finding
+        rows[1]["library_mixed"] = \
+            f"refuses: {str(e).splitlines()[0][:160]}"
+    log(f"adamw: torch._fused_adamw_ on bf16 masters with f32 gradients "
+        f"and moments {rows[1]['library_mixed']}")
+    for row in rows:
+        row["ratio_to_bound"] = row["ms"] / row["bound_ms"]
+        row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        log("timing: adamw", json.dumps(row))
+    del p, g, m, v, steps, mixed
+    free(torch)
+    return rows
 
 
 def phase_small_reference(torch):
@@ -2317,11 +2509,13 @@ def train_launches_per_step(n_layers):
     """Launches a training step must make, worked out from the code: under
     remat each layer's forward runs twice (attention once and the expert
     FFN's three products each time), the backward once (one attention
-    backward, two products for each of the three expert products)."""
+    backward, two products for each of the three expert products); AdamW's
+    two kernels once each (megatron-moe-32e's 23 leaves share one dtype
+    pair and fit one table)."""
     return {"flash_attention": 2 * n_layers,
             "flash_attention_bwd": n_layers,
             "grouped_matmul": (2 * 3 + 3 * 2) * n_layers,
-            "a2a_pack": 0, "a2a_unpack": 0}
+            "a2a_pack": 0, "a2a_unpack": 0, "sq_norm": 1, "adamw_step": 1}
 
 
 def train_batches(cfg, batch, seq, steps):
@@ -2675,10 +2869,10 @@ def param_gb(params):
                for t in params.parameters()) / 1e9
 
 
-def attn_counts(*parts):
-    """The attention kernels' launches of (name, launches dict) parts."""
-    return {k: {part: counts[k] for part, counts in parts}
-            for k in ("flash_attention", "flash_attention_bwd")}
+def attn_counts(*parts, names=("flash_attention", "flash_attention_bwd")):
+    """The launches of kernels ``names`` (default the attention kernels) of
+    (name, launches dict) parts."""
+    return {k: {part: counts[k] for part, counts in parts} for k in names}
 
 
 def check_stack_launches(label, counts, want_attn, want_bwd=0):
@@ -3014,8 +3208,10 @@ def phase_hymba_train(torch, kernels):
     summary = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
                "peak_gb": run["peak_gb"], "plain_step_ms": plain["step_ms"],
                "loss_diffs": diffs}
+    adamw_launches(run, "hymba train")
     counts = attn_counts(*(
-        (f"step {i}", c) for i, c in enumerate(run["launches"])))
+        (f"step {i}", c) for i, c in enumerate(run["launches"])),
+        names=("flash_attention", "flash_attention_bwd") + ADAMW_KERNELS)
     del plain
 
     params = stack_params(torch, cfg, train=True)
@@ -3662,6 +3858,7 @@ def phase_procs(torch, kernels):
 def proc_kernels():
     """The kernel wrappers (each keeps its launch count), in a process."""
     from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
+    from repro_torch.kernels.adamw import adamw_step, sq_norm
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.grouped_matmul import grouped_matmul
@@ -3669,7 +3866,8 @@ def proc_kernels():
     return {"a2a_pack": a2a_pack, "a2a_unpack": a2a_unpack,
             "grouped_matmul": grouped_matmul,
             "flash_attention": flash_attention,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "sq_norm": sq_norm, "adamw_step": adamw_step}
 
 
 def proc_train_options(steps):
@@ -7155,10 +7353,26 @@ def attn_train_launches(cfg):
             "grouped_matmul": 0, "a2a_pack": 0, "a2a_unpack": 0}
 
 
+def adamw_launches(run, label):
+    """AdamW's two kernels' launches a step in ``run``: the same every step
+    and at least one each (the update runs each step; the count is one a
+    dtype pair and table, so it follows the stack's leaves)."""
+    first = {k: run["launches"][0][k] for k in ADAMW_KERNELS}
+    for i, got in enumerate(run["launches"]):
+        mine = {k: got[k] for k in ADAMW_KERNELS}
+        if mine != first or min(mine.values()) < 1:
+            raise AssertionError(f"{label} step {i}: AdamW's launches "
+                                 f"{mine}; step 0's {first}, at least 1 "
+                                 f"each")
+    return first
+
+
 def check_attn_train_launches(outs, oracle, cfg, label):
     """Every process's launches each step equal to the oracle's and to
-    ``attn_train_launches``, every attention backward on wgmma."""
-    want = attn_train_launches(cfg)
+    ``attn_train_launches``, AdamW's as ``adamw_launches`` finds them in
+    the oracle, every attention backward on wgmma."""
+    want = dict(attn_train_launches(cfg),
+                **adamw_launches(oracle, f"{label}[local oracle]"))
     for who, run in [("local oracle", oracle)] + [
             (f"rank {o['rank']}", o) for o in outs]:
         for i, (got, by) in enumerate(zip(run["launches"], run["variants"])):
@@ -7906,10 +8120,11 @@ def rec_train_check(torch, oracle, outs, metrics, cfg, shape, batch, seq,
     """Phase 14's bf16 training gates on the processes' ``outs``
     (``tp_train_child``'s) and rank 0's step ``metrics``, against the
     stacked ``oracle``: launches equal each step (as ``rec_train_launches``
-    counts them), the gradients of the leaves replicated over "model"
+    and ``adamw_launches`` count them), the gradients of the leaves replicated over "model"
     bit-identical on model peers, losses within 2e-2.  Returns rank 0's
     launches over its steps and a summary."""
-    want = rec_train_launches(cfg)
+    want = dict(rec_train_launches(cfg),
+                **adamw_launches(oracle, f"{label}[local oracle]"))
     for who, run in [("local oracle", oracle)] + [
             (f"rank {o['rank']}", o) for o in outs]:
         for i, got in enumerate(run["launches"]):
@@ -8915,10 +9130,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import _build
-    from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
-    from repro_torch.kernels.grouped_matmul import grouped_matmul
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -8949,12 +9160,12 @@ def main() -> int:
             f"{e['ms'] / was:.3f} (the serving path writes no lse)")
     phase_small_reference(torch)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    adamw_rows = phase_adamw(torch)
+    log(f"phase adamw: {time.perf_counter() - t0:.1f} s")
 
     # 3. megatron-moe-32e; 4. mixtral-8x7b
-    kernels = {"a2a_pack": a2a_pack, "a2a_unpack": a2a_unpack,
-               "grouped_matmul": grouped_matmul,
-               "flash_attention": flash_attention,
-               "flash_attention_bwd": flash_attention_bwd}
+    kernels = proc_kernels()
     t0 = time.perf_counter()
     launches = {"megatron-moe-32e plan": phase_megatron(torch, kernels)}
     log(f"phase megatron: {time.perf_counter() - t0:.1f} s")
@@ -9049,27 +9260,16 @@ def main() -> int:
         f"{json.dumps(roof)}")
 
     # Each kernel's count is that of the megatron-moe-32e training cell for
-    # grouped_matmul and both attention kernels, mixtral's plan run for
-    # pack and unpack, which training does not launch: the main path of
-    # the port is the MoE cell, so PERF.md's launch column keeps its
-    # meaning.  Every path's counts are listed beside them, phase 7's
-    # stacks' too.
+    # grouped_matmul, both attention kernels and AdamW's two, mixtral's
+    # plan run for pack and unpack, which training does not launch: the
+    # main path of the port is the MoE cell, so PERF.md's launch column
+    # keeps its meaning.  Every path's counts are listed beside them, phase
+    # 7's stacks' too.
     serving = launches["mixtral-8x7b plan"]
-    result = []
-    for name in KERNELS:
-        row = rows[name]
-        if "ms" not in row:  # the first timed shape: megatron's prefill
-            first = row["shapes"][0]
-            row.update({key: first[key] for key in (
-                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "instance", "call_ms", "library_call_ms",
-                "bulk_ms", "vec_ms", "ratio_to_library", "ratio_to_bound")
-                if key in first})
-        by_path = {p: {"prefill": c["prefill"][name],
-                       "decode": c["decode"][name]}
-                   for p, c in launches.items()}
-        by_path[f"megatron-moe-32e train ({TRAIN_STEPS} steps)"] = \
-            train_launches[name]
+    main_train = f"megatron-moe-32e train ({TRAIN_STEPS} steps)"
+
+    def training_paths(name):
+        by_path = {main_train: train_launches[name]}
         by_path[f"{TRAIN_PROC_PATH} ({TRAIN_PROC_STEPS} steps, each "
                 f"process)"] = train_proc_launches[name]
         by_path[f"{SPLIT_TRAIN_PATH} ({SPLIT_TRAIN_STEPS} steps, each "
@@ -9088,10 +9288,25 @@ def main() -> int:
         for path, counts in stack_launches.items():
             if name in counts:
                 by_path[path] = counts[name]
+        return by_path
+
+    result = []
+    for name in KERNELS:
+        row = rows[name]
+        if "ms" not in row:  # the first timed shape: megatron's prefill
+            first = row["shapes"][0]
+            row.update({key: first[key] for key in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "instance", "call_ms", "library_call_ms",
+                "bulk_ms", "vec_ms", "ratio_to_library", "ratio_to_bound")
+                if key in first})
+        by_path = {p: {"prefill": c["prefill"][name],
+                       "decode": c["decode"][name]}
+                   for p, c in launches.items()}
+        by_path.update(training_paths(name))
         if train_launches[name]:
             row = dict(row, launches=train_launches[name],
-                       main_path=f"megatron-moe-32e train ({TRAIN_STEPS} "
-                                 f"steps)")
+                       main_path=main_train)
             if name in summary["launches_by_variant"]:
                 row["launches_by_variant"] = \
                     summary["launches_by_variant"][name]
@@ -9105,6 +9320,10 @@ def main() -> int:
                        main_path="mixtral-8x7b plan (serving)")
         row["launches_by_path"] = by_path
         result.append(row)
+    for row in adamw_rows:   # the serving paths run no optimizer
+        result.append(dict(row, launches=train_launches[row["name"]],
+                           main_path=main_train,
+                           launches_by_path=training_paths(row["name"])))
     from repro_torch.launch.procs import stop_fork_server
 
     stop_fork_server()

@@ -29,7 +29,8 @@ see, so each wrapper reports its own formula (``counted``), and nothing run
 inside it is counted: a kernel call counts the same on the card (the
 kernel), on the CPU (its plain version) and on meta (an empty output).
 The formulas are those of the kernels' bounds (``gmm_cost``,
-``attn_cost``, ``attn_bwd_cost``, ``copy_cost``).
+``attn_cost``, ``attn_bwd_cost``, ``copy_cost``, ``adamw_cost``,
+``sq_norm_cost``).
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ import torch
 __all__ = ["HW", "CollectiveStats", "Counts", "roofline_terms", "count",
            "collective", "counted", "devices", "quiet",
            "gmm_cost", "band_pairs", "attn_cost", "attn_bwd_cost",
-           "copy_cost", "PEAK_FLOPS", "PEAK_FLOPS_BY_DTYPE", "HBM_BW",
-           "LINK_BW", "DCN_BW"]
+           "copy_cost", "adamw_cost", "sq_norm_cost", "PEAK_FLOPS",
+           "PEAK_FLOPS_BY_DTYPE", "HBM_BW", "LINK_BW", "DCN_BW"]
 
 # NVIDIA H100 SXM per-card constants
 PEAK_FLOPS = 989e12          # bf16 dense: vendor spec
@@ -160,6 +161,21 @@ def copy_cost(moved_bytes: int) -> Tuple[int, int]:
     """(operations, bytes) of a block copy (``a2a_pack`` / ``a2a_unpack``):
     none; the moved bytes read and written once."""
     return 0, 2 * moved_bytes
+
+
+def adamw_cost(elems: int, param_bytes: int, grad_bytes: int
+               ) -> Tuple[int, int]:
+    """(operations, bytes) of ``adamw_step`` over ``elems`` parameters of
+    ``param_bytes`` each with gradients of ``grad_bytes``: none (an
+    elementwise op counts none); the parameter, its gradient and its two
+    f32 moments read once, the parameter and the moments written once."""
+    return 0, elems * (2 * param_bytes + grad_bytes + 16)
+
+
+def sq_norm_cost(grad_bytes: int, leaves: int) -> Tuple[int, int]:
+    """(operations, bytes) of ``sq_norm`` over ``leaves`` gradients of
+    ``grad_bytes`` in all: none; each read once, one f32 written a leaf."""
+    return 0, grad_bytes + 4 * leaves
 
 
 # -- the counter ----------------------------------------------------------------

@@ -454,7 +454,7 @@ def make_train_step(cfg: ModelConfig, mesh, options: TrainOptions =
         lr = lr_fn(int(state["step"]))
         _, opt, gnorm = adamw_update(grads, state["opt"], named, lr,
                                      options.adamw, mesh if proc else None,
-                                     specs)
+                                     specs, use_kernel)
         del grads
         metrics["grad_norm"] = gnorm
         metrics["lr"] = torch.tensor(lr, dtype=torch.float32)

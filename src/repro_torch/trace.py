@@ -27,7 +27,8 @@ warning filters are restored after the span, and other warnings re-issued.
 The spans the port opens, and the counters: ``serve.prefill`` and
 ``train.step`` (a step, with its syncs), ``train.forward_backward``,
 ``train.grad_sync``, ``train.optimizer`` (AdamW with the norm and the
-clip), ``attn`` (an attention block's forward: projections, rope, the
+clip), ``adamw.update`` (inside it, the update alone, the norm left
+out), ``attn`` (an attention block's forward: projections, rope, the
 kernel, the output projection), ``moe.route``, ``moe.dispatch``,
 ``moe.exchange`` (each trip between the dispatch buffer and the expert
 grid: the all-to-all with the grid's permutes and copies), ``moe.combine``,
@@ -37,7 +38,9 @@ the recurrences' time loops ``ssm_scan``, and the process collectives'
 ``moe.grid_rows`` (the rows the grouped FFN runs over: the whole grid, or
 the sum of its experts' filled rows where it is told them, as on the local
 path, whose kernel skips the rest: there kept over grid rows is 1 by
-construction) and ``host_syncs``.
+construction), ``adamw.elems`` (the elements AdamW updated),
+``adamw.kernel_elems`` (those its update kernel took) and
+``host_syncs``.
 """
 
 from __future__ import annotations

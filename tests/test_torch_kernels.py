@@ -19,6 +19,7 @@ from repro_torch import _build
 from repro_torch.convert import to_torch
 from repro_torch.kernels.a2a_pack import a2a_pack, a2a_unpack
 from repro_torch.kernels.a2a_pack.a2a_pack import _block_copy
+from repro_torch.kernels.adamw import adamw as adamw_kernels
 from repro_torch.configs import get_config
 from repro_torch.kernels.grouped_matmul import grouped_matmul, variant
 
@@ -123,7 +124,7 @@ def test_kernels_raise_without_cuda():
     """Asking for a kernel with no CUDA device raises; nothing falls back."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for name in ("a2a_block_copy", "grouped_matmul"):
+    for name in ("a2a_block_copy", "grouped_matmul", "adamw"):
         with pytest.raises(RuntimeError, match="CUDA"):
             _build.load(name)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -131,6 +132,9 @@ def test_kernels_raise_without_cuda():
     x = torch.zeros(4, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         _block_copy(x, x, torch.zeros(2, dtype=torch.int32), 2, 32, False)
+    for fn in (adamw_kernels._norm_fn, adamw_kernels._step_fn):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
 
 
 @pytest.mark.parametrize("bad", ["idx_dtype", "noncontig", "meta"])

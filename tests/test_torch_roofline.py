@@ -200,7 +200,7 @@ CELLS = {
         {"flash_attention", "grouped_matmul", "a2a_pack", "a2a_unpack"}),
     "megatron train step": (_train_counts, ("megatron-moe-32e",),
                             {"flash_attention", "flash_attention_bwd",
-                             "grouped_matmul"}),
+                             "grouped_matmul", "sq_norm", "adamw_step"}),
 }
 
 
@@ -227,7 +227,9 @@ def _unreported(name):
         "flash_attention":
             "repro_torch.kernels.flash_attention.flash_attention",
         "flash_attention_bwd":
-            "repro_torch.kernels.flash_attention.flash_attention"}[name]]
+            "repro_torch.kernels.flash_attention.flash_attention",
+        "sq_norm": "repro_torch.kernels.adamw.adamw",
+        "adamw_step": "repro_torch.kernels.adamw.adamw"}[name]]
     real = module._counted
 
     def counted(kernel, cost):
@@ -245,7 +247,9 @@ FAULTS = {"a2a_pack": "megatron plan prefill on (2, 2, 1)",
           "a2a_unpack": "megatron plan prefill on (2, 2, 1)",
           "grouped_matmul": "megatron prefill",
           "flash_attention": "qwen3 prefill",
-          "flash_attention_bwd": "megatron train step"}
+          "flash_attention_bwd": "megatron train step",
+          "sq_norm": "megatron train step",
+          "adamw_step": "megatron train step"}
 
 
 @pytest.mark.parametrize("kernel", list(FAULTS))
