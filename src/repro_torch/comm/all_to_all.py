@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import trace
 from ..launch.mesh import LocalMesh, ProcessMesh, all_to_all, ppermute
 
 __all__ = [
@@ -96,8 +97,10 @@ def direct_all_to_all(x: torch.Tensor, slow_axis: str, fast_axes: AxisNames,
 
 def intra_all_to_all(x: torch.Tensor, fast_axes: AxisNames, *,
                      mesh: Mesh) -> torch.Tensor:
-    """All-to-all restricted to the fast (intra-pod) axes."""
-    return all_to_all(mesh, x, _as_tuple(fast_axes))
+    """All-to-all restricted to the fast (intra-pod) axes, in the span
+    ``a2a.intra``."""
+    with trace.span("a2a.intra"):
+        return all_to_all(mesh, x, _as_tuple(fast_axes))
 
 
 def _ranks(mesh: Mesh, device) -> torch.Tensor:

@@ -57,6 +57,7 @@ from ..configs.registry import ModelConfig
 # plain wrapper call
 from ..kernels.flash_attention import flash_attention_autograd as \
     flash_attention
+from .published import clip_qkv
 from .tp import copy_in, enter, gather_cols, kv_heads, model_coord, \
     q_heads, row_parallel, tp_of
 
@@ -177,6 +178,9 @@ class Attention(nn.Module):
         self.wk = param(dense_init(gen, d, k * dh, dtype, device))
         self.wv = param(dense_init(gen, d, k * dh, dtype, device))
         self.wo = param(dense_init(gen, h * dh, d, dtype, device))
+        # the bound on the projected q, k and v, or None
+        # (``published.clip_qkv``), resolved once for every path
+        self.clip_qkv = clip_qkv(cfg.name)
         if cfg.qk_norm:
             self.q_norm = param(torch.ones((dh,), dtype=torch.float32,
                                            device=device))
@@ -269,11 +273,16 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     """q, k, v of the query heads ``p``'s ``wq`` columns touch and the kv
     heads they read (``_heads``), and the offset of those columns in the
     first head; ``tp`` (or None) as ``_attn_tp`` gives it, ``sp`` the
-    sequence chunks ``x`` is one of under SP (``tp.enter``)."""
+    sequence chunks ``x`` is one of under SP (``tp.enter``).  Where ``p``
+    holds a clip (``Attention.clip_qkv``: DBRX's) q, k and v are clamped
+    as projected, before the norms and RoPE, on every path alike."""
     heads, off, sel = _heads(cfg, p, tp)
     x = enter(tp, sp, x)
     q = _project_q(cfg, p, x, tp, heads)
     kk, v = _project_kv(cfg, p, x, tp, sel)
+    clip = p.clip_qkv
+    if clip is not None:
+        q, kk, v = (t.clamp(-clip, clip) for t in (q, kk, v))
     if cfg.qk_norm:
         q = rms_head_norm(q, copy_in(tp, p.q_norm))
         kk = rms_head_norm(kk, copy_in(tp, p.k_norm))

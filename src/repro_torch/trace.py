@@ -32,8 +32,12 @@ out), ``attn`` (an attention block's forward: projections, rope, the
 kernel, the output projection), ``moe.route``, ``moe.dispatch``,
 ``moe.exchange`` (each trip between the dispatch buffer and the expert
 grid: the all-to-all with the grid's permutes and copies), ``moe.combine``,
-the recurrences' time loops ``ssm_scan``, and the process collectives'
-``procmesh.*``; ``moe.pairs_routed`` (each held rank's tokens times top-k),
+``a2a.intra`` (each ``comm/all_to_all.intra_all_to_all`` call: the whole
+exchange where the experts lie over the fast axes alone, as dbrx's, and
+the intra-pod step of each flash or hierarchical rotation, not the plan's
+intra-pod all-to-all in ``comm/plan_exec.py``), the recurrences' time loops
+``ssm_scan``, and the process collectives' ``procmesh.*``;
+``moe.pairs_routed`` (each held rank's tokens times top-k),
 ``moe.pairs_kept`` (the pairs within the experts' capacity),
 ``moe.grid_rows`` (the rows the grouped FFN runs over: the whole grid, or
 the sum of its experts' filled rows where it is told them, as on the local
